@@ -9,8 +9,8 @@ Phases, each printing one JSON line:
   2. kernels: each CUDA kernel against its plain PyTorch version on the card
      at the RNA batch-16 shapes, with kernel, plain, library and bound times;
   3. slice: RNAScoringService(device="cuda") scores a batch of synthetic
-     RNA-scale structures with seeded weights (the main path; both kernels'
-     launch counts must rise), then the folded, unfolded and plain paths
+     RNA-scale structures with seeded weights (the main path; every kernel's
+     launch count must rise), then the folded, unfolded and plain paths
      score the same batch and are compared; graphs/s and ms per batch;
   4. service: the HTTP server on an ephemeral port answers JSON and raw-PDB
      requests, compared with direct scoring;
@@ -108,6 +108,21 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def enqueue_ms(fn, iters: int = 50) -> float:
+    """Host time to issue one call (no synchronize inside the loop): where it
+    exceeds the device time, a run of calls is bound by the host."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / iters * 1e3
+
+
 def compare(name: str, got, want, atol: float, rtol: float) -> dict:
     """Max errors of ``got`` against ``want``; raises beyond atol + rtol|want|."""
     import torch
@@ -163,6 +178,7 @@ def kernel_a_case(name, num_out, rows, d, gather, modulate, gen):
     plain = time_ms(lambda: triplet_aggregate_plain(a, off, idx, b))
     lib = time_ms(lambda: acc.index_add_(0, seg_long, vals))
     ms = time_ms(lambda: triplet_aggregate(a, off, idx, b))
+    enq = enqueue_ms(lambda: triplet_aggregate(a, off, idx, b))
     a_read = (torch.unique(idx[:valid]).numel() if gather else valid) * d * 4
     nbytes = (a_read + (valid * d * 4 if modulate else 0) + (valid * 4 if gather else 0)
               + (num_out + 1) * 4 + num_out * d * 4)
@@ -170,6 +186,7 @@ def kernel_a_case(name, num_out, rows, d, gather, modulate, gen):
     bms, by = bound_ms(nbytes, flops)
     return {"case": name, "num_out": num_out, "rows": rows, "d": d,
             "gather": gather, "modulate": modulate, **err, "ms": ms, "ms_first": ms_first,
+            "enqueue_ms": enq,
             "plain_ms": plain, "library_ms": lib, "bound_ms": bms, "bound_by": by}
 
 
@@ -192,6 +209,7 @@ def kernel_b_case(num_edges, triplets, ns, d, gen):
     ms_first = time_ms(lambda: sbf_modulate(*args))
     plain = time_ms(lambda: sbf_modulate_plain(*args))
     ms = time_ms(lambda: sbf_modulate(*args))
+    enq = enqueue_ms(lambda: sbf_modulate(*args))
     edges_read = torch.unique(args[8]).numel()
     nbytes = (edges_read * (ns + 1) * d * 4 + triplets * (ns + 2) * 4
               + (2 * d * d + 3 * d) * 4 + triplets * d * 4)
@@ -201,7 +219,69 @@ def kernel_b_case(num_edges, triplets, ns, d, gen):
     bms, by = bound_ms(nbytes, flops)
     return {"case": "t2 fused folded gather", "edges": num_edges,
             "triplets": triplets, "ns": ns, "d": d, **err, "ms": ms, "ms_first": ms_first,
+            "enqueue_ms": enq,
             "plain_ms": plain, "library_ms": None, "bound_ms": bms, "bound_by": by}
+
+
+def row_gather_case(name, table_rows, rows, d, gen):
+    """The row gather against its plain version; ``library_ms`` times
+    ``torch.index_select``, the same function in one call."""
+    import torch
+
+    from pamnet_tpu_torch.ops.gather import row_gather, row_gather_plain
+
+    dev = torch.device("cuda")
+    src = torch.randn(table_rows, d, device=dev, generator=gen)
+    idx = torch.randint(0, table_rows, (rows,), device=dev, generator=gen).to(torch.int32)
+    got = row_gather(src, idx)
+    want = row_gather_plain(src, idx)
+    torch.cuda.synchronize()
+    err = compare(f"row_gather[{name}]", got, want, atol=0.0, rtol=0.0)
+    idx_long = idx.long()
+    ms_first = time_ms(lambda: row_gather(src, idx))
+    plain = time_ms(lambda: row_gather_plain(src, idx))
+    lib = time_ms(lambda: torch.index_select(src, 0, idx_long))
+    ms = time_ms(lambda: row_gather(src, idx))
+    enq = enqueue_ms(lambda: row_gather(src, idx))
+    nbytes = torch.unique(idx).numel() * d * 4 + rows * 4 + rows * d * 4
+    bms, by = bound_ms(nbytes, 0.0)
+    return {"case": name, "table_rows": table_rows, "rows": rows, "d": d, **err,
+            "ms": ms, "ms_first": ms_first, "enqueue_ms": enq, "plain_ms": plain,
+            "library_ms": lib, "bound_ms": bms, "bound_by": by}
+
+
+def edge_message_case(name, nodes, rows, d, gated, masked, gen):
+    """The fused edge message against its plain version; no single PyTorch
+    call computes it, so ``library_ms`` is None."""
+    import torch
+
+    from pamnet_tpu_torch.ops.gather import edge_message, edge_message_plain
+
+    dev = torch.device("cuda")
+    r = lambda *s: torch.randn(*s, device=dev, generator=gen)  # noqa: E731
+    idx = lambda: torch.randint(0, nodes, (rows,), device=dev,  # noqa: E731
+                                generator=gen).to(torch.int32)
+    valid = rows - rows // 16
+    args = (r(nodes, d), r(nodes, d), idx(), idx(), r(rows, d),
+            r(rows, d) if gated else None,
+            (torch.arange(rows, device=dev) < valid).float() if masked else None)
+    got = edge_message(*args)
+    want = edge_message_plain(*args)
+    torch.cuda.synchronize()
+    err = compare(f"edge_message[{name}]", got, want, atol=1e-6, rtol=1e-5)
+    ms_first = time_ms(lambda: edge_message(*args))
+    plain = time_ms(lambda: edge_message_plain(*args))
+    ms = time_ms(lambda: edge_message(*args))
+    enq = enqueue_ms(lambda: edge_message(*args))
+    nbytes = ((torch.unique(args[2]).numel() + torch.unique(args[3]).numel()) * d * 4
+              + rows * 8 + rows * d * 4 * (3 if gated else 2) + (rows * 4 if masked else 0))
+    # Per element: two adds, silu (exp, add, divide: 4 ops), the factors.
+    flops = rows * d * (6 + int(gated) + int(masked))
+    bms, by = bound_ms(nbytes, flops)
+    return {"case": name, "nodes": nodes, "rows": rows, "d": d, "gated": gated,
+            "masked": masked, **err, "ms": ms, "ms_first": ms_first, "enqueue_ms": enq,
+            "plain_ms": plain,
+            "library_ms": None, "bound_ms": bms, "bound_by": by}
 
 
 def post(url: str, data: bytes, ctype: str) -> dict:
@@ -240,6 +320,7 @@ def main() -> int:
     from pamnet_tpu_torch.data.loader import GraphLoader
     from pamnet_tpu_torch.models.pamnet import PAMNet
     from pamnet_tpu_torch.ops import _build
+    from pamnet_tpu_torch.ops.gather import edge_message, row_gather
     from pamnet_tpu_torch.ops.sbf_modulate import sbf_modulate
     from pamnet_tpu_torch.ops.triplet import triplet_aggregate
     from pamnet_tpu_torch.serve import RNAScoringService, make_server
@@ -271,7 +352,17 @@ def main() -> int:
         kernel_a_case("t2 gather+modulate D=128", p["el"], p["t2"], 128, True, True, gen),
     ]
     b_case = kernel_b_case(p["el"], p["t2"], 7, 16, gen)
-    emit({"phase": "kernels", "triplet_aggregate": a_cases, "sbf_modulate": [b_case]})
+    e_cases = [
+        edge_message_case("global message (gate, mask)", p["n"], p["eg"], 16, True, True, gen),
+        edge_message_case("local m_kj (gate)", p["n"], p["el"], 16, True, False, gen),
+        edge_message_case("local m_ji", p["n"], p["el"], 16, False, False, gen),
+    ]
+    g_cases = [
+        row_gather_case("atom-type embedding", 3, p["n"], 16, gen),
+        row_gather_case("radial table at t2 (unfolded path)", p["el"], p["t2"], 42, gen),
+    ]
+    emit({"phase": "kernels", "triplet_aggregate": a_cases, "sbf_modulate": [b_case],
+          "edge_message": e_cases, "row_gather": g_cases})
 
     # ---- 3. the slice: scoring service on the card ----
     rng = np.random.default_rng(args.seed)
@@ -283,14 +374,22 @@ def main() -> int:
     state = init_params(cfg, torch.Generator().manual_seed(args.seed))
     service = RNAScoringService(state, cfg, batch_size=16, device="cuda")
 
-    triplet_aggregate.launches = 0
-    sbf_modulate.launches = 0
+    wrappers = {"triplet_aggregate": triplet_aggregate, "sbf_modulate": sbf_modulate,
+                "edge_message": edge_message, "row_gather": row_gather}
+
+    def reset_counts():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def read_counts():
+        return {name: fn.launches for name, fn in wrappers.items()}
+
+    reset_counts()
     t0 = time.perf_counter()
     scores = service.score_molecules(mols)  # the main path
     torch.cuda.synchronize()
     e2e_s = time.perf_counter() - t0
-    launches = {"triplet_aggregate": triplet_aggregate.launches,
-                "sbf_modulate": sbf_modulate.launches}
+    launches = read_counts()
     if min(launches.values()) < 1:
         raise AssertionError(f"main path skipped a kernel: {launches}")
     if scores.shape != (len(mols),) or not np.all(np.isfinite(scores)):
@@ -330,15 +429,14 @@ def main() -> int:
             "service_vs_direct": compare("service vs direct", torch.from_numpy(scores),
                                          s_fold.cpu(), **tol),
         }
-        triplet_aggregate.launches = 0
-        sbf_modulate.launches = 0
+        reset_counts()
         folded(gb)
-        per_batch = {"triplet_aggregate": triplet_aggregate.launches,
-                     "sbf_modulate": sbf_modulate.launches}
-        triplet_aggregate.launches = 0
+        per_batch = read_counts()
+        reset_counts()
         unfolded(gb)
-        per_batch_unfolded = {"triplet_aggregate": triplet_aggregate.launches}
+        per_batch_unfolded = read_counts()
         fold_ms = time_ms(lambda: folded(gb), iters=10)
+        fold_enqueue_ms = enqueue_ms(lambda: folded(gb), iters=10)
         plain_ms = time_ms(lambda: folded(gb, plain=True), iters=10)
         unfold_ms = time_ms(lambda: unfolded(gb), iters=10)
     emit({"phase": "slice", "structures": len(mols), "atoms": args.atoms,
@@ -349,6 +447,7 @@ def main() -> int:
           "checks": checks, "launches_per_batch": per_batch,
           "launches_per_batch_unfolded": per_batch_unfolded,
           "folded_ms_per_batch": fold_ms, "folded_graphs_per_s": ng / fold_ms * 1e3,
+          "folded_enqueue_ms_per_batch": fold_enqueue_ms,
           "unfolded_ms_per_batch": unfold_ms,
           "unfolded_graphs_per_s": ng / unfold_ms * 1e3,
           "plain_ms_per_batch": plain_ms, "plain_graphs_per_s": ng / plain_ms * 1e3,
@@ -370,8 +469,11 @@ def main() -> int:
                 rows.append({"name": ev.key[:80], "device_ms_per_batch": dev_us / 3e3,
                              "calls_per_batch": ev.count / 3})
         rows.sort(key=lambda r: -r["device_ms_per_batch"])
+        host = sorted(prof.key_averages(), key=lambda ev: -ev.self_cpu_time_total)
         emit({"phase": "profile", "folded_forward_top": rows[:15],
-              "device_ms_per_batch_total": sum(r["device_ms_per_batch"] for r in rows)})
+              "device_ms_per_batch_total": sum(r["device_ms_per_batch"] for r in rows),
+              "host_top": [{"name": ev.key[:80], "host_ms_per_batch": ev.self_cpu_time_total / 3e3,
+                            "calls_per_batch": ev.count / 3} for ev in host[:12]]})
 
     # ---- 4. the HTTP service ----
     server = make_server(service, "127.0.0.1", 0, f"random weights, seed {args.seed}")
@@ -413,24 +515,25 @@ def main() -> int:
     emit({"phase": "service", "requests": http})
 
     # ---- 5. every kernel of the path, with its numbers ----
-    rep_a = a_cases[0]  # the main path's mode: the folded t2 triplet sum
+    # Each kernel's numbers are those of its main-path case: the folded t2
+    # triplet sum, the global message and the embedding lookup.
+    table = [
+        ("triplet_aggregate", "triplet_aggregate.cu", "pamnet_tpu/ops/pallas_triplet.py:47",
+         a_cases, a_cases[0]),
+        ("sbf_modulate", "sbf_modulate.cu", "tools/fused_sbf_kernel_probe.py:42",
+         [b_case], b_case),
+        ("edge_message", "row_gather.cu", "tools/vmem_gather_probe.py:86",
+         e_cases, e_cases[0]),
+        ("row_gather", "row_gather.cu", "tools/vmem_gather_probe.py:42",
+         g_cases, g_cases[0]),
+    ]
     kernels = [
-        {"name": "triplet_aggregate", "route": "cuda",
-         "source": "pamnet_tpu_torch/csrc/triplet_aggregate.cu",
-         "replaces": "pamnet_tpu/ops/pallas_triplet.py:47",
-         "launches": launches["triplet_aggregate"],
-         "max_abs_err": max(c["max_abs_err"] for c in a_cases),
-         "ms": rep_a["ms"], "plain_ms": rep_a["plain_ms"],
-         "bound_ms": rep_a["bound_ms"], "bound_by": rep_a["bound_by"],
-         "library_ms": rep_a["library_ms"], "timed_case": rep_a["case"]},
-        {"name": "sbf_modulate", "route": "cuda",
-         "source": "pamnet_tpu_torch/csrc/sbf_modulate.cu",
-         "replaces": "tools/fused_sbf_kernel_probe.py:42",
-         "launches": launches["sbf_modulate"],
-         "max_abs_err": b_case["max_abs_err"],
-         "ms": b_case["ms"], "plain_ms": b_case["plain_ms"],
-         "bound_ms": b_case["bound_ms"], "bound_by": b_case["bound_by"],
-         "library_ms": None, "timed_case": b_case["case"]},
+        {"name": name, "route": "cuda", "source": f"pamnet_tpu_torch/csrc/{src}",
+         "replaces": replaces, "launches": launches[name],
+         "max_abs_err": max(c["max_abs_err"] for c in cases),
+         **{k: rep[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+         "timed_case": rep["case"]}
+        for name, src, replaces, cases, rep in table
     ]
     emit({"kernels": kernels})
     print(smi, flush=True)

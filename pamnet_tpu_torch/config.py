@@ -15,9 +15,10 @@ class PAMNetConfig:
 
     ``flow`` sets where the global layer aggregates: ``"source_to_target"``
     at ``edge_index[1]`` (dst), ``"target_to_source"`` at ``edge_index[0]``
-    (src).  ``fold_sbf`` / ``fuse_sbf_gather``: None = the automatic gates of
-    the JAX model (fold when ``num_spherical * dim <= 128``; fuse when
-    ``(num_spherical + 1) * dim <= 128``), True/False force them.
+    (src).  ``fold_sbf``: None folds the sbf MLP through the triplet gather
+    exactly where the fused ``sbf_modulate`` kernel is built for
+    ``(num_spherical, dim)``; True/False force it.  (The JAX model's
+    ``fuse_sbf_gather`` has no counterpart: a folded stage always runs fused.)
     """
 
     dataset: str = "QM9"
@@ -34,7 +35,6 @@ class PAMNetConfig:
     variant: str = "full"
     compute_dtype: str = "float32"
     fold_sbf: bool | None = None
-    fuse_sbf_gather: bool | None = None
 
     def __post_init__(self):
         if self.flow not in ("source_to_target", "target_to_source"):

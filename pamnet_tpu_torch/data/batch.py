@@ -25,7 +25,9 @@ class GraphBatch:
     """A padded multi-graph batch of tensors.  Masks are float 0/1; padded
     index entries point at slot 0.  ``*_off`` fields are (groups+1,) int32
     CSR offsets over rows sorted by that key, or None when the rows are not
-    sorted by it.  ``num_graphs`` counts the real (unpadded) graphs."""
+    sorted by it.  ``num_graphs`` counts the real (unpadded) graphs and
+    ``valid`` the real rows of each padded dimension ("n", "eg", "el", "t2",
+    "t1"), host ints that the kernels' wrappers check against."""
 
     z: torch.Tensor
     pos: torch.Tensor
@@ -62,6 +64,7 @@ class GraphBatch:
     t2_ji_off: torch.Tensor | None
     t1_ji_off: torch.Tensor | None
     num_graphs: int
+    valid: dict[str, int]
 
     def to(self, device) -> "GraphBatch":
         return dataclasses.replace(self, **{
@@ -304,4 +307,5 @@ def collate_structures(structs: list[dict], pads: PadSizes | None = None,
         t2_ji_off=opt(_offsets(f["t2_ji"], n_t2, pads.el)),
         t1_ji_off=opt(_offsets(f["t1_ji"], n_t1, pads.el)),
         num_graphs=nb,
+        valid={"n": num_nodes, "eg": n_eg, "el": n_el, "t2": n_t2, "t1": n_t1},
     )

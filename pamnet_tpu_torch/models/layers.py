@@ -2,9 +2,10 @@
 local_message_passing.py; JAX counterpart ``pamnet_tpu/models/layers.py``).
 
 Every aggregation goes through ``ops.triplet.triplet_aggregate`` over the
-batch's CSR offsets, and the folded triplet stream through
+batch's CSR offsets, every edge message through ``ops.gather.edge_message``
+(which gathers its node rows itself), and the folded triplet stream through
 ``ops.sbf_modulate.sbf_modulate``.  ``plain=True`` calls the plain PyTorch
-versions of both on any device: the reference route that checks the
+versions of the kernels on any device: the reference route that checks the
 kernels on the card.  Layers return ``(x, out, att)``: the new node state,
 the per-node scalar head and the attention logit of the fusion.
 """
@@ -18,6 +19,8 @@ from torch import nn
 from torch.nn import functional as F
 
 from pamnet_tpu_torch.nn import Linear, Res, mlp
+from pamnet_tpu_torch.ops.gather import (edge_message, edge_message_plain, row_gather,
+                                         row_gather_plain)
 from pamnet_tpu_torch.ops.sbf_modulate import sbf_modulate, sbf_modulate_plain
 from pamnet_tpu_torch.ops.triplet import triplet_aggregate, triplet_aggregate_plain
 
@@ -34,24 +37,29 @@ class FoldedSBF(NamedTuple):
 
 def aggregate(values: torch.Tensor, off: torch.Tensor | None, ids: torch.Tensor,
               mask: torch.Tensor, num_groups: int, idx: torch.Tensor | None = None,
-              b: torch.Tensor | None = None, plain: bool = False) -> torch.Tensor:
+              b: torch.Tensor | None = None, total: int | None = None,
+              plain: bool = False) -> torch.Tensor:
     """out[g] = sum over rows r with ids[r] == g (and mask[r] > 0) of
     values[idx[r]] * b[r] (``idx``/``b`` None: values[r], no modulation).
 
-    ``off`` are the batch's CSR offsets when the rows are sorted by ``ids``.
-    Otherwise the valid rows are sorted here (stable, padded rows last) and
-    the permutation becomes the kernel's gather."""
-    fn = triplet_aggregate_plain if plain else triplet_aggregate
+    ``off`` are the batch's CSR offsets when the rows are sorted by ``ids``,
+    and ``total`` their last entry, the batch's valid row count.  Otherwise
+    the valid rows are sorted here (stable, padded rows last) and the
+    permutation becomes the kernel's gather."""
     if off is not None:
-        return fn(values, off, idx, b)
+        if plain:
+            return triplet_aggregate_plain(values, off, idx, b)
+        return triplet_aggregate(values, off, idx, b, total=total)
+    fn = triplet_aggregate_plain if plain else triplet_aggregate
     keyed = torch.where(mask > 0, ids.long(), num_groups)
     order = torch.argsort(keyed, stable=True)
     off = torch.searchsorted(
         keyed[order], torch.arange(num_groups + 1, device=ids.device)
     ).to(torch.int32)
     gather = order if idx is None else idx[order]
-    return fn(values, off, gather.to(torch.int32).contiguous(),
-              None if b is None else b[order].contiguous())
+    if b is not None:
+        b = (row_gather_plain if plain else row_gather)(b, order.to(torch.int32))
+    return fn(values, off, gather.to(torch.int32), b)
 
 
 class GlobalMP(nn.Module):
@@ -73,22 +81,16 @@ class GlobalMP(nn.Module):
         self.W = nn.Parameter(torch.empty(dim, 1))
 
     def forward(self, x, edge_attr, src, dst, e_mask, flow: str, off_src,
-                off_dst, plain: bool = False):
+                off_dst, total: int, plain: bool = False):
         res_x = x
         x = self.mlp_x1(x)
         if flow == "source_to_target":
             i_idx, j_idx, off = dst, src, off_dst
         else:
             i_idx, j_idx, off = src, dst, off_src
-        dim = x.shape[1]
-        lin = self.mlp_m[0][0]
-        w = lin.weight  # (dim, 3*dim) = [x_i | x_j | e]
-        xi_proj = x @ w[:, :dim].T
-        xj_proj = x @ w[:, dim:2 * dim].T
-        m = F.silu(xi_proj[i_idx] + xj_proj[j_idx]
-                   + F.linear(edge_attr, w[:, 2 * dim:], lin.bias))
-        m = m * self.W_edge_attr(edge_attr) * e_mask[:, None]
-        x = x + aggregate(m, off, i_idx, e_mask, x.shape[0], plain=plain)
+        m = _edge_message(self.mlp_m, x, edge_attr, i_idx, j_idx,
+                          self.W_edge_attr(edge_attr), e_mask, plain)
+        x = x + aggregate(m, off, i_idx, e_mask, x.shape[0], total=total, plain=plain)
         x = self.mlp_x2(x)
         x = self.res1(x) + res_x
         x = self.res3(self.res2(x))
@@ -96,14 +98,18 @@ class GlobalMP(nn.Module):
         return x, self.W_out(out), out @ self.W
 
 
-def _edge_message(mlp_m: nn.Sequential, x, rbf, i, j):
-    """silu(W @ concat(x_i, x_j, rbf) + b) with the x-projections hoisted to
-    node level (reference: local_message_passing.py:40-46)."""
+def _edge_message(mlp_m: nn.Sequential, x, e, i, j, gate=None, mask=None,
+                  plain: bool = False):
+    """silu(W @ concat(x_i, x_j, e) + b) * gate * mask with the x-projections
+    hoisted to node level (reference: local_message_passing.py:40-46 and
+    the message of global_message_passing.py); the kernel gathers the
+    projected rows by ``i``/``j`` itself."""
     dim = x.shape[1]
     lin = mlp_m[0][0]
-    w = lin.weight
-    return F.silu((x @ w[:, :dim].T)[i] + (x @ w[:, dim:2 * dim].T)[j]
-                  + F.linear(rbf, w[:, 2 * dim:], lin.bias))
+    w = lin.weight  # (dim, 3*dim) = [x_i | x_j | e]
+    fn = edge_message_plain if plain else edge_message
+    return fn(x @ w[:, :dim].T, x @ w[:, dim:2 * dim].T, i, j,
+              F.linear(e, w[:, 2 * dim:], lin.bias), gate, mask)
 
 
 class LocalMP(nn.Module):
@@ -139,24 +145,27 @@ class LocalMP(nn.Module):
         num_edges = rbf.shape[0]
         res_x = x
         x = self.mlp_x1(x)
-        m_ji = _edge_message(self.mlp_m_ji, x, rbf, i, j)
-        m_neighbor = _edge_message(self.mlp_m_kj, x, rbf, i, j) * self.lin_rbf(rbf)
+        m_ji = _edge_message(self.mlp_m_ji, x, rbf, i, j, plain=plain)
+        m_neighbor = _edge_message(self.mlp_m_kj, x, rbf, i, j, self.lin_rbf(rbf),
+                                   plain=plain)
 
         if isinstance(sbf2, FoldedSBF):
             m2 = self._modulate(m_neighbor, sbf2, g.t2_kj, g.t2_mask, plain)
             m1 = self._modulate(m_neighbor, sbf1, g.t1_jj, g.t1_mask, plain)
             m_other = (
-                aggregate(m2, g.t2_ji_off, g.t2_ji, g.t2_mask, num_edges, plain=plain)
-                + aggregate(m1, g.t1_ji_off, g.t1_ji, g.t1_mask, num_edges, plain=plain)
+                aggregate(m2, g.t2_ji_off, g.t2_ji, g.t2_mask, num_edges,
+                          total=g.valid["t2"], plain=plain)
+                + aggregate(m1, g.t1_ji_off, g.t1_ji, g.t1_mask, num_edges,
+                            total=g.valid["t1"], plain=plain)
             )
         else:
             b2 = self.mlp_sbf(sbf2) * g.t2_mask[:, None]
             b1 = self.mlp_sbf(sbf1) * g.t1_mask[:, None]
             m_other = (
                 aggregate(m_neighbor, g.t2_ji_off, g.t2_ji, g.t2_mask, num_edges,
-                          idx=g.t2_kj, b=b2, plain=plain)
+                          idx=g.t2_kj, b=b2, total=g.valid["t2"], plain=plain)
                 + aggregate(m_neighbor, g.t1_ji_off, g.t1_ji, g.t1_mask, num_edges,
-                            idx=g.t1_jj, b=b1, plain=plain)
+                            idx=g.t1_jj, b=b1, total=g.valid["t1"], plain=plain)
             )
         return self._tail(x, res_x, m_ji + m_other, rbf, g, plain)
 
@@ -165,7 +174,7 @@ class LocalMP(nn.Module):
         (reference: local_message_passing.py:53-66)."""
         m = self.lin_rbf_out(rbf) * m * g.el_mask[:, None]
         x = x + aggregate(m, g.el_dst_off, g.el_dst, g.el_mask, x.shape[0],
-                          plain=plain)
+                          total=g.valid["el"], plain=plain)
         x = self.mlp_x2(x)
         x = self.res1(x) + res_x
         x = self.res3(self.res2(x))

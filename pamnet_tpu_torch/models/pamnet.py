@@ -2,11 +2,12 @@
 counterpart ``pamnet_tpu/models/pamnet.py:116-397``).
 
 The batch carries host-f64 distances and spherical-basis tables
-(``data/batch.py``); the trainable Bessel basis is evaluated here.  With
-``num_spherical * dim <= 128`` (the RNA dim-16 model) the model-level sbf
-MLP folds through the triplet gather: the radial table is projected once
-per edge and the folded stage runs in ``sbf_modulate``; otherwise the
-triplet basis is expanded and passed through the MLP per triplet.
+(``data/batch.py``); the trainable Bessel basis is evaluated here.  Where
+``sbf_modulate`` has a kernel for ``(num_spherical, dim)`` (the RNA dim-16
+model) the model-level sbf MLP folds through the triplet gather: the radial
+table is projected once per edge and the folded stage runs in that kernel;
+otherwise the triplet basis is expanded and passed through the MLP per
+triplet, and kernel A gathers and modulates.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ from pamnet_tpu_torch.data.batch import GraphBatch
 from pamnet_tpu_torch.models.layers import FoldedSBF, GlobalMP, LocalMP
 from pamnet_tpu_torch.nn import init_, mlp
 from pamnet_tpu_torch.ops.basis import BesselRBF
+from pamnet_tpu_torch.ops.gather import row_gather, row_gather_plain
+from pamnet_tpu_torch.ops.sbf_modulate import KERNEL_SHAPES
 from pamnet_tpu_torch.ops.segment import segment_mean
 
 
@@ -53,71 +56,55 @@ class PAMNet(nn.Module):
         init_(self, generator)
 
     def fold_sbf(self) -> bool:
-        """Fold the sbf MLP through the gather (JAX ``_fold_gate``)."""
+        """Fold the sbf MLP through the gather and run the folded stage in
+        ``sbf_modulate``: by default exactly where that kernel is built."""
         cfg = self.cfg
         if cfg.fold_sbf is not None:
             return cfg.fold_sbf
-        return cfg.num_spherical * cfg.dim <= 128
+        return (cfg.num_spherical, cfg.dim) in KERNEL_SHAPES
 
-    def fuse_sbf_gather(self) -> bool:
-        """Run the folded stage as one fused gather (``sbf_modulate``)."""
-        cfg = self.cfg
-        if cfg.fuse_sbf_gather is not None:
-            return cfg.fuse_sbf_gather
-        return (cfg.num_spherical + 1) * cfg.dim <= 128
-
-    def _triplet_basis(self, g: GraphBatch):
+    def _triplet_basis(self, g: GraphBatch, plain: bool):
         """(edge_attr_sbf2, edge_attr_sbf1): (T, dim) tensors, or
         ``FoldedSBF`` inputs of the fused folded stage."""
-        ns, nr, dim = self.cfg.num_spherical, self.cfg.num_radial, self.cfg.dim
+        ns, nr = self.cfg.num_spherical, self.cfg.num_radial
         if not self.fold_sbf():
+            gather = row_gather_plain if plain else row_gather
+
             def expand(mlp_sbf, idx, cbf):
-                sbf = g.sbf_radial[idx] * torch.repeat_interleave(cbf, nr, dim=1)
+                sbf = gather(g.sbf_radial, idx) * torch.repeat_interleave(cbf, nr, dim=1)
                 return mlp_sbf(sbf)
 
             return (expand(self.mlp_sbf2, g.t2_kj, g.cbf2),
                     expand(self.mlp_sbf1, g.t1_jj, g.cbf1))
 
-        def projected(mlp_sbf):
+        def folded(mlp_sbf, cbf):
             lin = mlp_sbf[0][0]
             w = lin.weight  # (dim, ns*nr)
             proj = torch.cat(
                 [g.sbf_radial[:, l * nr:(l + 1) * nr] @ w[:, l * nr:(l + 1) * nr].T
                  for l in range(ns)], dim=1,
             )  # (El, ns*dim)
-            return proj, lin.bias
+            return FoldedSBF(proj, cbf, lin.bias)
 
-        fuse = self.fuse_sbf_gather()
-
-        def folded(mlp_sbf, idx, cbf):
-            proj, bias = projected(mlp_sbf)
-            if fuse:
-                return FoldedSBF(proj, cbf, bias)
-            rows = proj[idx]
-            out = bias
-            for l in range(ns):
-                out = out + cbf[:, l:l + 1] * rows[:, l * dim:(l + 1) * dim]
-            return F.silu(out)
-
-        return (folded(self.mlp_sbf2, g.t2_kj, g.cbf2),
-                folded(self.mlp_sbf1, g.t1_jj, g.cbf1))
+        return folded(self.mlp_sbf2, g.cbf2), folded(self.mlp_sbf1, g.cbf1)
 
     def forward(self, g: GraphBatch, plain: bool = False) -> torch.Tensor:
         """(G,) per-graph scores, 0 for padded graphs.  ``plain=True`` runs
         the plain versions of the kernels, on any device."""
         cfg = self.cfg
-        x = self.embeddings[g.z]
+        x = (row_gather_plain if plain else row_gather)(self.embeddings, g.z)
         # Mask before basis: padded distances at 2*cutoff zero every channel.
         dist_g = torch.where(g.eg_mask > 0, g.dist_g, 2.0 * cfg.cutoff_g)
         dist_l = torch.where(g.el_mask > 0, g.dist_l, 2.0 * cfg.cutoff_l)
         rbf_l = self.mlp_rbf_l(self.rbf_l(dist_l, cfg.cutoff_l, cfg.envelope_exponent))
         rbf_g = self.mlp_rbf_g(self.rbf_g(dist_g, cfg.cutoff_g, cfg.envelope_exponent))
-        sbf2, sbf1 = self._triplet_basis(g)
+        sbf2, sbf1 = self._triplet_basis(g, plain)
 
         outs, atts = [], []
         for glayer, llayer in zip(self.global_layer, self.local_layer):
             x, out_g, att_g = glayer(x, rbf_g, g.eg_src, g.eg_dst, g.eg_mask,
-                                     cfg.flow, g.eg_src_off, g.eg_dst_off, plain)
+                                     cfg.flow, g.eg_src_off, g.eg_dst_off,
+                                     g.valid["eg"], plain)
             x, out_l, att_l = llayer(x, rbf_l, sbf2, sbf1, g, plain)
             outs.append(torch.cat([out_g, out_l], dim=1))
             atts.append(torch.cat([att_g, att_l], dim=1))

@@ -30,6 +30,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "pamnet_triplet_aggregate": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     "pamnet_sbf_modulate": ([_P] * 11 + [_I, _I, _I, _P], _I),
+    "pamnet_row_gather": ([_P, _P, _P, _I, _I, _P], _I),
+    "pamnet_edge_message": ([_P] * 8 + [_I, _I, _P], _I),
     "pamnet_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -106,6 +108,25 @@ def library() -> ctypes.CDLL:
             fn.restype = restype
         _lib = lib
     return _lib
+
+
+def check_operand(what: str, name: str, t, dtype, device, shape=None) -> None:
+    """Raise unless ``t`` is a contiguous, 16-byte aligned ``dtype`` tensor
+    on the CUDA ``device`` of ``shape`` (None entries match any size): what
+    the kernels' vector loads assume."""
+    ok = (device.type == "cuda" and t.device == device and t.dtype == dtype
+          and t.is_contiguous()
+          and t.data_ptr() % 16 == 0
+          and (shape is None or (t.dim() == len(shape) and all(
+              s is None or s == n for s, n in zip(shape, t.shape)))))
+    if not ok:
+        want = "" if shape is None else " " + str(tuple(shape)).replace("None", "*")
+        raise ValueError(
+            f"{what}: {name} must be a contiguous, 16-byte aligned {dtype}{want} "
+            f"tensor on {device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
+            f"{'' if t.is_contiguous() else ', not contiguous'}"
+            f"{'' if t.data_ptr() % 16 == 0 else ', misaligned'}"
+        )
 
 
 def check(code: int, what: str) -> None:

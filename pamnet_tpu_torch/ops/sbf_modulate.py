@@ -60,13 +60,8 @@ def sbf_modulate(proj: torch.Tensor, m_neighbor: torch.Tensor,
         "idx": (idx, (t_count,)), "mask": (mask, (t_count,)),
     }
     for name, (t, shape) in shapes.items():
-        want = torch.int32 if name == "idx" else torch.float32
-        if t.device != dev or t.dtype != want or tuple(t.shape) != shape \
-                or not t.is_contiguous():
-            raise ValueError(
-                f"sbf_modulate: {name} must be a contiguous {want} {shape} "
-                f"tensor on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}"
-            )
+        dtype = torch.int32 if name == "idx" else torch.float32
+        _build.check_operand("sbf_modulate", name, t, dtype, dev, shape)
     if (ns, d) not in KERNEL_SHAPES:
         raise ValueError(
             f"sbf_modulate: no kernel for num_spherical={ns}, dim={d} "

@@ -36,46 +36,43 @@ def triplet_aggregate_plain(a: torch.Tensor, off: torch.Tensor,
     return out.index_add_(0, seg, vals)
 
 
-def _check(cond: bool, msg: str) -> None:
-    if not cond:
-        raise ValueError(f"triplet_aggregate: {msg}")
-
-
 def triplet_aggregate(a: torch.Tensor, off: torch.Tensor,
                       idx: torch.Tensor | None = None,
-                      b: torch.Tensor | None = None) -> torch.Tensor:
+                      b: torch.Tensor | None = None,
+                      total: int | None = None) -> torch.Tensor:
     """(num_out, D) sums; the plain version for CPU tensors, the CUDA kernel
-    for CUDA tensors.  Counts its kernel launches in
-    ``triplet_aggregate.launches``."""
+    for CUDA tensors.  ``total`` is ``off[-1]`` where the caller knows it on
+    the host (the batch's valid row count): the rows the kernel reads are
+    then checked without reading ``off`` back from the card.  Counts its
+    kernel launches in ``triplet_aggregate.launches``."""
     if a.device.type == "cpu":
         return triplet_aggregate_plain(a, off, idx, b)
-    _check(a.device.type == "cuda", f"unsupported device {a.device}")
-    tensors = {"a": a, "off": off, "idx": idx, "b": b}
-    for name, t in tensors.items():
-        if t is None:
-            continue
-        _check(t.device == a.device, f"{name} on {t.device}, a on {a.device}")
-        _check(t.is_contiguous(), f"{name} is not contiguous")
-        want = torch.int32 if name in ("off", "idx") else torch.float32
-        _check(t.dtype == want, f"{name} is {t.dtype}, needs {want}")
-    _check(a.dim() == 2 and a.shape[1] % 4 == 0,
-           f"a must be (rows, D) with D % 4 == 0, got {tuple(a.shape)}")
-    if b is not None:
-        _check(b.dim() == 2 and b.shape[1] == a.shape[1],
-               f"b {tuple(b.shape)} does not match a {tuple(a.shape)}")
-    if idx is not None and b is not None:
-        _check(idx.shape[0] == b.shape[0], "idx and b differ in rows")
+    dev = a.device
+    d = a.shape[1] if a.dim() == 2 else -1
+    if d % 4 or d <= 0:
+        raise ValueError(f"triplet_aggregate: a must be (rows, D) with D % 4 == 0, "
+                         f"got {tuple(a.shape)}")
+    rows = (idx if idx is not None else b if b is not None else a).shape[0]
+    operands = {"a": (a, torch.float32, (None, d)), "off": (off, torch.int32, (None,)),
+                "idx": (idx, torch.int32, (rows,)), "b": (b, torch.float32, (rows, d))}
+    for name, (t, dtype, shape) in operands.items():
+        if t is not None:
+            _build.check_operand("triplet_aggregate", name, t, dtype, dev, shape)
+    limit = rows if idx is not None else min(rows, a.shape[0])
+    if total is not None and not 0 <= total <= limit:
+        raise ValueError(f"triplet_aggregate: off[-1] = {total}, but the inputs "
+                         f"hold {limit} rows")
     num_out = off.shape[0] - 1
-    out = torch.empty((num_out, a.shape[1]), dtype=a.dtype, device=a.device)
+    out = torch.empty((num_out, d), dtype=a.dtype, device=dev)
     if num_out == 0:
         return out
     lib = _build.library()
-    with torch.cuda.device(a.device):
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.pamnet_triplet_aggregate(
             a.data_ptr(), None if b is None else b.data_ptr(),
             None if idx is None else idx.data_ptr(), off.data_ptr(),
-            out.data_ptr(), num_out, a.shape[1], int(idx is not None),
+            out.data_ptr(), num_out, d, int(idx is not None),
             int(b is not None), stream,
         )
     _build.check(code, "triplet_aggregate")

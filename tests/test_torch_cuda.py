@@ -6,6 +6,8 @@ import numpy as np
 import pytest
 import torch
 
+from pamnet_tpu_torch.ops.gather import (edge_message, edge_message_plain, row_gather,
+                                         row_gather_plain)
 from pamnet_tpu_torch.ops.sbf_modulate import sbf_modulate, sbf_modulate_plain
 from pamnet_tpu_torch.ops.triplet import triplet_aggregate, triplet_aggregate_plain
 
@@ -50,6 +52,13 @@ def test_triplet_aggregate_rejects_bad_input(cuda):
         triplet_aggregate(a, off)
     with pytest.raises(ValueError, match="int32"):
         triplet_aggregate(torch.randn(8, 8, device=cuda), off.long())
+    # A contiguous view at a 4-byte offset would misalign the 16-byte loads.
+    with pytest.raises(ValueError, match="misaligned"):
+        triplet_aggregate(torch.randn(65, device=cuda)[1:].view(8, 8), off)
+    # off[-1], known on the host, must fit the rows the kernel reads.
+    b = torch.randn(8, 8, device=cuda)
+    with pytest.raises(ValueError, match="off\\[-1\\]"):
+        triplet_aggregate(torch.randn(8, 8, device=cuda), off, b=b, total=9)
 
 
 @pytest.mark.parametrize("d", [16, 8])
@@ -76,3 +85,36 @@ def test_sbf_modulate_rejects_unbuilt_width(cuda):
     args += [torch.zeros(2, dtype=torch.int32, device=cuda), torch.ones(2, device=cuda)]
     with pytest.raises(ValueError, match="no kernel"):
         sbf_modulate(*args)
+
+
+@pytest.mark.parametrize("rows,d", [(34304, 16), (1000, 42), (513, 128)])
+def test_row_gather_kernel(cuda, rows, d):
+    g = torch.Generator(device=cuda).manual_seed(d)
+    src = torch.randn(257, d, device=cuda, generator=g)
+    idx = torch.randint(0, 257, (rows,), device=cuda, generator=g).to(torch.int32)
+    before = row_gather.launches
+    got = row_gather(src, idx)
+    torch.cuda.synchronize()
+    assert row_gather.launches == before + 1
+    assert torch.equal(got, row_gather_plain(src, idx))
+
+
+@pytest.mark.parametrize("gated,masked", [(False, False), (True, False),
+                                          (False, True), (True, True)])
+@pytest.mark.parametrize("d", [16, 128])
+def test_edge_message_kernel(cuda, gated, masked, d):
+    g = torch.Generator(device=cuda).manual_seed(d + 2 * gated + masked)
+    nodes, edges = 301, 4099
+    r = lambda *s: torch.randn(*s, device=cuda, generator=g)  # noqa: E731
+    idx = lambda: torch.randint(0, nodes, (edges,), device=cuda,  # noqa: E731
+                                generator=g).to(torch.int32)
+    args = (r(nodes, d), r(nodes, d), idx(), idx(), r(edges, d),
+            r(edges, d) if gated else None,
+            (torch.arange(edges, device=cuda) < edges - 50).float() if masked else None)
+    before = edge_message.launches
+    got = edge_message(*args)
+    torch.cuda.synchronize()
+    assert edge_message.launches == before + 1
+    torch.testing.assert_close(got, edge_message_plain(*args), rtol=1e-5, atol=1e-6)
+    if masked:
+        assert torch.all(got[-50:] == 0.0)

@@ -89,13 +89,14 @@ def test_loader_matches_jax():
     (2, None, None, "target_to_source"),
     (1, False, None, "target_to_source"),  # unfolded
     (2, False, None, "target_to_source"),
-    (1, None, False, "target_to_source"),  # folded, split gathers
+    (1, None, False, "target_to_source"),  # JAX folded with split gathers, port fused
     (1, None, None, "source_to_target"),  # global sums at unsorted dst
 ])
 def test_forward_matches_apply_pamnet(n_layer, fold, fuse, flow):
     kw = dict(dataset="rna", dim=16, n_layer=n_layer, cutoff_l=CUT_L,
-              cutoff_g=CUT_G, flow=flow, fold_sbf=fold, fuse_sbf_gather=fuse)
-    jcfg, tcfg = JaxConfig(**kw), PAMNetConfig(**kw)
+              cutoff_g=CUT_G, flow=flow, fold_sbf=fold)
+    # The port always runs a folded stage fused (kernel B).
+    jcfg, tcfg = JaxConfig(**kw, fuse_sbf_gather=fuse), PAMNetConfig(**kw)
     params = init_pamnet(jax.random.PRNGKey(n_layer), jcfg)
     mols = _mols(3, seed=n_layer + 20)
     jb = next(iter(JaxLoader(mols, "rna", CUT_L, CUT_G, batch_size=4,
