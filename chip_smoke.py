@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch/CUDA port (pamnet_tpu_torch) on one card.
 
-    python3 chip_smoke.py [--seed 0] [--structures 16] [--atoms 2100] [--profile]
+    python3 chip_smoke.py [--seed 0] [--structures 16] [--atoms 2100]
+                          [--qm9_molecules 512] [--profile]
 
 Phases, each printing one JSON line:
   1. device: the card's name and power limit (nvidia-smi) and the kernel
@@ -9,12 +10,23 @@ Phases, each printing one JSON line:
   2. kernels: each CUDA kernel against its plain PyTorch version on the card
      at the RNA batch-16 shapes, with kernel, plain, library and bound times;
   3. slice: RNAScoringService(device="cuda") scores a batch of synthetic
-     RNA-scale structures with seeded weights (the main path; every kernel's
-     launch count must rise), then the folded, unfolded and plain paths
-     score the same batch and are compared; graphs/s and ms per batch;
+     RNA-scale structures with seeded weights (the serving main path; every
+     forward kernel's launch count must rise), then the folded, unfolded and
+     plain paths score the same batch and are compared; graphs/s and ms per
+     batch;
   4. service: the HTTP server on an ephemeral port answers JSON and raw-PDB
      requests, compared with direct scoring;
-  5. kernels: one line listing every kernel with its numbers.
+  5. train_kernels: each backward kernel against its plain version at the
+     QM9 batch-32 pads (D=128), on the CSR arrays of a real training batch;
+  6. train: QM9 training at the recipe (dim 128, 6 layers, batch 32, f32,
+     L1, Adam + clip 1000 + EMA 0.999, warmup-exponential at lr 1e-4) on
+     synthetic molecules: the first step's gradients through the kernels
+     against the plain route, a repeated step bitwise, launches per step of
+     every forward and backward kernel, an epoch (the training main path;
+     every kernel of the path must launch), ms per step and molecules/s on a
+     resident batch, host enqueue time and peak memory; then
+     ``python -m pamnet_tpu_torch.main_qm9`` in-process for one epoch;
+  7. kernels: one line listing every kernel with its numbers.
 Then the nvidia-smi line and, last, {"ok": true, "device": {...}}.
 Any mismatch raises and the script exits non-zero.  It exits non-zero with no
 result when CUDA is absent.
@@ -23,8 +35,13 @@ result when CUDA is absent.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
+import io
 import json
+import math
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -123,6 +140,38 @@ def enqueue_ms(fn, iters: int = 50) -> float:
     return dt / iters * 1e3
 
 
+def device_ms(fn, iters: int = 20, tries: int = 3) -> float | None:
+    """Mean device time of the kernels one call launches, from the profiler's
+    kernel records over ``iters`` calls: the card's own time, where an
+    event-timed run of small calls measures the host's issue rate.  A
+    profile that recorded no kernel is taken again; None ("not measured")
+    after ``tries`` such profiles."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(_device_us(ev) for ev in prof.key_averages() if _is_kernel(ev))
+        if us > 0:
+            return us / iters / 1e3
+    return None
+
+
+def _device_us(ev) -> float:
+    return getattr(ev, "self_device_time_total", getattr(ev, "self_cuda_time_total", 0))
+
+
+def _is_kernel(ev) -> bool:
+    """A record of work on the card (not a host op or an autograd node that
+    the card's time is also attributed to)."""
+    return str(getattr(ev, "device_type", "")).endswith("CUDA") and _device_us(ev) > 0
+
+
 def compare(name: str, got, want, atol: float, rtol: float) -> dict:
     """Max errors of ``got`` against ``want``; raises beyond atol + rtol|want|."""
     import torch
@@ -179,6 +228,8 @@ def kernel_a_case(name, num_out, rows, d, gather, modulate, gen):
     lib = time_ms(lambda: acc.index_add_(0, seg_long, vals))
     ms = time_ms(lambda: triplet_aggregate(a, off, idx, b))
     enq = enqueue_ms(lambda: triplet_aggregate(a, off, idx, b))
+    dev = device_ms(lambda: triplet_aggregate(a, off, idx, b))
+    lib_dev = device_ms(lambda: acc.index_add_(0, seg_long, vals))
     a_read = (torch.unique(idx[:valid]).numel() if gather else valid) * d * 4
     nbytes = (a_read + (valid * d * 4 if modulate else 0) + (valid * 4 if gather else 0)
               + (num_out + 1) * 4 + num_out * d * 4)
@@ -186,6 +237,7 @@ def kernel_a_case(name, num_out, rows, d, gather, modulate, gen):
     bms, by = bound_ms(nbytes, flops)
     return {"case": name, "num_out": num_out, "rows": rows, "d": d,
             "gather": gather, "modulate": modulate, **err, "ms": ms, "ms_first": ms_first,
+            "device_ms": dev, "library_device_ms": lib_dev,
             "enqueue_ms": enq,
             "plain_ms": plain, "library_ms": lib, "bound_ms": bms, "bound_by": by}
 
@@ -210,6 +262,7 @@ def kernel_b_case(num_edges, triplets, ns, d, gen):
     plain = time_ms(lambda: sbf_modulate_plain(*args))
     ms = time_ms(lambda: sbf_modulate(*args))
     enq = enqueue_ms(lambda: sbf_modulate(*args))
+    dev = device_ms(lambda: sbf_modulate(*args))
     edges_read = torch.unique(args[8]).numel()
     nbytes = (edges_read * (ns + 1) * d * 4 + triplets * (ns + 2) * 4
               + (2 * d * d + 3 * d) * 4 + triplets * d * 4)
@@ -219,6 +272,7 @@ def kernel_b_case(num_edges, triplets, ns, d, gen):
     bms, by = bound_ms(nbytes, flops)
     return {"case": "t2 fused folded gather", "edges": num_edges,
             "triplets": triplets, "ns": ns, "d": d, **err, "ms": ms, "ms_first": ms_first,
+            "device_ms": dev, "library_device_ms": None,
             "enqueue_ms": enq,
             "plain_ms": plain, "library_ms": None, "bound_ms": bms, "bound_by": by}
 
@@ -243,10 +297,13 @@ def row_gather_case(name, table_rows, rows, d, gen):
     lib = time_ms(lambda: torch.index_select(src, 0, idx_long))
     ms = time_ms(lambda: row_gather(src, idx))
     enq = enqueue_ms(lambda: row_gather(src, idx))
+    dev = device_ms(lambda: row_gather(src, idx))
+    lib_dev = device_ms(lambda: torch.index_select(src, 0, idx_long))
     nbytes = torch.unique(idx).numel() * d * 4 + rows * 4 + rows * d * 4
     bms, by = bound_ms(nbytes, 0.0)
     return {"case": name, "table_rows": table_rows, "rows": rows, "d": d, **err,
             "ms": ms, "ms_first": ms_first, "enqueue_ms": enq, "plain_ms": plain,
+            "device_ms": dev, "library_device_ms": lib_dev,
             "library_ms": lib, "bound_ms": bms, "bound_by": by}
 
 
@@ -273,6 +330,7 @@ def edge_message_case(name, nodes, rows, d, gated, masked, gen):
     plain = time_ms(lambda: edge_message_plain(*args))
     ms = time_ms(lambda: edge_message(*args))
     enq = enqueue_ms(lambda: edge_message(*args))
+    dev = device_ms(lambda: edge_message(*args))
     nbytes = ((torch.unique(args[2]).numel() + torch.unique(args[3]).numel()) * d * 4
               + rows * 8 + rows * d * 4 * (3 if gated else 2) + (rows * 4 if masked else 0))
     # Per element: two adds, silu (exp, add, divide: 4 ops), the factors.
@@ -280,8 +338,140 @@ def edge_message_case(name, nodes, rows, d, gated, masked, gen):
     bms, by = bound_ms(nbytes, flops)
     return {"case": name, "nodes": nodes, "rows": rows, "d": d, "gated": gated,
             "masked": masked, **err, "ms": ms, "ms_first": ms_first, "enqueue_ms": enq,
+            "device_ms": dev, "library_device_ms": None,
             "plain_ms": plain,
             "library_ms": None, "bound_ms": bms, "bound_by": by}
+
+
+def _unique(idx, valid: int) -> int:
+    import torch
+
+    return torch.unique(idx[:valid]).numel()
+
+
+def _timed_case(name, fn, plain_fn, lib_fn, got, want, atol, rtol, nbytes, flops,
+                **extra) -> dict:
+    """Compare ``got`` with ``want`` (tensors or tuples of them), then time
+    the kernel (before and after the others, to show its spread), its plain
+    version and the library call, and compute the bound."""
+    import torch
+
+    torch.cuda.synchronize()
+    pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+    errs = [compare(name, g, w, atol=atol, rtol=rtol) for g, w in pairs if g is not None]
+    err = max(errs, key=lambda e: e["max_abs_err"])
+    ms_first = time_ms(fn)
+    plain = time_ms(plain_fn)
+    lib = time_ms(lib_fn) if lib_fn is not None else None
+    ms = time_ms(fn)
+    enq = enqueue_ms(fn)
+    dev = device_ms(fn)
+    lib_dev = device_ms(lib_fn) if lib_fn is not None else None
+    bms, by = bound_ms(nbytes, flops)
+    return {"case": name, **extra, **err, "ms": ms, "ms_first": ms_first, "enqueue_ms": enq,
+            "device_ms": dev, "library_device_ms": lib_dev,
+            "plain_ms": plain, "library_ms": lib, "bound_ms": bms, "bound_by": by}
+
+
+def grad_a_case(gb, kind: str, d: int, gen) -> dict:
+    """Kernel A's role swap, the d_a of the gathered triplet sum ``kind``,
+    over the training batch's CSR of t2_kj / t1_jj; ``library_ms`` times
+    index_add_ of the product computed beforehand."""
+    import torch
+
+    from pamnet_tpu_torch.ops.triplet import (triplet_aggregate_grad_a,
+                                              triplet_aggregate_grad_a_plain)
+
+    key = "t2_kj" if kind == "t2" else "t1_jj"
+    by_idx, idx, seg = gb.groups(key), getattr(gb, key), getattr(gb, kind + "_ji")
+    seg_by_idx = gb.perms["t2_ji_by_kj" if kind == "t2" else "t1_ji_by_jj"]
+    valid, e = gb.valid[kind], gb.el_src.shape[0]
+    g = torch.randn(e, d, device="cuda", generator=gen)
+    b = torch.randn(idx.shape[0], d, device="cuda", generator=gen)
+    vals = g[seg[:valid].long()] * b[:valid]
+    idx_long, acc = idx[:valid].long(), torch.zeros(e, d, device="cuda")
+    nbytes = (_unique(seg, valid) * d * 4 + valid * d * 4 + valid * 8 + (e + 1) * 4
+              + e * d * 4)
+    return _timed_case(
+        f"d_a by role swap over the {key} CSR",
+        lambda: triplet_aggregate_grad_a(g, by_idx, seg_by_idx, b),
+        lambda: triplet_aggregate_grad_a_plain(g, by_idx, seg_by_idx, b),
+        lambda: acc.index_add_(0, idx_long, vals),
+        triplet_aggregate_grad_a(g, by_idx, seg_by_idx, b),
+        triplet_aggregate_grad_a_plain(g, by_idx, seg_by_idx, b),
+        1e-4, 1e-5, nbytes, 2 * valid * d, rows=idx.shape[0], valid=valid, d=d)
+
+
+def gather_product_case(gb, kind: str, d: int, gen) -> dict:
+    """d_b of the gathered triplet sum ``kind``: a[t2_kj] * g[t2_ji]; no one
+    PyTorch call computes it."""
+    import torch
+
+    from pamnet_tpu_torch.ops.triplet import gather_product, gather_product_plain
+
+    idx = gb.t2_kj if kind == "t2" else gb.t1_jj
+    seg = getattr(gb, kind + "_ji")
+    valid, e = gb.valid[kind], gb.el_src.shape[0]
+    a = torch.randn(e, d, device="cuda", generator=gen)
+    g = torch.randn(e, d, device="cuda", generator=gen)
+    args = (a, idx, g, seg, valid)
+    nbytes = ((_unique(idx, valid) + _unique(seg, valid)) * d * 4 + valid * 8
+              + idx.shape[0] * d * 4)
+    return _timed_case(
+        f"d_b at {kind}", lambda: gather_product(*args), lambda: gather_product_plain(*args),
+        None, gather_product(*args), gather_product_plain(*args), 0.0, 0.0, nbytes,
+        valid * d, rows=idx.shape[0], valid=valid, d=d)
+
+
+def edge_backward_case(gb, which: str, d: int, gen) -> dict:
+    """The edge message's backward (d_pre, d_gate) for the global message
+    (gate, mask) or a local one (m_kj: gate; m_ji: none)."""
+    import torch
+
+    from pamnet_tpu_torch.ops.gather import edge_message_backward, edge_message_backward_plain
+
+    r = lambda *s: torch.randn(*s, device="cuda", generator=gen)  # noqa: E731
+    nodes = gb.z.shape[0]
+    if which == "global":
+        i, j, mask, valid = gb.eg_dst, gb.eg_src, gb.eg_mask, gb.valid["eg"]
+    else:
+        i, j, mask, valid = gb.el_dst, gb.el_src, None, gb.valid["el"]
+    gated = which != "local m_ji"
+    rows = i.shape[0]
+    args = (r(nodes, d), r(nodes, d), i, j, r(rows, d), r(rows, d) if gated else None,
+            mask, r(rows, d))
+    nbytes = ((_unique(i, rows) + _unique(j, rows)) * d * 4 + rows * 8
+              + rows * d * 4 * (2 + gated) + (rows * 4 if mask is not None else 0)
+              + rows * d * 4 * (1 + gated))
+    # Per element: the pre-activation (2 adds), sigmoid (exp, add, divide),
+    # silu' (4), silu (1), the mask and the gate products.
+    flops = rows * d * (10 + int(mask is not None) + 2 * int(gated))
+    return _timed_case(
+        f"edge message backward, {which}", lambda: edge_message_backward(*args),
+        lambda: edge_message_backward_plain(*args), None, edge_message_backward(*args),
+        edge_message_backward_plain(*args), 1e-6, 1e-5, nbytes, flops, nodes=nodes,
+        rows=rows, valid=valid, d=d, gated=gated, masked=mask is not None)
+
+
+def group_sum_case(gb, key: str, d: int, gen) -> dict:
+    """A row gather's backward, sum of row gradients by the index ``key``,
+    over the batch's CSR of it; ``library_ms`` times index_add_."""
+    import torch
+
+    from pamnet_tpu_torch.ops.triplet import group_sum, group_sum_plain
+
+    groups, ids = gb.groups(key), getattr(gb, key)
+    valid, num = groups.total, groups.off.shape[0] - 1
+    x = torch.randn(ids.shape[0], d, device="cuda", generator=gen)
+    ids_long, xs, acc = ids[:valid].long(), x[:valid], torch.zeros(num, d, device="cuda")
+    nbytes = (valid * d * 4 + (valid * 4 if groups.perm is not None else 0)
+              + (num + 1) * 4 + num * d * 4)
+    return _timed_case(
+        f"sum by {key} ({'permuted' if groups.perm is not None else 'sorted'} CSR)",
+        lambda: group_sum(x, groups), lambda: group_sum_plain(x, groups),
+        lambda: acc.index_add_(0, ids_long, xs), group_sum(x, groups),
+        group_sum_plain(x, groups), 1e-4, 1e-5, nbytes, valid * d, groups=num,
+        rows=ids.shape[0], valid=valid, d=d)
 
 
 def post(url: str, data: bytes, ctype: str) -> dict:
@@ -306,8 +496,11 @@ def main() -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--structures", type=int, default=16)
     parser.add_argument("--atoms", type=int, default=2100)
+    parser.add_argument("--qm9_molecules", type=int, default=512,
+                        help="synthetic QM9 molecules of the training phase")
     parser.add_argument("--profile", action="store_true",
-                        help="also print the device-time breakdown of one forward")
+                        help="also print the device-time breakdown of one forward "
+                             "and of three training steps")
     args = parser.parse_args()
 
     import torch
@@ -320,9 +513,10 @@ def main() -> int:
     from pamnet_tpu_torch.data.loader import GraphLoader
     from pamnet_tpu_torch.models.pamnet import PAMNet
     from pamnet_tpu_torch.ops import _build
-    from pamnet_tpu_torch.ops.gather import edge_message, row_gather
+    from pamnet_tpu_torch.ops.gather import edge_message, edge_message_backward, row_gather
     from pamnet_tpu_torch.ops.sbf_modulate import sbf_modulate
-    from pamnet_tpu_torch.ops.triplet import triplet_aggregate
+    from pamnet_tpu_torch.ops.triplet import (gather_product, group_sum, triplet_aggregate,
+                                              triplet_aggregate_grad_a)
     from pamnet_tpu_torch.serve import RNAScoringService, make_server
     from pamnet_tpu_torch.weights import init_params
 
@@ -375,7 +569,11 @@ def main() -> int:
     service = RNAScoringService(state, cfg, batch_size=16, device="cuda")
 
     wrappers = {"triplet_aggregate": triplet_aggregate, "sbf_modulate": sbf_modulate,
-                "edge_message": edge_message, "row_gather": row_gather}
+                "edge_message": edge_message, "row_gather": row_gather,
+                "triplet_aggregate_grad_a": triplet_aggregate_grad_a,
+                "gather_product": gather_product, "group_sum": group_sum,
+                "edge_message_backward": edge_message_backward}
+    serve_kernels = ("triplet_aggregate", "sbf_modulate", "edge_message", "row_gather")
 
     def reset_counts():
         for fn in wrappers.values():
@@ -386,12 +584,12 @@ def main() -> int:
 
     reset_counts()
     t0 = time.perf_counter()
-    scores = service.score_molecules(mols)  # the main path
+    scores = service.score_molecules(mols)  # the serving main path
     torch.cuda.synchronize()
     e2e_s = time.perf_counter() - t0
     launches = read_counts()
-    if min(launches.values()) < 1:
-        raise AssertionError(f"main path skipped a kernel: {launches}")
+    if min(launches[k] for k in serve_kernels) < 1:
+        raise AssertionError(f"serving path skipped a kernel: {launches}")
     if scores.shape != (len(mols),) or not np.all(np.isfinite(scores)):
         raise AssertionError(f"bad scores {scores}")
 
@@ -461,19 +659,10 @@ def main() -> int:
             for _ in range(3):
                 folded(gb)
             torch.cuda.synchronize()
-        rows = []
-        for ev in prof.key_averages():
-            dev_us = getattr(ev, "self_device_time_total",
-                             getattr(ev, "self_cuda_time_total", 0))
-            if dev_us > 0 and not ev.key.startswith("aten::"):  # kernels only
-                rows.append({"name": ev.key[:80], "device_ms_per_batch": dev_us / 3e3,
-                             "calls_per_batch": ev.count / 3})
-        rows.sort(key=lambda r: -r["device_ms_per_batch"])
-        host = sorted(prof.key_averages(), key=lambda ev: -ev.self_cpu_time_total)
+        rows, host = profile_rows(prof, 3)
         emit({"phase": "profile", "folded_forward_top": rows[:15],
-              "device_ms_per_batch_total": sum(r["device_ms_per_batch"] for r in rows),
-              "host_top": [{"name": ev.key[:80], "host_ms_per_batch": ev.self_cpu_time_total / 3e3,
-                            "calls_per_batch": ev.count / 3} for ev in host[:12]]})
+              "device_ms_per_batch_total": sum(r["device_ms_per_call"] for r in rows),
+              "host_top": host})
 
     # ---- 4. the HTTP service ----
     server = make_server(service, "127.0.0.1", 0, f"random weights, seed {args.seed}")
@@ -514,9 +703,15 @@ def main() -> int:
         thread.join(timeout=60)
     emit({"phase": "service", "requests": http})
 
-    # ---- 5. every kernel of the path, with its numbers ----
+    # ---- 5-6. QM9 training: backward kernels and the training path ----
+    bwd_cases, train_launches = train_phase(args, gen, reset_counts, read_counts, emit)
+
+    # ---- 7. every kernel of the paths, with its numbers ----
     # Each kernel's numbers are those of its main-path case: the folded t2
-    # triplet sum, the global message and the embedding lookup.
+    # triplet sum, the global message and the embedding lookup (RNA shapes);
+    # the t2 role swap and product, the global message's backward and the
+    # embedding's backward sum (QM9 shapes).  Launches add the serving and
+    # the training main paths.
     table = [
         ("triplet_aggregate", "triplet_aggregate.cu", "pamnet_tpu/ops/pallas_triplet.py:47",
          a_cases, a_cases[0]),
@@ -526,12 +721,23 @@ def main() -> int:
          e_cases, e_cases[0]),
         ("row_gather", "row_gather.cu", "tools/vmem_gather_probe.py:42",
          g_cases, g_cases[0]),
+        ("triplet_aggregate_grad_a", "triplet_aggregate.cu",
+         "pamnet_tpu/ops/pallas_triplet.py:122", bwd_cases["triplet_aggregate_grad_a"],
+         bwd_cases["triplet_aggregate_grad_a"][0]),
+        ("gather_product", "gather_backward.cu", "pamnet_tpu/ops/pallas_triplet.py:129",
+         bwd_cases["gather_product"], bwd_cases["gather_product"][0]),
+        ("edge_message_backward", "gather_backward.cu", "tools/vmem_gather_probe.py:86",
+         bwd_cases["edge_message_backward"], bwd_cases["edge_message_backward"][0]),
+        ("group_sum", "triplet_aggregate.cu", "tools/vmem_gather_probe.py:42",
+         bwd_cases["group_sum"], bwd_cases["group_sum"][0]),
     ]
     kernels = [
         {"name": name, "route": "cuda", "source": f"pamnet_tpu_torch/csrc/{src}",
-         "replaces": replaces, "launches": launches[name],
+         "replaces": replaces, "launches": launches[name] + train_launches[name],
+         "launches_by_path": {"serve": launches[name], "train": train_launches[name]},
          "max_abs_err": max(c["max_abs_err"] for c in cases),
-         **{k: rep[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+         **{k: rep[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                "device_ms", "library_device_ms", "enqueue_ms")},
          "timed_case": rep["case"]}
         for name, src, replaces, cases, rep in table
     ]
@@ -541,6 +747,194 @@ def main() -> int:
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def profile_rows(prof, calls: int) -> tuple[list[dict], list[dict]]:
+    """Kernel rows (device ms per call, launches per call) and the top host
+    rows of a profile over ``calls`` calls."""
+    rows = [{"name": ev.key[:80], "device_ms_per_call": _device_us(ev) / calls / 1e3,
+             "launches_per_call": ev.count / calls}
+            for ev in prof.key_averages() if _is_kernel(ev)]
+    rows.sort(key=lambda r: -r["device_ms_per_call"])
+    host = sorted(prof.key_averages(), key=lambda ev: -ev.self_cpu_time_total)
+    return rows, [{"name": ev.key[:80], "host_ms_per_call": ev.self_cpu_time_total / calls / 1e3,
+                   "calls_per_call": ev.count / calls} for ev in host[:12]]
+
+
+def train_phase(args, gen, reset_counts, read_counts, emit_kernels) -> tuple[dict, dict]:
+    """Phases 5 and 6: backward kernel cases and QM9 training at the recipe.
+    Returns (kernel cases by kernel, launches of the training main path)."""
+    import torch
+
+    from pamnet_tpu_torch import main_qm9
+    from pamnet_tpu_torch.config import PAMNetConfig
+    from pamnet_tpu_torch.data.loader import GraphLoader
+    from pamnet_tpu_torch.data.synthetic import synthetic_qm9_dataset
+    from pamnet_tpu_torch.models.pamnet import PAMNet
+    from pamnet_tpu_torch.train.ema import ema_init
+    from pamnet_tpu_torch.train.loop import batch_loss, make_optimizer, run_epoch, train_step
+    from pamnet_tpu_torch.train.schedules import warmup_exponential
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bs, d = 32, 128
+    t0 = time.perf_counter()
+    qmols = synthetic_qm9_dataset(args.qm9_molecules, seed=args.seed)
+    loader = GraphLoader(qmols, "qm9", 5.0, 5.0, bs, shuffle=True, seed=args.seed,
+                         drop_last=True, build_perms=True)
+    host_build_s = time.perf_counter() - t0
+    gb = loader.collate(list(range(bs))).to("cuda")  # a resident batch at the pads
+
+    # ---- 5. backward kernels at the QM9 pads ----
+    cases = {
+        "triplet_aggregate_grad_a": [grad_a_case(gb, "t2", d, gen), grad_a_case(gb, "t1", d, gen)],
+        "gather_product": [gather_product_case(gb, "t2", d, gen),
+                           gather_product_case(gb, "t1", d, gen)],
+        "edge_message_backward": [edge_backward_case(gb, w, d, gen)
+                                  for w in ("global", "local m_kj", "local m_ji")],
+        "group_sum": [group_sum_case(gb, k, d, gen)
+                      for k in ("z", "el_src", "eg_src", "el_dst", "eg_dst")],
+    }
+    emit_kernels({"phase": "train_kernels", "pads": dataclasses.asdict(loader.pads),
+                  "valid": gb.valid, **cases})
+
+    # ---- 6. training at the recipe ----
+    cfg = PAMNetConfig(dataset="QM9", dim=d, n_layer=6, cutoff_l=5.0, cutoff_g=5.0)
+    model = PAMNet(cfg, torch.Generator().manual_seed(args.seed)).to("cuda")
+    opt = make_optimizer(model.parameters(),
+                         warmup_exponential(1e-4, len(loader),
+                                            frac_steps_per_epoch=len(qmols) / bs),
+                         clip_norm=1000.0)
+    ema = ema_init(model.state_dict())
+
+    # The first step's gradients: kernels against PyTorch's autograd of the
+    # plain versions, per tensor within 1e-4 * max|g| + 1e-6.
+    grads = {}
+    for plain in (False, True):
+        opt.zero_grad()
+        batch_loss(model, gb, plain=plain).backward()
+        grads[plain] = {n: torch.zeros_like(p) if p.grad is None else p.grad.clone()
+                        for n, p in model.named_parameters()}
+    ratios = {n: float((grads[False][n] - w).abs().max())
+              / (1e-4 * float(w.abs().max()) + 1e-6) for n, w in grads[True].items()}
+    worst = max(ratios, key=ratios.get)
+    if ratios[worst] > 1.0:
+        raise AssertionError(f"kernel gradients off the plain route: {worst} {ratios[worst]}")
+
+    # Launches of one step, forward and backward apart.
+    opt.zero_grad()
+    reset_counts()
+    loss = batch_loss(model, gb)
+    fwd = read_counts()
+    reset_counts()
+    loss.backward()
+    torch.cuda.synchronize()
+    bwd = read_counts()
+    need_fwd = ("triplet_aggregate", "edge_message", "row_gather")
+    need_bwd = ("triplet_aggregate_grad_a", "gather_product", "group_sum",
+                "edge_message_backward", "row_gather")
+    if min(fwd[k] for k in need_fwd) < 1 or min(bwd[k] for k in need_bwd) < 1:
+        raise AssertionError(f"a step skipped a kernel: forward {fwd}, backward {bwd}")
+
+    # One step from the same state, twice: bitwise equal.
+    params = list(model.parameters())
+    snap = ([p.detach().clone() for p in params], opt.state_dict(),
+            {k: v.clone() for k, v in ema.items()})
+    runs = []
+    for _ in range(2):
+        with torch.no_grad():
+            torch._foreach_copy_(params, snap[0])
+        opt.load_state_dict(snap[1])
+        torch._foreach_copy_(list(ema.values()), list(snap[2].values()))
+        loss = train_step(model, opt, ema, gb)
+        runs.append([loss] + [p.detach().clone() for p in params]
+                    + [v.clone() for v in ema.values()])
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        raise AssertionError("a repeated step is not bitwise equal")
+
+    # The training main path: one epoch of shuffled batches.
+    reset_counts()
+    t0 = time.perf_counter()
+    loss_sum, ng, losses = run_epoch(model, opt, ema, loader, "cuda")
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    launches = read_counts()
+    if min(launches[k] for k in set(need_fwd + need_bwd)) < 1:
+        raise AssertionError(f"the training path skipped a kernel: {launches}")
+    step_losses = [float(v) for v in torch.stack(losses).cpu()]
+    if not all(math.isfinite(v) for v in step_losses):
+        raise AssertionError(f"non-finite loss: {step_losses}")
+
+    # Steps on the resident batch.
+    torch.cuda.reset_peak_memory_stats()
+    step = lambda: train_step(model, opt, ema, gb)  # noqa: E731
+    step_ms = time_ms(step, iters=10, warmup=2)
+    step_enqueue_ms = enqueue_ms(step, iters=10)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    last = float(step())
+    if not math.isfinite(last):
+        raise AssertionError(f"non-finite loss after the timed steps: {last}")
+    res = {"phase": "train", "molecules": len(qmols), "batch_size": bs, "dim": d,
+           "n_layer": cfg.n_layer, "host_build_s": host_build_s,
+           "pads": dataclasses.asdict(loader.pads), "resident_batch_valid": gb.valid,
+           "gradient_check": {"tensors": len(ratios), "worst": worst,
+                              "worst_err_over_tolerance": ratios[worst],
+                              "tolerance": "1e-4 * max|g_plain| + 1e-6 per tensor"},
+           "bitwise_repeat": True, "launches_per_step_forward": fwd,
+           "launches_per_step_backward": bwd, "epoch_steps": len(losses),
+           "epoch_s": epoch_s, "epoch_mol_per_s": ng / epoch_s,
+           "epoch_train_mae": loss_sum / ng, "step_losses": step_losses,
+           "main_path_launches": launches, "ms_per_step": step_ms,
+           "mol_per_s": gb.num_graphs / step_ms * 1e3,
+           "enqueue_ms_per_step": step_enqueue_ms, "peak_mem_gb": peak_gb,
+           "loss_after": last}
+    emit_kernels(res)
+
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                step()
+            torch.cuda.synchronize()
+        rows, host = profile_rows(prof, 3)
+        device_ms = sum(r["device_ms_per_call"] for r in rows)
+        # Python's own profile of the host side of three steps.
+        import cProfile
+        import pstats
+
+        pr = cProfile.Profile()
+        pr.enable()
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        pr.disable()
+        st = pstats.Stats(pr)
+        py_rows = sorted(st.stats.items(), key=lambda kv: -kv[1][2])[:20]
+        emit_kernels({"phase": "profile_train", "train_step_top": rows[:25],
+                      "device_ms_per_step_total": device_ms,
+                      "device_idle_share_vs_event_ms": 1.0 - device_ms / step_ms,
+                      "host_top": host,
+                      "python_self_top": [
+                          {"function": f"{os.path.basename(k[0])}:{k[1]}:{k[2]}",
+                           "self_ms_per_step": v[2] / 3 * 1e3, "calls_per_step": v[1] / 3}
+                          for k, v in py_rows]})
+
+    # main_qm9, in-process, one epoch at the recipe.
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        main_qm9.main(["--synthetic", "--limit", "320", "--epochs", "1",
+                       "--seed", str(args.seed), "--device", "cuda"])
+    main_s = time.perf_counter() - t0
+    text = out.getvalue()
+    maes = re.findall(r"(Train|Val|Test) MAE: (\S+?),? ", text)
+    maes += re.findall(r"(Best Validation|Testing) MAE: (\S+)", text)
+    if len(maes) != 5 or not all(math.isfinite(float(v)) for _, v in maes):
+        raise AssertionError(f"main_qm9 output: {text}")
+    emit_kernels({"phase": "main_qm9", "seconds": main_s,
+                  "lines": [ln for ln in text.splitlines() if "MAE" in ln]})
+    return cases, launches
 
 
 def _check_names(res: dict, names: list[str]) -> dict:

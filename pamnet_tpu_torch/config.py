@@ -1,5 +1,5 @@
 """Model configuration of the port: the fields of ``pamnet_tpu.config.
-PAMNetConfig`` that the scoring path reads.  The JAX package's ELL, Pallas,
+PAMNetConfig`` that the scoring and QM9 training paths read.  The JAX package's ELL, Pallas,
 lane-pack and scan knobs arrange data for the TPU and have no meaning here."""
 
 from __future__ import annotations
@@ -65,8 +65,13 @@ class PAMNetConfig:
 
     @property
     def num_atom_types(self) -> int:
-        # RNA: C/N/O only (reference: models.py:32); otherwise H/C/N/O/F.
-        return 3 if self.dataset_kind == "rna" else 5
+        return atom_type_count(self.dataset_kind)
+
+
+def atom_type_count(dataset_kind: str) -> int:
+    """Rows of the atom-type embedding: RNA C/N/O only (reference:
+    models.py:32), otherwise H/C/N/O/F."""
+    return 3 if dataset_kind == "rna" else 5
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:

@@ -1,12 +1,14 @@
 // Row gathers of the PAMNet forward: a plain row gather and the edge message
 // that gathers its node rows itself.
 //
-//   row_gather:    out[r, :] = src[idx[r], :]
+//   row_gather:    out[r, :] = src[idx[r], :]          (r < valid; 0 after)
 //   edge_message:  out[r, :] = silu(xi[i[r], :] + xj[j[r], :] + base[r, :])
 //                              * gate[r, :] * mask[r]        (gate, mask optional)
 //
-// row_gather is the atom-type embedding lookup and the unfolded path's
-// gather of the radial table; edge_message is the message of the global layer
+// row_gather is the atom-type embedding lookup, the unfolded path's gather
+// of the radial table and the backward of kernel A's no-gather sums
+// (d_a[r] = g[seg[r]] for the rows a sum read, 0 for its padded rows);
+// edge_message is the message of the global layer
 // (gate = W_edge_attr(e), mask = edge mask) and both messages of the local
 // layer (m_ji: no gate; m_kj: gate = lin_rbf(rbf)).  xi and xj are the node
 // features projected through the slices of the message MLP's first weight
@@ -45,12 +47,22 @@ __device__ __forceinline__ float silu(float x) { return x / (1.0f + expf(-x)); }
 template <bool VEC4>
 __global__ void row_gather_kernel(const float* __restrict__ src,
                                   const int* __restrict__ idx,
-                                  float* __restrict__ out, int rows, int cols) {
-  // cols counts float4s when VEC4, floats otherwise.
+                                  float* __restrict__ out, int rows, int valid,
+                                  int cols) {
+  // cols counts float4s when VEC4, floats otherwise.  Rows past `valid`
+  // are written as zeros and their indices are not read.
   const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (tid >= static_cast<long long>(rows) * cols) return;
   const int r = static_cast<int>(tid / cols);
   const int c = static_cast<int>(tid - static_cast<long long>(r) * cols);
+  if (r >= valid) {
+    if (VEC4) {
+      reinterpret_cast<float4*>(out)[tid] = make_float4(0.f, 0.f, 0.f, 0.f);
+    } else {
+      out[tid] = 0.f;
+    }
+    return;
+  }
   const long long s = static_cast<long long>(__ldg(idx + r)) * cols + c;
   if (VEC4) {
     reinterpret_cast<float4*>(out)[tid] = __ldg(reinterpret_cast<const float4*>(src) + s);
@@ -104,19 +116,20 @@ unsigned blocks_for(long long total) {
 
 }  // namespace
 
-// src: (rows of src, d) f32; idx: (rows,) i32; out: (rows, d) f32; 16-byte
-// aligned when d % 4 == 0.  Returns the launch's cudaError_t.
+// src: (rows of src, d) f32; idx: (rows,) i32; out: (rows, d) f32, rows
+// r >= valid zero; 16-byte aligned when d % 4 == 0.  Returns the launch's
+// cudaError_t.
 extern "C" int pamnet_row_gather(const float* src, const int* idx, float* out,
-                                 int rows, int d, void* stream) {
-  if (rows <= 0 || d <= 0) return cudaErrorInvalidValue;
+                                 int rows, int valid, int d, void* stream) {
+  if (rows <= 0 || d <= 0 || valid < 0 || valid > rows) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d % 4 == 0) {
     const int vecs = d / 4;
     row_gather_kernel<true><<<blocks_for(static_cast<long long>(rows) * vecs), kThreads, 0, s>>>(
-        src, idx, out, rows, vecs);
+        src, idx, out, rows, valid, vecs);
   } else {
     row_gather_kernel<false><<<blocks_for(static_cast<long long>(rows) * d), kThreads, 0, s>>>(
-        src, idx, out, rows, d);
+        src, idx, out, rows, valid, d);
   }
   return static_cast<int>(cudaGetLastError());
 }

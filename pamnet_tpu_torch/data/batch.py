@@ -6,6 +6,16 @@ host float64 geometry, concatenated with node/edge offsets and padded to a
 bucket.  Every aggregation of the model reads the CSR offsets carried here
 (``eg_src_off``/``eg_dst_off``, ``el_dst_off``, ``t2_ji_off``,
 ``t1_ji_off``), so rows must stay sorted by their aggregation key.
+
+With ``build_perms=True`` (training) a batch also carries, in ``perms``, the
+CSR of every index whose gather has a backward and whose rows are not sorted
+by it: a permutation that stable-sorts the valid rows by the index, padded
+rows parked at its end (``<key>_perm``), and its offsets (``<key>_poff``,
+last entry = valid rows).  ``el_src``, ``t2_kj`` and ``t1_jj`` are the
+arrays of JAX's ``collate_structures(build_perms=True)``, bit for bit; the
+port adds the unsorted global endpoint, ``z`` (the embedding's backward) and
+``t2_ji_by_kj`` = ``t2_ji[t2_kj_perm]`` / ``t1_ji_by_jj``, the rows the
+triplet sums' backward reads through the permutation.
 """
 
 from __future__ import annotations
@@ -18,6 +28,11 @@ import torch
 
 from pamnet_tpu_torch.data import graphbuild
 from pamnet_tpu_torch.ops.bessel import bessel_basis_tables, sph_jn
+from pamnet_tpu_torch.ops.triplet import AggregateGrad, Groups
+
+# Which padded dimension each grouping key indexes rows of.
+_ROWS_OF = {"z": "n", "eg_src": "eg", "eg_dst": "eg", "el_src": "el",
+            "el_dst": "el", "t2_kj": "t2", "t1_jj": "t1"}
 
 
 @dataclasses.dataclass
@@ -27,7 +42,9 @@ class GraphBatch:
     CSR offsets over rows sorted by that key, or None when the rows are not
     sorted by it.  ``num_graphs`` counts the real (unpadded) graphs and
     ``valid`` the real rows of each padded dimension ("n", "eg", "el", "t2",
-    "t1"), host ints that the kernels' wrappers check against."""
+    "t1"), host ints that the kernels' wrappers check against.  ``perms``
+    holds the backward's CSR arrays (module docstring), empty unless the
+    batch was built with ``build_perms=True``."""
 
     z: torch.Tensor
     pos: torch.Tensor
@@ -65,13 +82,35 @@ class GraphBatch:
     t1_ji_off: torch.Tensor | None
     num_graphs: int
     valid: dict[str, int]
+    perms: dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
 
     def to(self, device) -> "GraphBatch":
-        return dataclasses.replace(self, **{
+        moved = {
             f.name: getattr(self, f.name).to(device)
             for f in dataclasses.fields(self)
             if isinstance(getattr(self, f.name), torch.Tensor)
-        })
+        }
+        moved["perms"] = {k: v.to(device) for k, v in self.perms.items()}
+        return dataclasses.replace(self, **moved)
+
+    def groups(self, key: str) -> Groups | None:
+        """The CSR of index field ``key`` ("z", "eg_src", "el_src", "t2_kj",
+        ...): its offsets where the rows are sorted by it, else its
+        permutation from ``perms``; None when the batch holds neither."""
+        total = self.valid[_ROWS_OF[key]]
+        off = getattr(self, key + "_off", None)
+        if off is not None:
+            return Groups(off, None, total)
+        if key + "_perm" in self.perms:
+            return Groups(self.perms[key + "_poff"], self.perms[key + "_perm"], total)
+        return None
+
+    def triplet_grad(self, kind: str) -> AggregateGrad:
+        """The backward arrays of the triplet sum of ``kind`` ("t2" or "t1"):
+        rows summed at ``<kind>_ji``, gathered at ``t2_kj`` / ``t1_jj``."""
+        idx = "t2_kj" if kind == "t2" else "t1_jj"
+        seg_by_idx = self.perms.get("t2_ji_by_kj" if kind == "t2" else "t1_ji_by_jj")
+        return AggregateGrad(getattr(self, kind + "_ji"), self.groups(idx), seg_by_idx)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,22 +152,34 @@ class PadSizes:
 
 def precompute_structure(mol: dict, dataset_kind: str, cutoff_l: float,
                          cutoff_g: float) -> dict:
-    """One RNA structure's graph (reference: models.py:138-162): knn(50)
-    superset, global edges within ``cutoff_g``, local edges within
-    ``cutoff_l``, two-hop triplets and one-hop pairs on the local edges.
-    Global edges are sorted src-major (the RNA global layer aggregates at
-    src), local edges dst-major."""
-    if dataset_kind != "rna":
-        raise NotImplementedError(
-            f"dataset kind {dataset_kind!r}: the port builds RNA graphs only"
-        )
+    """One structure's graph for the full PAMNet (reference:
+    models.py:104-162), two-hop triplets and one-hop pairs on the local
+    edges:
+      * qm9: local = the bond graph without self-loops; global =
+        radius(``cutoff_g``, max 1000 neighbours) without self-loops;
+      * rna: knn(50) superset; global within ``cutoff_g``, local within
+        ``cutoff_l``.
+    Global edges are sorted by the endpoint the global layer aggregates at:
+    dst-major on QM9 (``source_to_target``), src-major on RNA; local edges
+    dst-major."""
     pos = np.asarray(mol["pos"], np.float32)
     n = pos.shape[0]
-    eknn = graphbuild.remove_self_loops_np(graphbuild.knn_graph_np(pos, 50))
-    dist_knn = graphbuild.edge_distances_np(eknn, pos)
-    eg = eknn[:, dist_knn <= cutoff_g]
-    el = eknn[:, dist_knn <= cutoff_l]
-    eg = eg[:, np.lexsort((eg[1], eg[0]))]
+    if dataset_kind == "qm9":
+        el = graphbuild.remove_self_loops_np(
+            np.asarray(mol["edge_index"], np.int64).astype(np.int32))
+        eg = graphbuild.remove_self_loops_np(
+            graphbuild.radius_graph_np(pos, cutoff_g, None, 1000))
+        eg = eg[:, np.lexsort((eg[0], eg[1]))]
+    elif dataset_kind == "rna":
+        eknn = graphbuild.remove_self_loops_np(graphbuild.knn_graph_np(pos, 50))
+        dist_knn = graphbuild.edge_distances_np(eknn, pos)
+        eg = eknn[:, dist_knn <= cutoff_g]
+        el = eknn[:, dist_knn <= cutoff_l]
+        eg = eg[:, np.lexsort((eg[1], eg[0]))]
+    else:
+        raise NotImplementedError(
+            f"dataset kind {dataset_kind!r}: the port builds QM9 and RNA graphs"
+        )
     el = el[:, np.lexsort((el[0], el[1]))]
     p64 = pos.astype(np.float64)
     return {
@@ -215,6 +266,22 @@ def _mask(count: int, size: int) -> np.ndarray:
     return m
 
 
+def build_perm_np(ids: np.ndarray, num_valid: int, num_groups: int,
+                  total_rows: int) -> tuple[np.ndarray, np.ndarray]:
+    """(perm (total_rows,), poff (num_groups+1,)) int32: ``perm`` stable-sorts
+    the first ``num_valid`` rows by ``ids`` and parks the padded rows after
+    them; ``poff`` marks each group's range in that order, ``poff[-1] ==
+    num_valid`` (JAX: ``pamnet_tpu/ops/ell.py::build_perm_np``)."""
+    idv = np.asarray(ids[:num_valid], dtype=np.int64)
+    if num_valid and (idv.min() < 0 or idv.max() >= num_groups):
+        raise ValueError("group id out of range")
+    order = np.argsort(idv, kind="stable").astype(np.int32)
+    counts = np.bincount(idv, minlength=num_groups)
+    poff = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    perm = np.concatenate([order, np.arange(num_valid, total_rows, dtype=np.int32)])
+    return perm, poff
+
+
 def _offsets(ids: np.ndarray, num_valid: int, num_groups: int) -> np.ndarray | None:
     """(groups+1,) int32 CSR offsets of rows sorted by ``ids``, or None when
     the first ``num_valid`` rows are not sorted."""
@@ -248,10 +315,13 @@ _F32_FIELDS = (("pos", "n"), ("dist_g", "eg"), ("dist_l", "el"),
 
 
 def collate_structures(structs: list[dict], pads: PadSizes | None = None,
-                       align: int = 128) -> GraphBatch:
+                       align: int = 128, build_perms: bool = False,
+                       num_atom_types: int | None = None) -> GraphBatch:
     """Concatenate structures (with ``attach_basis`` applied) into one padded
     batch, offsetting node ids by node counts and edge ids by local-edge
-    counts; pads default to the geometric bucket of the batch's counts."""
+    counts; pads default to the geometric bucket of the batch's counts.
+    ``build_perms`` adds the backward's CSR arrays (module docstring); the
+    CSR of ``z`` has ``num_atom_types`` groups."""
     nb = len(structs)
     n_per = np.array([s["pos"].shape[0] for s in structs], np.int64)
     el_per = np.array([s["el"].shape[1] for s in structs], np.int64)
@@ -286,6 +356,23 @@ def collate_structures(structs: list[dict], pads: PadSizes | None = None,
     # The global layer reads whichever endpoint the edges are sorted by.
     eg_dst_off = _offsets(f["eg_dst"], n_eg, pads.n)
     eg_src_off = None if eg_dst_off is not None else _offsets(f["eg_src"], n_eg, pads.n)
+    el_dst_off = _offsets(f["el_dst"], n_el, pads.n)
+    perms: dict[str, np.ndarray] = {}
+    if build_perms:
+        if num_atom_types is None:
+            raise ValueError("build_perms needs num_atom_types (the CSR of z)")
+        keyed = [("el_src", n_el, pads.n, pads.el), ("t2_kj", n_t2, pads.el, pads.t2),
+                 ("t1_jj", n_t1, pads.el, pads.t1), ("z", num_nodes, num_atom_types, pads.n)]
+        for key, off in (("eg_src", eg_src_off), ("eg_dst", eg_dst_off),
+                         ("el_dst", el_dst_off)):
+            if off is None:
+                rows, n_valid = (pads.eg, n_eg) if key[:2] == "eg" else (pads.el, n_el)
+                keyed.append((key, n_valid, pads.n, rows))
+        for key, n_valid, groups, rows in keyed:
+            perms[key + "_perm"], perms[key + "_poff"] = build_perm_np(
+                f[key], n_valid, groups, rows)
+        perms["t2_ji_by_kj"] = f["t2_ji"][perms["t2_kj_perm"]]
+        perms["t1_ji_by_jj"] = f["t1_ji"][perms["t1_jj_perm"]]
     y = np.array([s["y"] for s in structs], dtype=np.float32)
     node_graph = np.repeat(np.arange(nb, dtype=np.int32), n_per)
 
@@ -303,9 +390,10 @@ def collate_structures(structs: list[dict], pads: PadSizes | None = None,
         graph_mask=t(_mask(nb, pads.g)),
         eg_src_off=opt(eg_src_off),
         eg_dst_off=opt(eg_dst_off),
-        el_dst_off=opt(_offsets(f["el_dst"], n_el, pads.n)),
+        el_dst_off=opt(el_dst_off),
         t2_ji_off=opt(_offsets(f["t2_ji"], n_t2, pads.el)),
         t1_ji_off=opt(_offsets(f["t1_ji"], n_t1, pads.el)),
         num_graphs=nb,
         valid={"n": num_nodes, "eg": n_eg, "el": n_el, "t2": n_t2, "t1": n_t1},
+        perms={k: t(v) for k, v in perms.items()},
     )

@@ -1,13 +1,15 @@
-"""PAMNet, full variant, RNA branch (reference: models.py:21-224; JAX
-counterpart ``pamnet_tpu/models/pamnet.py:116-397``).
+"""PAMNet, full variant, RNA and QM9 branches (reference: models.py:21-224;
+JAX counterpart ``pamnet_tpu/models/pamnet.py:116-397``).
 
 The batch carries host-f64 distances and spherical-basis tables
 (``data/batch.py``); the trainable Bessel basis is evaluated here.  Where
 ``sbf_modulate`` has a kernel for ``(num_spherical, dim)`` (the RNA dim-16
-model) the model-level sbf MLP folds through the triplet gather: the radial
-table is projected once per edge and the folded stage runs in that kernel;
-otherwise the triplet basis is expanded and passed through the MLP per
-triplet, and kernel A gathers and modulates.
+model) and the batch is not a training batch, the model-level sbf MLP folds
+through the triplet gather: the radial table is projected once per edge and
+the folded stage runs in that kernel; otherwise (training, and QM9 at dim
+128) the triplet basis is expanded and passed through the MLP per triplet,
+and kernel A gathers and modulates.  The QM9 branch
+embeds 5 atom types and pools by sum; RNA pools by mean.
 """
 
 from __future__ import annotations
@@ -19,11 +21,11 @@ from torch.nn import functional as F
 from pamnet_tpu_torch.config import PAMNetConfig
 from pamnet_tpu_torch.data.batch import GraphBatch
 from pamnet_tpu_torch.models.layers import FoldedSBF, GlobalMP, LocalMP
-from pamnet_tpu_torch.nn import init_, mlp
+from pamnet_tpu_torch.nn import Linear, init_, mlp
 from pamnet_tpu_torch.ops.basis import BesselRBF
 from pamnet_tpu_torch.ops.gather import row_gather, row_gather_plain
 from pamnet_tpu_torch.ops.sbf_modulate import KERNEL_SHAPES
-from pamnet_tpu_torch.ops.segment import segment_mean
+from pamnet_tpu_torch.ops.segment import segment_mean, segment_sum
 
 
 class PAMNet(nn.Module):
@@ -34,10 +36,10 @@ class PAMNet(nn.Module):
 
     def __init__(self, cfg: PAMNetConfig, generator: torch.Generator | None = None):
         super().__init__()
-        if cfg.dataset_kind != "rna" or cfg.variant != "full":
+        if cfg.dataset_kind not in ("rna", "qm9") or cfg.variant != "full":
             raise NotImplementedError(
-                "the port implements the full PAMNet on the RNA branch only "
-                f"(dataset {cfg.dataset!r}, variant {cfg.variant!r})"
+                "the port implements the full PAMNet on the RNA and QM9 "
+                f"branches only (dataset {cfg.dataset!r}, variant {cfg.variant!r})"
             )
         self.cfg = cfg
         dim = cfg.dim
@@ -47,6 +49,10 @@ class PAMNet(nn.Module):
         self.rbf_l = BesselRBF(cfg.num_rbf)
         self.mlp_rbf_g = mlp([cfg.num_rbf, dim])
         self.mlp_rbf_l = mlp([cfg.num_rbf, dim])
+        if cfg.dataset_kind != "rna":
+            # Created as in the reference and init_pamnet; the QM9 forward
+            # embeds atom types and never reads it, so its gradient is 0.
+            self.init_linear = Linear(cfg.num_node_features, dim, bias=False)
         self.mlp_sbf1 = mlp([sbf_dim, dim])
         self.mlp_sbf2 = mlp([sbf_dim, dim])
         self.global_layer = nn.ModuleList(GlobalMP(dim) for _ in range(cfg.n_layer))
@@ -55,19 +61,24 @@ class PAMNet(nn.Module):
             generator = torch.Generator().manual_seed(0)
         init_(self, generator)
 
-    def fold_sbf(self) -> bool:
+    def fold_sbf(self, g: GraphBatch) -> bool:
         """Fold the sbf MLP through the gather and run the folded stage in
-        ``sbf_modulate``: by default exactly where that kernel is built."""
+        ``sbf_modulate``: by default where that kernel is built, for batches
+        without backward arrays.  ``sbf_modulate`` has no backward, so a
+        training batch (``build_perms=True``) takes the unfolded path, whose
+        radial-table gather carries no gradient; the JAX package unfolds its
+        training batches too (``_fold_gate``: under ELL tables)."""
         cfg = self.cfg
         if cfg.fold_sbf is not None:
             return cfg.fold_sbf
-        return (cfg.num_spherical, cfg.dim) in KERNEL_SHAPES
+        return (cfg.num_spherical, cfg.dim) in KERNEL_SHAPES and not g.perms
 
     def _triplet_basis(self, g: GraphBatch, plain: bool):
         """(edge_attr_sbf2, edge_attr_sbf1): (T, dim) tensors, or
         ``FoldedSBF`` inputs of the fused folded stage."""
         ns, nr = self.cfg.num_spherical, self.cfg.num_radial
-        if not self.fold_sbf():
+        if not self.fold_sbf(g):
+            # Geometry only: the radial table's gather has no backward.
             gather = row_gather_plain if plain else row_gather
 
             def expand(mlp_sbf, idx, cbf):
@@ -89,10 +100,13 @@ class PAMNet(nn.Module):
         return folded(self.mlp_sbf2, g.cbf2), folded(self.mlp_sbf1, g.cbf1)
 
     def forward(self, g: GraphBatch, plain: bool = False) -> torch.Tensor:
-        """(G,) per-graph scores, 0 for padded graphs.  ``plain=True`` runs
-        the plain versions of the kernels, on any device."""
+        """(G,) per-graph predictions, 0 for padded graphs.  ``plain=True``
+        runs the plain versions of the kernels, on any device."""
         cfg = self.cfg
-        x = (row_gather_plain if plain else row_gather)(self.embeddings, g.z)
+        if plain:
+            x = row_gather_plain(self.embeddings, g.z)
+        else:
+            x = row_gather(self.embeddings, g.z, g.groups("z"))
         # Mask before basis: padded distances at 2*cutoff zero every channel.
         dist_g = torch.where(g.eg_mask > 0, g.dist_g, 2.0 * cfg.cutoff_g)
         dist_l = torch.where(g.el_mask > 0, g.dist_l, 2.0 * cfg.cutoff_l)
@@ -102,9 +116,7 @@ class PAMNet(nn.Module):
 
         outs, atts = [], []
         for glayer, llayer in zip(self.global_layer, self.local_layer):
-            x, out_g, att_g = glayer(x, rbf_g, g.eg_src, g.eg_dst, g.eg_mask,
-                                     cfg.flow, g.eg_src_off, g.eg_dst_off,
-                                     g.valid["eg"], plain)
+            x, out_g, att_g = glayer(x, rbf_g, g, cfg.flow, plain)
             x, out_l, att_l = llayer(x, rbf_l, sbf2, sbf1, g, plain)
             outs.append(torch.cat([out_g, out_l], dim=1))
             atts.append(torch.cat([att_g, att_l], dim=1))
@@ -112,8 +124,11 @@ class PAMNet(nn.Module):
         # (reference: models.py:206-213).
         att = torch.softmax(F.leaky_relu(torch.stack(atts), 0.2), dim=-1)
         node_out = (torch.stack(outs) * att).sum(-1).sum(0)  # (N,)
-        # RNA mean pool (reference: models.py:220-221).
         node_out = node_out * g.node_mask
-        pooled = segment_mean(node_out[:, None], g.node_graph, g.y.shape[0],
-                              mask=g.node_mask)[:, 0]
+        num_graphs = g.y.shape[0]
+        if cfg.dataset_kind == "qm9":  # sum pool (reference: models.py:215-216)
+            pooled = segment_sum(node_out, g.node_graph, num_graphs)
+        else:  # RNA mean pool (reference: models.py:220-221)
+            pooled = segment_mean(node_out[:, None], g.node_graph, num_graphs,
+                                  mask=g.node_mask)[:, 0]
         return pooled * g.graph_mask

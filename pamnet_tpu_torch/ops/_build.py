@@ -28,10 +28,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signature of each exported function: (argtypes, restype).
 _SIGNATURES = {
-    "pamnet_triplet_aggregate": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "pamnet_triplet_aggregate": ([_P] * 6 + [_I, _I, _P], _I),
     "pamnet_sbf_modulate": ([_P] * 11 + [_I, _I, _I, _P], _I),
-    "pamnet_row_gather": ([_P, _P, _P, _I, _I, _P], _I),
+    "pamnet_row_gather": ([_P, _P, _P, _I, _I, _I, _P], _I),
     "pamnet_edge_message": ([_P] * 8 + [_I, _I, _P], _I),
+    "pamnet_gather_product": ([_P] * 5 + [_I, _I, _I, _P], _I),
+    "pamnet_edge_message_backward": ([_P] * 10 + [_I, _I, _P], _I),
     "pamnet_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -44,7 +44,15 @@ def sbf_modulate(proj: torch.Tensor, m_neighbor: torch.Tensor,
                  idx: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """(T, D) modulated triplet messages; the plain version for CPU tensors,
     the CUDA kernel for CUDA tensors.  Counts its kernel launches in
-    ``sbf_modulate.launches``."""
+    ``sbf_modulate.launches``.  It has no backward yet, so it raises when an
+    input requires grad rather than return a result cut off from autograd
+    (``sbf_modulate_plain`` differentiates)."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (proj, m_neighbor, cbf, bias, w1, b1, w2, b2, mask)):
+        raise RuntimeError(
+            "sbf_modulate: an input requires grad, and the kernel has no "
+            "backward; train on the unfolded path (fold_sbf=False)"
+        )
     if m_neighbor.device.type == "cpu":
         return sbf_modulate_plain(proj, m_neighbor, cbf, bias, w1, b1, w2, b2,
                                   idx, mask)

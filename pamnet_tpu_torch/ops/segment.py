@@ -8,9 +8,16 @@ import torch
 
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
-    """Sum ``data`` rows into ``num_segments`` buckets."""
-    out = data.new_zeros((num_segments,) + data.shape[1:])
-    return out.index_add_(0, segment_ids.long(), data)
+    """Sum ``data`` rows into ``num_segments`` buckets, as the product of
+    the (num_segments, rows) one-hot matrix with ``data``.  ``index_add_``
+    on CUDA adds with atomics in an order that changes from run to run; a
+    product sums in a fixed order, so a training step repeats bit for bit.
+    The pools it serves have few segments (graphs per batch)."""
+    rows = data.shape[0]
+    onehot = segment_ids.long()[None, :] == torch.arange(
+        num_segments, device=data.device)[:, None]
+    out = onehot.to(data.dtype) @ data.reshape(rows, -1)
+    return out.reshape((num_segments,) + data.shape[1:])
 
 
 def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,

@@ -20,7 +20,7 @@ _MLP_NAMES = {
     "mlp_rbf_g", "mlp_rbf_l", "mlp_sbf1", "mlp_sbf2", "mlp_sbf",
     "mlp_x1", "mlp_x2", "mlp_m", "mlp_m_ji", "mlp_m_kj", "mlp_out",
 }
-_LINEAR_NAMES = {"W_edge_attr", "W_out", "lin_rbf", "lin_rbf_out"}
+_LINEAR_NAMES = {"W_edge_attr", "W_out", "lin_rbf", "lin_rbf_out", "init_linear"}
 
 
 def from_jax_params(tree: dict) -> dict[str, torch.Tensor]:

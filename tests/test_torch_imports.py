@@ -38,3 +38,13 @@ def test_scan_sees_forbidden_imports(tmp_path):
     probe.write_text("import jax.numpy as jnp\nfrom pamnet_tpu.ops import ell\n"
                      "from pamnet_tpu_torch import serve\n")
     assert _imported_roots(probe) & FORBIDDEN == {"jax", "pamnet_tpu"}
+
+
+def test_scan_covers_every_module_of_the_port():
+    """The training modules and main_qm9 are among the scanned files."""
+    scanned = {str(p.relative_to(ROOT)) for p in FILES}
+    for rel in ("pamnet_tpu_torch/train/loop.py", "pamnet_tpu_torch/train/ema.py",
+                "pamnet_tpu_torch/train/schedules.py", "pamnet_tpu_torch/main_qm9.py",
+                "pamnet_tpu_torch/data/qm9.py", "pamnet_tpu_torch/data/synthetic.py",
+                "pamnet_tpu_torch/serve.py", "chip_smoke.py"):
+        assert rel in scanned, rel
