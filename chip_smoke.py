@@ -772,7 +772,7 @@ def train_phase(args, gen, reset_counts, read_counts, emit_kernels) -> tuple[dic
     from pamnet_tpu_torch.data.synthetic import synthetic_qm9_dataset
     from pamnet_tpu_torch.models.pamnet import PAMNet
     from pamnet_tpu_torch.train.ema import ema_init
-    from pamnet_tpu_torch.train.loop import batch_loss, make_optimizer, run_epoch, train_step
+    from pamnet_tpu_torch.train.loop import Optimizer, batch_loss, run_epoch, train_step
     from pamnet_tpu_torch.train.schedules import warmup_exponential
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -801,10 +801,9 @@ def train_phase(args, gen, reset_counts, read_counts, emit_kernels) -> tuple[dic
     # ---- 6. training at the recipe ----
     cfg = PAMNetConfig(dataset="QM9", dim=d, n_layer=6, cutoff_l=5.0, cutoff_g=5.0)
     model = PAMNet(cfg, torch.Generator().manual_seed(args.seed)).to("cuda")
-    opt = make_optimizer(model.parameters(),
-                         warmup_exponential(1e-4, len(loader),
-                                            frac_steps_per_epoch=len(qmols) / bs),
-                         clip_norm=1000.0)
+    opt = Optimizer(model.parameters(),
+                    warmup_exponential(1e-4, len(loader), frac_steps_per_epoch=len(qmols) / bs),
+                    clip_norm=1000.0)
     ema = ema_init(model.state_dict())
 
     # The first step's gradients: kernels against PyTorch's autograd of the

@@ -99,7 +99,7 @@ def main(argv=None) -> dict:
     from pamnet_tpu_torch.data.loader import GraphLoader
     from pamnet_tpu_torch.models.pamnet import PAMNet
     from pamnet_tpu_torch.train.ema import ema_init
-    from pamnet_tpu_torch.train.loop import mae, make_optimizer, run_epoch
+    from pamnet_tpu_torch.train.loop import Optimizer, mae, run_epoch
     from pamnet_tpu_torch.train.schedules import warmup_exponential
 
     mols, n_train, n_val = load_molecules(args)
@@ -127,7 +127,7 @@ def main(argv=None) -> dict:
     # The reference advances the fractional epoch by step/(len(train)/bs)
     # (main_qm9.py:114), a float divisor distinct from the batch count.
     frac = len(train_mols) / args.batch_size
-    optimizer = make_optimizer(
+    optimizer = Optimizer(
         model.parameters(),
         warmup_exponential(args.lr, steps_per_epoch, frac_steps_per_epoch=frac),
         weight_decay=args.wd, clip_norm=1000.0,

@@ -12,12 +12,15 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
     the (num_segments, rows) one-hot matrix with ``data``.  ``index_add_``
     on CUDA adds with atomics in an order that changes from run to run; a
     product sums in a fixed order, so a training step repeats bit for bit.
-    The pools it serves have few segments (graphs per batch)."""
+    The product runs in float64, which no TF32 or reduced-precision matmul
+    setting touches: a pooled value is the float64 sum of its rows, rounded
+    once, whatever matmul precision the caller set.  The pools it serves
+    have few segments (graphs per batch)."""
     rows = data.shape[0]
     onehot = segment_ids.long()[None, :] == torch.arange(
         num_segments, device=data.device)[:, None]
-    out = onehot.to(data.dtype) @ data.reshape(rows, -1)
-    return out.reshape((num_segments,) + data.shape[1:])
+    out = onehot.double() @ data.reshape(rows, -1).double()
+    return out.to(data.dtype).reshape((num_segments,) + data.shape[1:])
 
 
 def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,

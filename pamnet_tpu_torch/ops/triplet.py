@@ -130,7 +130,7 @@ def _forward(a, off, idx, b, total):
 class _TripletAggregate(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, b, off, idx, total, grad):
-        ctx.off, ctx.total, ctx.grad = off, total, grad
+        ctx.total, ctx.grad = total, grad
         ctx.save_for_backward(a, b, idx)
         return _forward(a, off, idx, b, total)
 
@@ -138,8 +138,6 @@ class _TripletAggregate(torch.autograd.Function):
     def backward(ctx, g):
         a, b, idx = ctx.saved_tensors
         grad, total = ctx.grad, ctx.total
-        if total is None:
-            total = int(ctx.off[-1])
         g = g.contiguous()
         d_a = d_b = None
         if ctx.needs_input_grad[0]:
@@ -154,23 +152,23 @@ class _TripletAggregate(torch.autograd.Function):
         return d_a, d_b, None, None, None, None
 
 
-def _check_grad_inputs(a, b, idx, grad: AggregateGrad | None, needs_a: bool):
-    """Raise unless ``grad`` holds what the backward reads: a gradient is
-    never dropped without a word."""
+def _check_grad_inputs(a, b, idx, total, grad: AggregateGrad | None, needs_a: bool):
+    """Raise unless ``total`` and ``grad`` hold what the backward reads: a
+    gradient is never dropped without a word, and the backward never reads
+    ``off`` back from the card."""
     if grad is None:
         raise ValueError("triplet_aggregate: an input requires grad, so the "
                          "backward needs grad=AggregateGrad(seg, ...)")
     if idx is None and b is not None:
         raise ValueError("triplet_aggregate: a modulated sum without a gather "
                          "has no backward")
+    if total is None:
+        raise ValueError("triplet_aggregate: an input requires grad, so the "
+                         "backward needs total = off[-1] from the host")
     rows = (idx if idx is not None else a).shape[0]
     if grad.seg.shape != (rows,):
         raise ValueError(f"triplet_aggregate: grad.seg must be ({rows},), got "
                          f"{tuple(grad.seg.shape)}")
-    if idx is None and a.shape[0] != rows:
-        raise ValueError("triplet_aggregate: without a gather, a needs one row "
-                         f"per summed row ({rows}) for its gradient, got "
-                         f"{a.shape[0]}")
     if needs_a and idx is not None:
         if grad.by_idx is None or grad.seg_by_idx is None:
             raise ValueError("triplet_aggregate: the gradient of a gathered a "
@@ -189,13 +187,13 @@ def triplet_aggregate(a: torch.Tensor, off: torch.Tensor,
     version for CPU tensors, the CUDA kernels for CUDA tensors.  ``total``
     is ``off[-1]`` where the caller knows it on the host (the batch's valid
     row count): the rows the kernel reads are then checked without reading
-    ``off`` back from the card.  ``grad`` carries the index arrays of the
-    backward and must be given when ``a`` or ``b`` requires grad.  Counts
+    ``off`` back from the card.  ``total`` and ``grad``, the index arrays of
+    the backward, must be given when ``a`` or ``b`` requires grad.  Counts
     its forward kernel launches in ``triplet_aggregate.launches``."""
     needs_a = a.requires_grad
     if not (torch.is_grad_enabled() and (needs_a or (b is not None and b.requires_grad))):
         return _forward(a, off, idx, b, total)  # no gradient wanted: no graph node
-    _check_grad_inputs(a, b, idx, grad, needs_a)
+    _check_grad_inputs(a, b, idx, total, grad, needs_a)
     return _TripletAggregate.apply(a, b, off, idx, total, grad)
 
 

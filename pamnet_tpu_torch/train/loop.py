@@ -10,11 +10,15 @@ there and read once at the end.
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 
 from pamnet_tpu_torch.data.batch import GraphBatch
 from pamnet_tpu_torch.train.ema import ema_update
+
+EMA_DECAY = 0.999  # main_qm9.py's EMA
 
 
 def loss_terms(pred: torch.Tensor, y: torch.Tensor, graph_mask: torch.Tensor,
@@ -35,91 +39,67 @@ def loss_terms(pred: torch.Tensor, y: torch.Tensor, graph_mask: torch.Tensor,
     return (e * graph_mask).sum(), graph_mask.sum()
 
 
-def batch_loss(model, batch: GraphBatch, kind: str = "l1", plain: bool = False):
-    """Mean loss over the batch's valid graphs."""
-    total, count = loss_terms(model(batch, plain=plain), batch.y, batch.graph_mask, kind)
+def batch_loss(model, batch: GraphBatch, plain: bool = False):
+    """Mean L1 loss over the batch's valid graphs (QM9's, main_qm9.py:108)."""
+    total, count = loss_terms(model(batch, plain=plain), batch.y, batch.graph_mask, "l1")
     return total / count.clamp_min(1.0)
 
 
 class Optimizer:
-    """The optax chain of ``pamnet_tpu/train/loop.py::make_optimizer``:
-    global-norm clip (``clip_norm``), then L2 weight decay added to the
-    gradient, then Adam (b1 0.9, b2 0.999, eps 1e-8, torch.optim.Adam's
-    defaults), then minus the lr of ``schedule`` at the number of updates
-    done so far (update 0 takes ``schedule(0)``).  A parameter that got no
-    gradient (``init_linear`` on QM9) takes a zero one, as in JAX.  Updates
-    run as multi-tensor (``torch._foreach_*``) operations in place."""
+    """The optax chain of ``pamnet_tpu/train/loop.py::make_optimizer`` over
+    ``torch.optim.Adam`` (fused; b1 0.9, b2 0.999, eps 1e-8, the weight
+    decay added to the gradient as optax's ``add_decayed_weights`` does):
+    global-norm clip first, and the lr of ``schedule`` at the number of
+    updates done so far (update 0 takes ``schedule(0)``).  A parameter that
+    got no gradient (``init_linear`` on QM9) takes a zero one, as in JAX.
+    Nothing in a step is read back from the card."""
 
     def __init__(self, params, schedule, weight_decay: float = 0.0,
-                 clip_norm: float | None = None, b1: float = 0.9, b2: float = 0.999,
-                 eps: float = 1e-8):
+                 clip_norm: float | None = None):
         self.params = list(params)
-        self.schedule = schedule
-        self.weight_decay = weight_decay
-        self.clip_norm = clip_norm
-        self.b1, self.b2, self.eps = b1, b2, eps
-        self.mu = [torch.zeros_like(p) for p in self.params]
-        self.nu = [torch.zeros_like(p) for p in self.params]
-        self.count = 0
+        self.adam = torch.optim.Adam(self.params, lr=schedule(0),
+                                     weight_decay=weight_decay, fused=True)
+        self.schedule, self.clip_norm, self.count = schedule, clip_norm, 0
 
     def zero_grad(self) -> None:
-        for p in self.params:
-            p.grad = None
+        self.adam.zero_grad()
 
     @torch.no_grad()
     def step(self) -> None:
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         if self.clip_norm is not None:
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-            # optax.clip_by_global_norm: unchanged below the limit, else
-            # rescaled to it; the choice stays on the card.
-            scale = torch.where(norm < self.clip_norm, torch.ones_like(norm),
-                                self.clip_norm / norm)
-            grads = torch._foreach_mul(grads, scale)
-        if self.weight_decay:
-            grads = torch._foreach_add(grads, self.params, alpha=self.weight_decay)
-        b1, b2 = self.b1, self.b2
-        torch._foreach_mul_(self.mu, b1)
-        torch._foreach_add_(self.mu, grads, alpha=1.0 - b1)
-        torch._foreach_mul_(self.nu, b2)
-        torch._foreach_addcmul_(self.nu, grads, grads, value=1.0 - b2)
-        lr = self.schedule(self.count)
+            # optax.clip_by_global_norm up to the 1e-6 PyTorch adds to the norm.
+            torch.nn.utils.clip_grad_norm_(self.params, self.clip_norm, foreach=True)
+        self.adam.param_groups[0]["lr"] = self.schedule(self.count)
+        self.adam.step()
         self.count += 1
-        mu_hat = torch._foreach_div(self.mu, 1.0 - b1 ** self.count)
-        denom = torch._foreach_sqrt(torch._foreach_div(self.nu, 1.0 - b2 ** self.count))
-        torch._foreach_add_(denom, self.eps)
-        torch._foreach_add_(self.params, torch._foreach_div(mu_hat, denom), alpha=-lr)
 
+    # Copies both ways: torch.optim's state dicts share the live tensors.
     def state_dict(self) -> dict:
-        return {"count": self.count, "mu": [t.clone() for t in self.mu],
-                "nu": [t.clone() for t in self.nu]}
+        return copy.deepcopy({"count": self.count, "adam": self.adam.state_dict()})
 
     def load_state_dict(self, state: dict) -> None:
         self.count = state["count"]
-        torch._foreach_copy_(self.mu, state["mu"])
-        torch._foreach_copy_(self.nu, state["nu"])
+        self.adam.load_state_dict(copy.deepcopy(state["adam"]))
 
 
-def make_optimizer(params, schedule, weight_decay: float = 0.0,
-                   clip_norm: float | None = None) -> Optimizer:
-    return Optimizer(params, schedule, weight_decay, clip_norm)
-
-
-def train_step(model, optimizer: Optimizer, ema: dict | None, batch: GraphBatch,
-               loss_kind: str = "l1", ema_decay: float = 0.999) -> torch.Tensor:
-    """One optimizer step on ``batch`` (on the model's device); returns the
-    batch's mean loss as a device tensor."""
+def train_step(model, optimizer: Optimizer, ema: dict | None,
+               batch: GraphBatch) -> torch.Tensor:
+    """One optimizer step on ``batch`` (on the model's device) and the EMA
+    at decay 0.999; returns the batch's mean loss as a device tensor."""
     optimizer.zero_grad()
-    loss = batch_loss(model, batch, loss_kind)
+    loss = batch_loss(model, batch)
     loss.backward()
     optimizer.step()
     if ema is not None:
-        ema_update(ema, dict(model.named_parameters()), ema_decay)
+        ema_update(ema, dict(model.named_parameters()), EMA_DECAY)
     return loss.detach()
 
 
-def run_epoch(model, optimizer: Optimizer, ema: dict | None, batches, device,
-              loss_kind: str = "l1", ema_decay: float = 0.999) -> tuple[float, int, list]:
+def run_epoch(model, optimizer: Optimizer, ema: dict | None, batches,
+              device) -> tuple[float, int, list]:
     """Train over ``batches`` (host ``GraphBatch``es).  Returns the sum of
     the batches' mean losses weighted by their valid graphs (the
     reference's accounting, main_qm9.py:109,119), the graph count and the
@@ -127,7 +107,7 @@ def run_epoch(model, optimizer: Optimizer, ema: dict | None, batches, device,
     loss_sum = torch.zeros((), dtype=torch.float64, device=device)
     graphs, losses = 0, []
     for gb in batches:
-        loss = train_step(model, optimizer, ema, gb.to(device), loss_kind, ema_decay)
+        loss = train_step(model, optimizer, ema, gb.to(device))
         loss_sum += loss.double() * gb.num_graphs
         graphs += gb.num_graphs
         losses.append(loss)

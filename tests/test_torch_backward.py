@@ -233,6 +233,8 @@ def test_no_function_drops_a_gradient():
         edge_message(a, a.detach(), idx, idx, torch.randn(8, 4))
     with pytest.raises(ValueError, match="without a gather"):
         triplet_aggregate(a, off, b=torch.randn(8, 4), grad=AggregateGrad(idx))
+    with pytest.raises(ValueError, match="total"):  # the backward reads no offset back
+        triplet_aggregate(a, off, grad=AggregateGrad(idx))
     with torch.no_grad():
         triplet_aggregate(a, off)
         row_gather(a, idx)

@@ -230,7 +230,7 @@ def test_training_gradients_kernels_vs_plain(cuda):
     grads = []
     for plain in (False, True):
         model.zero_grad()
-        batch_loss(model, gb, "l1", plain=plain).backward()
+        batch_loss(model, gb, plain=plain).backward()
         grads.append({n: p.grad for n, p in model.named_parameters() if p.grad is not None})
     assert grads[0].keys() == grads[1].keys()
     for name, want in grads[1].items():

@@ -113,3 +113,26 @@ def test_forward_matches_apply_pamnet(n_layer, fold, fuse, flow):
     assert got.shape == want.shape
     assert np.all(np.isfinite(got)) and np.all(got[3:] == 0.0)
     np.testing.assert_allclose(got, want, rtol=0, atol=5e-5)
+
+
+@pytest.mark.parametrize("precision", ["highest", "medium"])
+def test_segment_sum_ignores_matmul_precision(precision):
+    """The graph pool is the float64 sum of its f32 rows, rounded once,
+    whatever matmul precision the process set (TF32 or bf16 products would
+    round the pooled prediction to a 10- or 7-bit mantissa)."""
+    from pamnet_tpu_torch.ops.segment import segment_sum
+
+    rng = np.random.default_rng(11)
+    data = torch.from_numpy((rng.standard_normal((300, 3)) * 1e3).astype(np.float32))
+    data.requires_grad_()
+    ids = torch.from_numpy(np.sort(rng.integers(0, 7, 300)).astype(np.int32))
+    want = torch.zeros(7, 3, dtype=torch.float64).index_add_(0, ids.long(), data.double())
+    old = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision(precision)
+    try:
+        got = segment_sum(data, ids, 7)
+    finally:
+        torch.set_float32_matmul_precision(old)
+    assert torch.equal(got, want.float())
+    got.sum().backward()
+    assert torch.equal(data.grad, torch.ones_like(data))

@@ -29,7 +29,7 @@ from pamnet_tpu_torch.data.loader import GraphLoader
 from pamnet_tpu_torch.models.pamnet import PAMNet
 from pamnet_tpu_torch.train import schedules as tsched
 from pamnet_tpu_torch.train.ema import ema_init, ema_update
-from pamnet_tpu_torch.train.loop import make_optimizer, train_step
+from pamnet_tpu_torch.train.loop import Optimizer, train_step
 from test_train import _mols
 
 SHAPES = {"w": (4, 3), "b": (3,), "unused": (2, 2)}
@@ -62,7 +62,7 @@ def test_optimizer_and_ema_match_optax(clip, wd, schedule):
     state, shadow = opt.init(jp), jax_ema_init(jp)
 
     tp = {k: torch.tensor(v) for k, v in params.items()}
-    topt = make_optimizer(tp.values(), tschedule, weight_decay=wd, clip_norm=clip)
+    topt = Optimizer(tp.values(), tschedule, weight_decay=wd, clip_norm=clip)
     tshadow = ema_init(tp)
     for g in grads:
         updates, state = opt.update({k: jnp.asarray(v) for k, v in g.items()}, state, jp)
@@ -116,7 +116,7 @@ def test_loss_decreases():
     mols = _mols(np.random.default_rng(480), 4)
     gb = next(iter(GraphLoader(mols, "qm9", 5.0, 5.0, batch_size=4, build_perms=True)))
     model = PAMNet(PAMNetConfig(dataset="QM9", dim=16, n_layer=1))
-    opt = make_optimizer(model.parameters(), tsched.constant(1e-3), clip_norm=1000.0)
+    opt = Optimizer(model.parameters(), tsched.constant(1e-3), clip_norm=1000.0)
     ema = ema_init(model.state_dict())
     losses = [float(train_step(model, opt, ema, gb)) for _ in range(30)]
     assert losses[-1] < 0.5 * losses[0], losses[:3] + losses[-3:]
