@@ -2,7 +2,7 @@
 """GPU smoke run of the PyTorch/CUDA port (pamnet_tpu_torch) on one card.
 
     python3 chip_smoke.py [--seed 0] [--structures 16] [--atoms 2100]
-                          [--qm9_molecules 512] [--profile]
+                          [--qm9_molecules 512] [--rna_structures 32] [--profile]
 
 Phases, each printing one JSON line:
   1. device: the card's name and power limit (nvidia-smi) and the kernel
@@ -26,7 +26,25 @@ Phases, each printing one JSON line:
      every kernel of the path must launch), ms per step and molecules/s on a
      resident batch, host enqueue time and peak memory; then
      ``python -m pamnet_tpu_torch.main_qm9`` in-process for one epoch;
-  7. kernels: one line listing every kernel with its numbers.
+  7. rna_train_kernels: kernel B's backward against PyTorch's autograd of its
+     plain version at the pads of an RNA training batch of 8, for (7, 16) and
+     (7, 8), on the t2 and t1 arrays of that batch; then every other wrapper
+     an RNA training step launches, against its plain version at that
+     batch's shapes (D=16): kernels A and B and the edge messages forward,
+     the row gathers with a valid count, the edge messages' backward and
+     the group sums on the batch's own index arrays;
+  8. rna_train: RNA training at the published recipe (dim 16, 1 layer, batch
+     8, lr 1e-4 constant, SmoothL1, Adam, no clip, no EMA, f32) on synthetic
+     structures written to and read from a TU directory: the first step's
+     gradients through the kernels against the plain route and against the
+     unfolded path, a repeated step bitwise, launches per step (kernel B 2
+     forward + 2 backward), an epoch (the RNA training main path), ms per
+     step, structures/s, device time per step, peak memory; then
+     ``python -m pamnet_tpu_torch.main_rna_puzzles`` in-process: three epochs
+     straight, two epochs and a ``--resume`` for the third, which must give
+     the same losses bit for bit, and ``RNAScoringService`` scoring the
+     validation structures with the exported ``pamnet_rna_best.pt``;
+  9. kernels: one line listing every kernel with its numbers.
 Then the nvidia-smi line and, last, {"ok": true, "device": {...}}.
 Any mismatch raises and the script exits non-zero.  It exits non-zero with no
 result when CUDA is absent.
@@ -44,6 +62,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -70,42 +89,23 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def rna_like_structure(rng: np.random.Generator, n_atoms: int) -> dict:
-    """A compact folded chain of C/N/O atoms: 1.5 A steps at a 115 degree
-    bond angle with random torsions, kept inside a sphere at heavy-atom
-    density (0.05 per A^3), no atom closer than 2.1 A to any but its two chain predecessors."""
-    radius = (3.0 * n_atoms / (4.0 * np.pi * 0.05)) ** (1.0 / 3.0)
-    step, cos_a = 1.5, np.cos(np.deg2rad(180.0 - 115.0))
-    pos = np.zeros((n_atoms, 3))
-    pos[1] = pos[0] + [step, 0.0, 0.0]
-    for i in range(2, n_atoms):
-        u = pos[i - 1] - pos[i - 2]
-        u /= np.linalg.norm(u)
-        # Candidate directions at the bond angle to the previous bond.
-        ref = np.array([0.0, 0.0, 1.0]) if abs(u[2]) < 0.9 else np.array([1.0, 0.0, 0.0])
-        v = np.cross(u, ref)
-        v /= np.linalg.norm(v)
-        w = np.cross(u, v)
-        tors = rng.uniform(0.0, 2.0 * np.pi, 16)
-        sin_a = np.sqrt(1.0 - cos_a**2)
-        dirs = (cos_a * u[None] + sin_a * (np.cos(tors)[:, None] * v[None]
-                                           + np.sin(tors)[:, None] * w[None]))
-        cand = pos[i - 1] + step * dirs
-        r = np.linalg.norm(cand, axis=1)
-        if i > 2:
-            d = np.sqrt(((cand[:, None] - pos[None, : i - 2]) ** 2).sum(-1).min(1))
-        else:
-            d = np.full(len(cand), np.inf)
-        free = d >= 2.1
-        if (free & (r <= radius)).any():
-            pick = np.argmax(free & (r <= radius))
-        elif free.any():  # outside the sphere: step back towards the centre
-            pick = np.argmin(np.where(free, r, np.inf))
-        else:  # crowded: the least crowded candidate
-            pick = np.argmax(d)
-        pos[i] = cand[pick]
-    z = rng.choice(3, size=n_atoms, p=[0.45, 0.35, 0.20]).astype(np.int32)
-    return dict(z=z, pos=pos.astype(np.float32), y=0.0)
+def kernel_resources(library: str) -> dict[str, dict[str, int]]:
+    """Registers, stack (spills and local arrays), shared and local memory of
+    every kernel in the built ``library``, as ``cuobjdump -res-usage`` of the
+    toolkit whose ``nvcc`` built it reports them; raises without that tool."""
+    from pamnet_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-res-usage", library], check=True, capture_output=True,
+                         text=True, timeout=120).stdout
+    pattern = r"Function (\S+):\s*\n\s*REG:(\d+) STACK:(\d+) SHARED:(\d+) LOCAL:(\d+)"
+    found = re.findall(pattern, out)
+    if not found:
+        raise AssertionError(f"cuobjdump -res-usage named no kernel: {out[:400]}")
+    return {re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}\d+", "", name)[:44]:
+            {"registers": int(reg), "stack": int(stack), "shared": int(shared),
+             "local": int(local)}
+            for name, reg, stack, shared, local in found}
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -143,9 +143,12 @@ def enqueue_ms(fn, iters: int = 50) -> float:
 def device_ms(fn, iters: int = 20, tries: int = 3) -> float | None:
     """Mean device time of the kernels one call launches, from the profiler's
     kernel records over ``iters`` calls: the card's own time, where an
-    event-timed run of small calls measures the host's issue rate.  A
-    profile that recorded no kernel is taken again; None ("not measured")
-    after ``tries`` such profiles."""
+    event-timed run of small calls measures the host's issue rate.  The
+    profiler can drop records of a run, so each kernel counts its mean
+    record times its launches per call (records over calls, rounded, at
+    least one), not its total over ``iters``.  A profile that recorded no
+    kernel is taken again; None ("not measured") after ``tries`` such
+    profiles."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -156,9 +159,10 @@ def device_ms(fn, iters: int = 20, tries: int = 3) -> float | None:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        us = sum(_device_us(ev) for ev in prof.key_averages() if _is_kernel(ev))
+        us = sum(_device_us(ev) / ev.count * max(1, round(ev.count / iters))
+                 for ev in prof.key_averages() if _is_kernel(ev))
         if us > 0:
-            return us / iters / 1e3
+            return us / 1e3
     return None
 
 
@@ -242,7 +246,7 @@ def kernel_a_case(name, num_out, rows, d, gather, modulate, gen):
             "plain_ms": plain, "library_ms": lib, "bound_ms": bms, "bound_by": by}
 
 
-def kernel_b_case(num_edges, triplets, ns, d, gen):
+def kernel_b_case(num_edges, triplets, ns, d, gen, name="t2 fused folded gather"):
     import torch
 
     from pamnet_tpu_torch.ops.sbf_modulate import sbf_modulate, sbf_modulate_plain
@@ -270,7 +274,7 @@ def kernel_b_case(num_edges, triplets, ns, d, gen):
     # each), the mask and the modulation.
     flops = triplets * (2 * ns * d + 4 * d * d + 12 * d + 2 * d)
     bms, by = bound_ms(nbytes, flops)
-    return {"case": "t2 fused folded gather", "edges": num_edges,
+    return {"case": name, "edges": num_edges,
             "triplets": triplets, "ns": ns, "d": d, **err, "ms": ms, "ms_first": ms_first,
             "device_ms": dev, "library_device_ms": None,
             "enqueue_ms": enq,
@@ -423,9 +427,10 @@ def gather_product_case(gb, kind: str, d: int, gen) -> dict:
         valid * d, rows=idx.shape[0], valid=valid, d=d)
 
 
-def edge_backward_case(gb, which: str, d: int, gen) -> dict:
+def edge_backward_case(gb, which: str, d: int, gen, flow: str = "source_to_target") -> dict:
     """The edge message's backward (d_pre, d_gate) for the global message
-    (gate, mask) or a local one (m_kj: gate; m_ji: none)."""
+    (gate, mask; ``flow`` picks which endpoint is ``i``, as the global layer
+    does) or a local one (m_kj: gate; m_ji: none)."""
     import torch
 
     from pamnet_tpu_torch.ops.gather import edge_message_backward, edge_message_backward_plain
@@ -434,6 +439,8 @@ def edge_backward_case(gb, which: str, d: int, gen) -> dict:
     nodes = gb.z.shape[0]
     if which == "global":
         i, j, mask, valid = gb.eg_dst, gb.eg_src, gb.eg_mask, gb.valid["eg"]
+        if flow == "target_to_source":
+            i, j = j, i
     else:
         i, j, mask, valid = gb.el_dst, gb.el_src, None, gb.valid["el"]
     gated = which != "local m_ji"
@@ -455,13 +462,19 @@ def edge_backward_case(gb, which: str, d: int, gen) -> dict:
 
 def group_sum_case(gb, key: str, d: int, gen) -> dict:
     """A row gather's backward, sum of row gradients by the index ``key``,
-    over the batch's CSR of it; ``library_ms`` times index_add_."""
+    over the batch's CSR of it; ``library_ms`` times index_add_.  Held to
+    atol + 1e-5 |want| per element, atol = 1e-4 for groups of up to 512 rows
+    and growing with the longest group beyond that: an f32 running sum's
+    rounding grows with its length, and the two versions add in different
+    orders."""
     import torch
 
     from pamnet_tpu_torch.ops.triplet import group_sum, group_sum_plain
 
     groups, ids = gb.groups(key), getattr(gb, key)
     valid, num = groups.total, groups.off.shape[0] - 1
+    longest = int((groups.off[1:] - groups.off[:-1]).max())
+    atol = 1e-4 * max(1.0, longest / 512)
     x = torch.randn(ids.shape[0], d, device="cuda", generator=gen)
     ids_long, xs, acc = ids[:valid].long(), x[:valid], torch.zeros(num, d, device="cuda")
     nbytes = (valid * d * 4 + (valid * 4 if groups.perm is not None else 0)
@@ -470,8 +483,104 @@ def group_sum_case(gb, key: str, d: int, gen) -> dict:
         f"sum by {key} ({'permuted' if groups.perm is not None else 'sorted'} CSR)",
         lambda: group_sum(x, groups), lambda: group_sum_plain(x, groups),
         lambda: acc.index_add_(0, ids_long, xs), group_sum(x, groups),
-        group_sum_plain(x, groups), 1e-4, 1e-5, nbytes, valid * d, groups=num,
-        rows=ids.shape[0], valid=valid, d=d)
+        group_sum_plain(x, groups), atol, 1e-5, nbytes, valid * d, groups=num,
+        longest_group=longest, rows=ids.shape[0], valid=valid, d=d)
+
+
+def row_gather_batch_case(gb, key: str, d: int, gen) -> dict:
+    """The row gather by the batch's index ``key``: the embedding lookup
+    (``z``, every row) or the backward of a plain sum by ``key`` (the sum's
+    output gradient gathered back to its rows; rows past the batch's valid
+    count are written as zeros).  ``library_ms`` times ``torch.index_select``
+    of the valid rows."""
+    import torch
+
+    from pamnet_tpu_torch.ops.gather import row_gather, row_gather_plain
+
+    idx = getattr(gb, key)
+    rows = idx.shape[0]
+    if key == "z":
+        table_rows, valid = gb.groups("z").off.shape[0] - 1, None
+    else:
+        table_rows = getattr(gb, key + "_off").shape[0] - 1
+        valid = gb.valid["eg" if key[:2] == "eg" else key[:2]]
+    src = torch.randn(table_rows, d, device="cuda", generator=gen)
+    used = rows if valid is None else valid
+    idx_long = idx[:used].long()
+    nbytes = _unique(idx, used) * d * 4 + used * 4 + rows * d * 4
+    return _timed_case(
+        f"rows by {key}" + ("" if valid is None else " (valid count)"),
+        lambda: row_gather(src, idx, valid=valid), lambda: row_gather_plain(src, idx, valid),
+        lambda: torch.index_select(src, 0, idx_long), row_gather(src, idx, valid=valid),
+        row_gather_plain(src, idx, valid), 0.0, 0.0, nbytes, 0.0, table_rows=table_rows,
+        rows=rows, valid=used, d=d)
+
+
+def sbf_backward_case(gb, kind: str, d: int, gen) -> dict:
+    """Kernel B's backward on the ``kind`` ("t2" or "t1") arrays of the RNA
+    training batch ``gb`` (index, its CSR, mask and cbf; random tables,
+    weights and output gradient), each of its seven outputs against PyTorch's
+    autograd of the plain version within 1e-4 * max|g_plain| + 1e-6.
+    ``plain_ms`` times that autograd backward alone; no one PyTorch call
+    computes the function."""
+    import torch
+
+    from pamnet_tpu_torch.ops.sbf_modulate import sbf_modulate_backward, sbf_modulate_plain
+
+    ns = 7
+    key, cbf = ("t2_kj", gb.cbf2) if kind == "t2" else ("t1_jj", gb.cbf1)
+    idx, groups, mask = getattr(gb, key), gb.groups(key), getattr(gb, kind + "_mask")
+    edges, rows, valid = gb.el_src.shape[0], idx.shape[0], gb.valid[kind]
+    r = lambda *s: torch.randn(*s, device="cuda", generator=gen)  # noqa: E731
+    args = [r(edges, ns * d), r(edges, d), cbf, r(d), r(d, d) / d**0.5, r(d),
+            r(d, d) / d**0.5, r(d), idx, mask]
+    cot = r(rows, d)
+    grad_at = (0, 1, 3, 4, 5, 6, 7)  # proj, m_neighbor, bias, w1, b1, w2, b2
+    leaves = [a.clone().requires_grad_() if i in grad_at else a for i, a in enumerate(args)]
+    out = sbf_modulate_plain(*leaves)
+    wanted = [leaves[i] for i in grad_at]
+    plain_fn = lambda: torch.autograd.grad(out, wanted, cot, retain_graph=True)  # noqa: E731
+    fn = lambda: sbf_modulate_backward(*args, groups, cot)  # noqa: E731
+    got, want = fn(), plain_fn()
+    torch.cuda.synchronize()
+    names = ("d_proj", "d_m_neighbor", "d_bias", "d_w1", "d_b1", "d_w2", "d_b2")
+    errs = {}
+    for name, g, w in zip(names, got, want):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"sbf_modulate_backward[{kind}, d={d}] {name}: non-finite")
+        err, tol = float((g - w).abs().max()), 1e-4 * float(w.abs().max()) + 1e-6
+        errs[name] = {"max_abs_err": err, "err_over_tolerance": err / tol}
+        if err > tol:
+            raise AssertionError(f"sbf_modulate_backward[{kind}, d={d}] {name}: {err} > {tol}")
+    again = fn()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("sbf_modulate_backward is not bitwise repeatable")
+    ms_first = time_ms(fn)
+    plain = time_ms(plain_fn)
+    ms = time_ms(fn)
+    enq = enqueue_ms(fn)
+    dev = device_ms(fn)
+    # Each input read once (an edge's rows once however many triplets share
+    # them), each output written once; the gathered variant counts the rows
+    # per triplet, what a cold cache with no reuse would move.
+    per_triplet = (ns + d + 4) * 4  # cbf, g, idx, mask, perm
+    fixed = (2 * d * d + 3 * d) * 4 * 2 + (edges + 1) * 4 + edges * (ns + 1) * d * 4
+    nbytes = _unique(idx, valid) * (ns + 1) * d * 4 + valid * per_triplet + fixed
+    gathered = valid * ((ns + 1) * d * 4 + per_triplet) + fixed
+    # Per triplet: the slice multiply-adds and their transpose, two products
+    # recomputed and two transposed, two outer products, silu and silu' on
+    # three vectors (about 10 operations each).
+    flops = valid * (4 * ns * d + 8 * d * d + 4 * d * d + 30 * d)
+    bms, by = bound_ms(nbytes, flops)
+    worst = max(errs.values(), key=lambda e: e["err_over_tolerance"])
+    return {"case": f"{kind} backward, d={d}", "edges": edges, "rows": rows, "valid": valid,
+            "ns": ns, "d": d, "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+            "worst_err_over_tolerance": worst["err_over_tolerance"], "errors": errs,
+            "tolerance": "1e-4 * max|g_plain| + 1e-6 per output", "bitwise_repeat": True,
+            "ms": ms, "ms_first": ms_first, "enqueue_ms": enq, "device_ms": dev,
+            "library_device_ms": None, "plain_ms": plain, "library_ms": None,
+            "bound_ms": bms, "bound_by": by,
+            "bound_ms_rows_gathered_per_triplet": gathered / HBM_BYTES_PER_S * 1e3}
 
 
 def post(url: str, data: bytes, ctype: str) -> dict:
@@ -498,6 +607,9 @@ def main() -> int:
     parser.add_argument("--atoms", type=int, default=2100)
     parser.add_argument("--qm9_molecules", type=int, default=512,
                         help="synthetic QM9 molecules of the training phase")
+    parser.add_argument("--rna_structures", type=int, default=32,
+                        help="synthetic structures of the RNA training phase "
+                             "(the last quarter validates)")
     parser.add_argument("--profile", action="store_true",
                         help="also print the device-time breakdown of one forward "
                              "and of three training steps")
@@ -511,10 +623,11 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from pamnet_tpu_torch.config import PAMNetConfig
     from pamnet_tpu_torch.data.loader import GraphLoader
+    from pamnet_tpu_torch.data.synthetic import synthetic_rna_dataset
     from pamnet_tpu_torch.models.pamnet import PAMNet
     from pamnet_tpu_torch.ops import _build
     from pamnet_tpu_torch.ops.gather import edge_message, edge_message_backward, row_gather
-    from pamnet_tpu_torch.ops.sbf_modulate import sbf_modulate
+    from pamnet_tpu_torch.ops.sbf_modulate import sbf_modulate, sbf_modulate_backward
     from pamnet_tpu_torch.ops.triplet import (gather_product, group_sum, triplet_aggregate,
                                               triplet_aggregate_grad_a)
     from pamnet_tpu_torch.serve import RNAScoringService, make_server
@@ -529,7 +642,8 @@ def main() -> int:
     emit({"phase": "device", "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
-          "build_s": build_s, "library": os.path.relpath(lib_path)})
+          "build_s": build_s, "library": os.path.relpath(lib_path),
+          "kernel_resources": kernel_resources(str(lib_path))})
 
     # ---- 2. kernels against their plain versions, at the slice's shapes ----
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -559,10 +673,12 @@ def main() -> int:
           "edge_message": e_cases, "row_gather": g_cases})
 
     # ---- 3. the slice: scoring service on the card ----
-    rng = np.random.default_rng(args.seed)
+    # One seeded set serves scoring (its first structures) and RNA training.
     t0 = time.perf_counter()
-    mols = [rna_like_structure(rng, args.atoms) for _ in range(args.structures)]
+    rna_mols = synthetic_rna_dataset(max(args.structures, args.rna_structures),
+                                     seed=args.seed, n_atoms=args.atoms)
     gen_s = time.perf_counter() - t0
+    mols = rna_mols[:args.structures]
     cfg = PAMNetConfig(dataset="rna_serve", dim=16, n_layer=1, cutoff_l=2.6,
                        cutoff_g=20.0, flow="target_to_source")
     state = init_params(cfg, torch.Generator().manual_seed(args.seed))
@@ -572,7 +688,8 @@ def main() -> int:
                 "edge_message": edge_message, "row_gather": row_gather,
                 "triplet_aggregate_grad_a": triplet_aggregate_grad_a,
                 "gather_product": gather_product, "group_sum": group_sum,
-                "edge_message_backward": edge_message_backward}
+                "edge_message_backward": edge_message_backward,
+                "sbf_modulate_backward": sbf_modulate_backward}
     serve_kernels = ("triplet_aggregate", "sbf_modulate", "edge_message", "row_gather")
 
     def reset_counts():
@@ -638,7 +755,7 @@ def main() -> int:
         plain_ms = time_ms(lambda: folded(gb, plain=True), iters=10)
         unfold_ms = time_ms(lambda: unfolded(gb), iters=10)
     emit({"phase": "slice", "structures": len(mols), "atoms": args.atoms,
-          "structure_gen_s": gen_s, "counts": counts, "pads": pads,
+          "structures_generated": len(rna_mols), "structure_gen_s": gen_s, "counts": counts, "pads": pads,
           "bench_pads": BENCH_PADS, "main_path_launches": launches,
           "main_path_e2e_s": e2e_s, "host_build_s": host_build_s, "h2d_s": h2d_s,
           "scores_head": [float(s) for s in s_fold[:4].cpu()],
@@ -706,12 +823,20 @@ def main() -> int:
     # ---- 5-6. QM9 training: backward kernels and the training path ----
     bwd_cases, train_launches = train_phase(args, gen, reset_counts, read_counts, emit)
 
-    # ---- 7. every kernel of the paths, with its numbers ----
-    # Each kernel's numbers are those of its main-path case: the folded t2
-    # triplet sum, the global message and the embedding lookup (RNA shapes);
-    # the t2 role swap and product, the global message's backward and the
-    # embedding's backward sum (QM9 shapes).  Launches add the serving and
-    # the training main paths.
+    # ---- 7-8. RNA training: the kernels at its shapes and the folded training path ----
+    rna_cases, rna_launches = rna_train_phase(
+        args, rna_mols[:args.rna_structures], gen, reset_counts, read_counts, emit)
+
+    # ---- 9. every kernel of the paths, with its numbers ----
+    # Each kernel's top-level numbers are those of one main-path case: the
+    # folded t2 triplet sum, the global message and the embedding lookup (RNA
+    # batch-16 scoring shapes); the t2 role swap and product, the global
+    # message's backward and the embedding's backward sum (QM9 training
+    # shapes); kernel B's backward at t2 and dim 16 (RNA batch-8 training
+    # shapes).  "rna_train" holds the same numbers of the kernel's first case
+    # at the RNA training shapes (null for the two kernels that path does not
+    # run).  Launches add the serving, the QM9 training and the RNA training
+    # main paths.
     table = [
         ("triplet_aggregate", "triplet_aggregate.cu", "pamnet_tpu/ops/pallas_triplet.py:47",
          a_cases, a_cases[0]),
@@ -730,15 +855,22 @@ def main() -> int:
          bwd_cases["edge_message_backward"], bwd_cases["edge_message_backward"][0]),
         ("group_sum", "triplet_aggregate.cu", "tools/vmem_gather_probe.py:42",
          bwd_cases["group_sum"], bwd_cases["group_sum"][0]),
+        ("sbf_modulate_backward", "sbf_modulate_backward.cu",
+         "tools/fused_sbf_kernel_probe.py:42", [], rna_cases["sbf_modulate_backward"][0]),
     ]
+    numbers = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
+               "library_device_ms", "enqueue_ms")
     kernels = [
         {"name": name, "route": "cuda", "source": f"pamnet_tpu_torch/csrc/{src}",
-         "replaces": replaces, "launches": launches[name] + train_launches[name],
-         "launches_by_path": {"serve": launches[name], "train": train_launches[name]},
-         "max_abs_err": max(c["max_abs_err"] for c in cases),
-         **{k: rep[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                "device_ms", "library_device_ms", "enqueue_ms")},
-         "timed_case": rep["case"]}
+         "replaces": replaces,
+         "launches": launches[name] + train_launches[name] + rna_launches[name],
+         "launches_by_path": {"serve": launches[name], "train": train_launches[name],
+                              "rna_train": rna_launches[name]},
+         "max_abs_err": max(c["max_abs_err"] for c in cases + rna_cases.get(name, [])),
+         **{k: rep[k] for k in numbers}, "timed_case": rep["case"],
+         "rna_train": ({"timed_case": rna_cases[name][0]["case"],
+                        **{k: rna_cases[name][0][k] for k in numbers}}
+                       if name in rna_cases else None)}
         for name, src, replaces, cases, rep in table
     ]
     emit({"kernels": kernels})
@@ -759,6 +891,20 @@ def profile_rows(prof, calls: int) -> tuple[list[dict], list[dict]]:
     host = sorted(prof.key_averages(), key=lambda ev: -ev.self_cpu_time_total)
     return rows, [{"name": ev.key[:80], "host_ms_per_call": ev.self_cpu_time_total / calls / 1e3,
                    "calls_per_call": ev.count / calls} for ev in host[:12]]
+
+
+def port_kernel_launches(prof, calls: int) -> list[dict]:
+    """Each launch of the port's own kernels (they live in an anonymous
+    namespace) during the first of ``calls`` profiled calls, in order, with
+    its device time: tells launches of one kernel apart, which the rows
+    summed by name do not."""
+    evs = sorted((ev for ev in prof.events()
+                  if str(getattr(ev, "device_type", "")).endswith("CUDA")
+                  and "anonymous namespace" in ev.name),
+                 key=lambda ev: ev.time_range.start)
+    evs = evs[:len(evs) // calls]
+    return [{"name": re.sub(r"^void \(anonymous namespace\)::", "", ev.name)[:60],
+             "device_us": ev.time_range.end - ev.time_range.start} for ev in evs]
 
 
 def train_phase(args, gen, reset_counts, read_counts, emit_kernels) -> tuple[dict, dict]:
@@ -808,22 +954,15 @@ def train_phase(args, gen, reset_counts, read_counts, emit_kernels) -> tuple[dic
 
     # The first step's gradients: kernels against PyTorch's autograd of the
     # plain versions, per tensor within 1e-4 * max|g| + 1e-6.
-    grads = {}
-    for plain in (False, True):
-        opt.zero_grad()
-        batch_loss(model, gb, plain=plain).backward()
-        grads[plain] = {n: torch.zeros_like(p) if p.grad is None else p.grad.clone()
-                        for n, p in model.named_parameters()}
-    ratios = {n: float((grads[False][n] - w).abs().max())
-              / (1e-4 * float(w.abs().max()) + 1e-6) for n, w in grads[True].items()}
-    worst = max(ratios, key=ratios.get)
-    if ratios[worst] > 1.0:
-        raise AssertionError(f"kernel gradients off the plain route: {worst} {ratios[worst]}")
+    grad_check = _worst_gradient(
+        _parameter_grads(model, lambda: batch_loss(model, gb, "l1")),
+        _parameter_grads(model, lambda: batch_loss(model, gb, "l1", plain=True)),
+        "kernel gradients off the plain route")
 
     # Launches of one step, forward and backward apart.
     opt.zero_grad()
     reset_counts()
-    loss = batch_loss(model, gb)
+    loss = batch_loss(model, gb, "l1")
     fwd = read_counts()
     reset_counts()
     loss.backward()
@@ -845,7 +984,7 @@ def train_phase(args, gen, reset_counts, read_counts, emit_kernels) -> tuple[dic
             torch._foreach_copy_(params, snap[0])
         opt.load_state_dict(snap[1])
         torch._foreach_copy_(list(ema.values()), list(snap[2].values()))
-        loss = train_step(model, opt, ema, gb)
+        loss = train_step(model, opt, ema, gb, "l1")
         runs.append([loss] + [p.detach().clone() for p in params]
                     + [v.clone() for v in ema.values()])
     if not all(torch.equal(a, b) for a, b in zip(*runs)):
@@ -854,7 +993,7 @@ def train_phase(args, gen, reset_counts, read_counts, emit_kernels) -> tuple[dic
     # The training main path: one epoch of shuffled batches.
     reset_counts()
     t0 = time.perf_counter()
-    loss_sum, ng, losses = run_epoch(model, opt, ema, loader, "cuda")
+    loss_sum, ng, losses = run_epoch(model, opt, ema, loader, "cuda", "l1")
     torch.cuda.synchronize()
     epoch_s = time.perf_counter() - t0
     launches = read_counts()
@@ -866,7 +1005,7 @@ def train_phase(args, gen, reset_counts, read_counts, emit_kernels) -> tuple[dic
 
     # Steps on the resident batch.
     torch.cuda.reset_peak_memory_stats()
-    step = lambda: train_step(model, opt, ema, gb)  # noqa: E731
+    step = lambda: train_step(model, opt, ema, gb, "l1")  # noqa: E731
     step_ms = time_ms(step, iters=10, warmup=2)
     step_enqueue_ms = enqueue_ms(step, iters=10)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -876,9 +1015,7 @@ def train_phase(args, gen, reset_counts, read_counts, emit_kernels) -> tuple[dic
     res = {"phase": "train", "molecules": len(qmols), "batch_size": bs, "dim": d,
            "n_layer": cfg.n_layer, "host_build_s": host_build_s,
            "pads": dataclasses.asdict(loader.pads), "resident_batch_valid": gb.valid,
-           "gradient_check": {"tensors": len(ratios), "worst": worst,
-                              "worst_err_over_tolerance": ratios[worst],
-                              "tolerance": "1e-4 * max|g_plain| + 1e-6 per tensor"},
+           "gradient_check": grad_check,
            "bitwise_repeat": True, "launches_per_step_forward": fwd,
            "launches_per_step_backward": bwd, "epoch_steps": len(losses),
            "epoch_s": epoch_s, "epoch_mol_per_s": ng / epoch_s,
@@ -922,9 +1059,9 @@ def train_phase(args, gen, reset_counts, read_counts, emit_kernels) -> tuple[dic
     # main_qm9, in-process, one epoch at the recipe.
     out = io.StringIO()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(out):
+    with contextlib.redirect_stdout(out), tempfile.TemporaryDirectory() as tmp:
         main_qm9.main(["--synthetic", "--limit", "320", "--epochs", "1",
-                       "--seed", str(args.seed), "--device", "cuda"])
+                       "--seed", str(args.seed), "--device", "cuda", "--save_dir", tmp])
     main_s = time.perf_counter() - t0
     text = out.getvalue()
     maes = re.findall(r"(Train|Val|Test) MAE: (\S+?),? ", text)
@@ -933,6 +1070,239 @@ def train_phase(args, gen, reset_counts, read_counts, emit_kernels) -> tuple[dic
         raise AssertionError(f"main_qm9 output: {text}")
     emit_kernels({"phase": "main_qm9", "seconds": main_s,
                   "lines": [ln for ln in text.splitlines() if "MAE" in ln]})
+    return cases, launches
+
+
+def _parameter_grads(model, loss_fn) -> dict:
+    """Every parameter's gradient of ``loss_fn()`` (zeros where it got none)."""
+    import torch
+
+    model.zero_grad()
+    loss_fn().backward()
+    return {n: torch.zeros_like(p) if p.grad is None else p.grad.clone()
+            for n, p in model.named_parameters()}
+
+
+def _worst_gradient(got: dict, want: dict, what: str) -> dict:
+    """The tensor of ``got`` furthest from ``want`` relative to the tolerance
+    1e-4 * max|want| + 1e-6; raises beyond it."""
+    ratios = {n: float((got[n] - w).abs().max()) / (1e-4 * float(w.abs().max()) + 1e-6)
+              for n, w in want.items()}
+    worst = max(ratios, key=ratios.get)
+    if not ratios[worst] <= 1.0:
+        raise AssertionError(f"{what}: {worst} at {ratios[worst]} of the tolerance")
+    return {"tensors": len(ratios), "worst": worst, "worst_err_over_tolerance": ratios[worst],
+            "tolerance": "1e-4 * max|g| + 1e-6 per tensor"}
+
+
+def rna_train_phase(args, mols, gen, reset_counts, read_counts, emit_line) -> tuple[list, dict]:
+    """Phases 7 and 8: the kernel cases at the RNA training shapes and RNA
+    training at the published recipe.  Returns (kernel cases by kernel,
+    launches of the RNA training main path)."""
+    import torch
+
+    from pamnet_tpu_torch import main_rna_puzzles
+    from pamnet_tpu_torch.config import PAMNetConfig
+    from pamnet_tpu_torch.data.loader import GraphLoader
+    from pamnet_tpu_torch.data.tu import TUDataset, write_tu_split
+    from pamnet_tpu_torch.models.pamnet import PAMNet
+    from pamnet_tpu_torch.serve import RNAScoringService
+    from pamnet_tpu_torch.train.loop import Optimizer, batch_loss, predict, run_epoch, train_step
+    from pamnet_tpu_torch.train.schedules import constant
+    from pamnet_tpu_torch.weights import load_reference_checkpoint
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bs, d, lr, kind = 8, 16, 1e-4, "smooth_l1"
+    n_val = len(mols) // 4
+    with tempfile.TemporaryDirectory() as tmp:
+        # The structures go through the TU files, as RNA-Puzzles does.
+        root = os.path.join(tmp, "data")
+        write_tu_split(root, "train", mols[:-n_val])
+        write_tu_split(root, "val", mols[-n_val:])
+        train_mols = TUDataset(root, "train").molecules()
+        val_mols = TUDataset(root, "val").molecules()
+
+        t0 = time.perf_counter()
+        loader = GraphLoader(train_mols, "rna", 2.6, 20.0, bs, shuffle=True, seed=args.seed,
+                             build_perms=True)
+        host_build_s = time.perf_counter() - t0
+        gb = loader.collate(list(range(min(bs, len(train_mols))))).to("cuda")
+
+        # ---- 7. every kernel of the path at the RNA batch-8 pads ----
+        # Kernel B's backward, then each other wrapper a step launches, at the
+        # shapes this batch gives it: the forward kernels on random data at
+        # the pads, the backward ones on the batch's own index arrays.
+        pd, flow = loader.pads, "target_to_source"
+        i_key = "eg_src" if flow == "target_to_source" else "eg_dst"
+        cases = {
+            "sbf_modulate_backward": [sbf_backward_case(gb, k, dd, gen)
+                                      for dd in (16, 8) for k in ("t2", "t1")],
+            "sbf_modulate": [kernel_b_case(pd.el, rows, 7, d, gen, f"{k} fused folded gather")
+                             for k, rows in (("t2", pd.t2), ("t1", pd.t1))],
+            "triplet_aggregate": [
+                kernel_a_case(name, num_out, rows, d, False, False, gen)
+                for name, num_out, rows in (
+                    ("t2 sum (folded path)", pd.el, pd.t2), ("t1 sum (folded path)", pd.el, pd.t1),
+                    ("el_dst edge->node sum", pd.n, pd.el), ("global edge->node sum", pd.n, pd.eg))],
+            "edge_message": [
+                edge_message_case("global message (gate, mask)", pd.n, pd.eg, d, True, True, gen),
+                edge_message_case("local m_kj (gate)", pd.n, pd.el, d, True, False, gen),
+                edge_message_case("local m_ji", pd.n, pd.el, d, False, False, gen)],
+            "row_gather": [row_gather_batch_case(gb, k, d, gen)
+                           for k in ("z", "t2_ji", "t1_ji", "el_dst", i_key)],
+            "edge_message_backward": [edge_backward_case(gb, w, d, gen, flow)
+                                      for w in ("global", "local m_kj", "local m_ji")],
+            "group_sum": [group_sum_case(gb, k, d, gen)
+                          for k in ("z", "el_src", "eg_dst", "el_dst", "eg_src")],
+        }
+        emit_line({"phase": "rna_train_kernels", "pads": dataclasses.asdict(pd),
+                   "valid": gb.valid, **cases})
+
+        # ---- 8. training at the recipe ----
+        kw = dict(dataset="RNA-Puzzles", dim=d, n_layer=1, cutoff_l=2.6, cutoff_g=20.0,
+                  flow=flow)
+        model = PAMNet(PAMNetConfig(**kw), torch.Generator().manual_seed(args.seed)).to("cuda")
+        if not model.fold_sbf():
+            raise AssertionError("the RNA recipe must train folded")
+        unfolded = PAMNet(PAMNetConfig(**kw, fold_sbf=False)).to("cuda")
+        unfolded.load_state_dict(model.state_dict())
+        opt = Optimizer(model.parameters(), constant(lr))
+
+        # The first step's gradients: kernels against PyTorch's autograd of
+        # the plain versions, and the folded against the unfolded path.
+        g_kernel = _parameter_grads(model, lambda: batch_loss(model, gb, kind))
+        g_plain = _parameter_grads(model, lambda: batch_loss(model, gb, kind, plain=True))
+        g_unfolded = _parameter_grads(unfolded, lambda: batch_loss(unfolded, gb, kind))
+        grad_checks = {
+            "kernels_vs_plain": _worst_gradient(g_kernel, g_plain, "kernel vs plain gradients"),
+            "folded_vs_unfolded": _worst_gradient(g_kernel, g_unfolded,
+                                                  "folded vs unfolded gradients")}
+
+        # Launches of one step, forward and backward apart.
+        opt.zero_grad()
+        reset_counts()
+        loss = batch_loss(model, gb, kind)
+        fwd = read_counts()
+        reset_counts()
+        loss.backward()
+        torch.cuda.synchronize()
+        bwd = read_counts()
+        if fwd["sbf_modulate"] != 2 or bwd["sbf_modulate_backward"] != 2:
+            raise AssertionError(f"kernel B launches per step: forward {fwd}, backward {bwd}")
+        need_fwd = ("triplet_aggregate", "sbf_modulate", "edge_message", "row_gather")
+        need_bwd = ("sbf_modulate_backward", "group_sum", "edge_message_backward", "row_gather")
+        if min(fwd[k] for k in need_fwd) < 1 or min(bwd[k] for k in need_bwd) < 1:
+            raise AssertionError(f"a step skipped a kernel: forward {fwd}, backward {bwd}")
+
+        # One step from the same state, twice: bitwise equal.
+        params = list(model.parameters())
+        snap = ([p.detach().clone() for p in params], opt.state_dict())
+        runs = []
+        for _ in range(2):
+            with torch.no_grad():
+                torch._foreach_copy_(params, snap[0])
+            opt.load_state_dict(snap[1])
+            loss = train_step(model, opt, None, gb, kind)
+            runs.append([loss] + [p.detach().clone() for p in params])
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            raise AssertionError("a repeated RNA step is not bitwise equal")
+
+        # The RNA training main path: one epoch of shuffled batches.
+        reset_counts()
+        t0 = time.perf_counter()
+        loss_sum, ng, losses = run_epoch(model, opt, None, loader, "cuda", kind)
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        launches = read_counts()
+        if min(launches[k] for k in set(need_fwd + need_bwd)) < 1:
+            raise AssertionError(f"the RNA training path skipped a kernel: {launches}")
+        step_losses = [float(v) for v in torch.stack(losses).cpu()]
+        if not all(math.isfinite(v) for v in step_losses):
+            raise AssertionError(f"non-finite loss: {step_losses}")
+
+        # Steps on the resident batch.
+        torch.cuda.reset_peak_memory_stats()
+        step = lambda: train_step(model, opt, None, gb, kind)  # noqa: E731
+        step_ms = time_ms(step, iters=10, warmup=2)
+        step_enqueue_ms = enqueue_ms(step, iters=10)
+        step_device_ms = device_ms(step, iters=5)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        last = float(step())
+        if not math.isfinite(last):
+            raise AssertionError(f"non-finite loss after the timed steps: {last}")
+        emit_line({
+            "phase": "rna_train", "structures": len(train_mols), "val_structures": len(val_mols),
+            "atoms": args.atoms, "batch_size": bs, "dim": d, "n_layer": 1, "lr": lr,
+            "host_build_s": host_build_s, "pads": dataclasses.asdict(loader.pads),
+            "resident_batch_valid": gb.valid, "gradient_checks": grad_checks,
+            "bitwise_repeat": True, "launches_per_step_forward": fwd,
+            "launches_per_step_backward": bwd, "epoch_steps": len(losses), "epoch_s": epoch_s,
+            "epoch_structures_per_s": ng / epoch_s, "epoch_train_loss": loss_sum / ng,
+            "step_losses": step_losses, "main_path_launches": launches,
+            "ms_per_step": step_ms, "structures_per_s": gb.num_graphs / step_ms * 1e3,
+            "enqueue_ms_per_step": step_enqueue_ms, "device_ms_per_step": step_device_ms,
+            "device_idle_share": (None if step_device_ms is None
+                                  else 1.0 - step_device_ms / step_ms),
+            "peak_mem_gb": peak_gb, "loss_after": last})
+
+        if args.profile:
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    step()
+                torch.cuda.synchronize()
+            rows, host = profile_rows(prof, 3)
+            emit_line({"phase": "profile_rna_train", "train_step_top": rows[:25],
+                       "device_ms_per_step_total": sum(r["device_ms_per_call"] for r in rows),
+                       "kernel_launches_per_step": sum(r["launches_per_call"] for r in rows),
+                       "port_kernel_launches": port_kernel_launches(prof, 3),
+                       "host_top": host})
+
+        # main_rna_puzzles, in-process: three epochs straight, then two
+        # epochs and a resume for the third, which must repeat it bit for bit.
+        recipe = ["--dim", str(d), "--n_layer", "1", "--batch_size", str(bs), "--lr", str(lr),
+                  "--seed", str(args.seed), "--data_root", root, "--device", "cuda"]
+
+        def drive(*extra):
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                res = main_rna_puzzles.main([*recipe, *extra])
+            lines = [ln for ln in out.getvalue().splitlines() if "Loss" in ln or "Resumed" in ln]
+            return res, lines, time.perf_counter() - t0
+
+        straight, lines_a, s_a = drive("--epochs", "3", "--save_dir", os.path.join(tmp, "a"))
+        cut, lines_b, s_b = drive("--epochs", "2", "--save_dir", os.path.join(tmp, "b"))
+        resumed, lines_c, s_c = drive("--epochs", "3", "--save_dir", os.path.join(tmp, "b"),
+                                      "--resume", cut["last_path"])
+        losses_ok = (len(straight["val_loss"]) == 3 and len(resumed["val_loss"]) == 1
+                     and all(math.isfinite(v) for v in straight["train_loss"] + straight["val_loss"])
+                     and straight["train_loss"][:2] == cut["train_loss"]
+                     and straight["train_loss"][2] == resumed["train_loss"][0]
+                     and straight["val_loss"][2] == resumed["val_loss"][0])
+        best_a = load_reference_checkpoint(straight["best_path"])
+        best_b = load_reference_checkpoint(resumed["best_path"])
+        if not (losses_ok and best_a.keys() == best_b.keys()
+                and all(torch.equal(best_a[k], best_b[k]) for k in best_a)):
+            raise AssertionError(f"resume differs: {lines_a} against {lines_b} then {lines_c}")
+
+        # The scoring service on the checkpoint that training wrote.
+        cfg = PAMNetConfig(**{**kw, "dataset": "rna_serve"})
+        service = RNAScoringService(best_b, cfg, batch_size=bs, device="cuda")
+        scores = service.score_molecules(val_mols)
+        trained = PAMNet(cfg)
+        trained.load_state_dict(best_b, strict=True)
+        want, _ = predict(trained.to("cuda"), GraphLoader(val_mols, "rna", 2.6, 20.0, bs), "cuda")
+        served = compare("served vs predict", torch.from_numpy(scores), torch.from_numpy(want),
+                         atol=5e-5, rtol=1e-4)
+        emit_line({"phase": "main_rna_puzzles", "straight_s": s_a, "two_epochs_s": s_b,
+                   "resume_s": s_c, "lines_straight": lines_a, "lines_resumed": lines_c,
+                   "resume_bitwise": True, "best_val_loss": resumed["best_val_loss"],
+                   "served_structures": len(val_mols),
+                   "served_scores_head": [float(v) for v in scores[:4]],
+                   "served_vs_predict": served})
     return cases, launches
 
 

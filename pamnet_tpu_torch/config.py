@@ -1,5 +1,5 @@
 """Model configuration of the port: the fields of ``pamnet_tpu.config.
-PAMNetConfig`` that the scoring and QM9 training paths read.  The JAX package's ELL, Pallas,
+PAMNetConfig`` that the scoring and training paths read.  The JAX package's ELL, Pallas,
 lane-pack and scan knobs arrange data for the TPU and have no meaning here."""
 
 from __future__ import annotations

@@ -77,6 +77,14 @@ class GraphLoader:
     def num_molecules(self) -> int:
         return len(self.structs)
 
+    def rng_state(self) -> dict:
+        """The shuffling generator's state (plain numbers and strings), for a
+        checkpoint; ``set_rng_state`` continues the epochs' orders from it."""
+        return self._rng.bit_generator.state
+
+    def set_rng_state(self, state: dict) -> None:
+        self._rng.bit_generator.state = state
+
     def batches(self) -> list[list[int]]:
         """Molecule indices of each batch of the next epoch (draws this
         epoch's permutation when shuffling)."""
@@ -99,12 +107,22 @@ class GraphLoader:
         return PadSizes(*(min(getattr(b, f.name), getattr(self.pads, f.name))
                           for f in dataclasses.fields(PadSizes)))
 
-    def collate(self, idxs: list[int]):
-        """The padded batch of the molecules ``idxs``."""
+    def collate(self, idxs: list[int], build_perms: bool | None = None):
+        """The padded batch of the molecules ``idxs`` (``build_perms``: None
+        takes the loader's)."""
         pads = self._batch_pads(idxs) if self.ladder_pads else self.pads
+        build_perms = self.build_perms if build_perms is None else build_perms
         return collate_structures([self.structs[i] for i in idxs], pads,
-                                  build_perms=self.build_perms,
+                                  build_perms=build_perms,
                                   num_atom_types=self._num_atom_types)
+
+    def in_order(self):
+        """Every molecule once, in order, the last batch partial, without the
+        backward's arrays: evaluation over a training loader's structures."""
+        n = len(self.structs)
+        for start in range(0, n, self.batch_size):
+            yield self.collate(list(range(start, min(start + self.batch_size, n))),
+                               build_perms=False)
 
     def __iter__(self):
         for idxs in self.batches():

@@ -10,13 +10,16 @@ TF32 off.  ``--synthetic`` trains on generated molecules when the QM9 raw
 files are not staged under ``./data/<dataset>/raw``; ``--limit`` keeps the
 first N molecules.  ``--device`` defaults to ``cuda`` and raises without a
 card.  Batches carry host-computed geometry (distances and the spherical
-basis tables); evaluation runs under the EMA weights.
+basis tables); evaluation runs under the EMA weights.  Each best validation
+MAE writes the EMA weights to ``<save_dir>/<dataset>/best_model.pt`` (the
+reference's ``state_dict`` names); every epoch writes the full training state
+to ``<save_dir>/<dataset>/last.ckpt``, which ``--resume`` continues from bit
+for bit.
 """
 
 from __future__ import annotations
 
 import argparse
-import os
 import os.path as osp
 import sys
 import time
@@ -49,18 +52,13 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Keep the first N molecules (smoke runs)")
     parser.add_argument("--metrics_csv", type=str, default="",
                         help="Append per-epoch metrics to this CSV file")
+    parser.add_argument("--save_dir", type=str, default="save",
+                        help="Directory for <dataset>/best_model.pt and last.ckpt")
+    parser.add_argument("--resume", type=str, default="",
+                        help="Checkpoint to resume the full training state from")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default; raises without a card) or cpu")
     return parser
-
-
-def _log_csv(path: str, row: dict) -> None:
-    os.makedirs(osp.dirname(osp.abspath(path)), exist_ok=True)
-    new = not osp.exists(path)
-    with open(path, "a") as f:
-        if new:
-            f.write(",".join(row) + "\n")
-        f.write(",".join(str(v) for v in row.values()) + "\n")
 
 
 def load_molecules(args) -> tuple[list[dict], int, int]:
@@ -98,8 +96,10 @@ def main(argv=None) -> dict:
 
     from pamnet_tpu_torch.data.loader import GraphLoader
     from pamnet_tpu_torch.models.pamnet import PAMNet
+    from pamnet_tpu_torch.train.checkpoint import (export_state_dict, load_checkpoint,
+                                                   save_checkpoint)
     from pamnet_tpu_torch.train.ema import ema_init
-    from pamnet_tpu_torch.train.loop import Optimizer, mae, run_epoch
+    from pamnet_tpu_torch.train.loop import Optimizer, log_csv, mae, run_epoch
     from pamnet_tpu_torch.train.schedules import warmup_exponential
 
     mols, n_train, n_val = load_molecules(args)
@@ -135,11 +135,19 @@ def main(argv=None) -> dict:
     ema = ema_init(model.state_dict())
     ema_model = PAMNet(cfg).to(device)
 
+    first_epoch, best_val, test_mae, train_maes = 0, None, float("nan"), []
+    if args.resume:
+        extra = load_checkpoint(args.resume, model, optimizer, ema)
+        first_epoch, best_val, test_mae = (extra["epoch"], extra["best_val_mae"],
+                                           extra["test_mae"])
+        train_loader.set_rng_state(extra["loader_rng"])
+        print(f"Resumed full train state from {args.resume} at step {optimizer.count}")
+    save_folder = osp.join(".", args.save_dir, args.dataset)
+
     print("Start training!")
-    best_val, test_mae, train_maes = None, float("nan"), []
-    for epoch in range(args.epochs):
+    for epoch in range(first_epoch, args.epochs):
         t0 = time.time()
-        loss_sum, ng, _ = run_epoch(model, optimizer, ema, train_loader, device)
+        loss_sum, ng, _ = run_epoch(model, optimizer, ema, train_loader, device, "l1")
         train_mae = loss_sum / max(ng, 1)
         train_maes.append(train_mae)
         # Evaluation under the EMA weights (reference: main_qm9.py:29-37,120).
@@ -148,14 +156,18 @@ def main(argv=None) -> dict:
         if best_val is None or val_mae <= best_val:
             test_mae = mae(ema_model, test_batches, device)
             best_val = val_mae
+            export_state_dict(ema, osp.join(save_folder, "best_model.pt"))
         dt = time.time() - t0
         print(f"Epoch: {epoch + 1:03d}, Train MAE: {train_mae:.7f}, "
               f"Val MAE: {val_mae:.7f}, Test MAE: {test_mae:.7f} "
               f"({dt:.1f}s, {ng / dt:.0f} mol/s)", flush=True)
         if args.metrics_csv:
-            _log_csv(args.metrics_csv, dict(
+            log_csv(args.metrics_csv, dict(
                 epoch=epoch + 1, train_mae=train_mae, val_mae=val_mae,
                 test_mae=test_mae, seconds=round(dt, 2), mol_per_sec=round(ng / dt, 1)))
+        save_checkpoint(osp.join(save_folder, "last.ckpt"), model, optimizer, ema, extra=dict(
+            epoch=epoch + 1, best_val_mae=best_val, test_mae=test_mae,
+            loader_rng=train_loader.rng_state()))
     print("Best Validation MAE:", best_val)
     print("Testing MAE:", test_mae)
     return {"train_mae": train_maes, "best_val_mae": best_val, "test_mae": test_mae}

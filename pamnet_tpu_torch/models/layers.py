@@ -145,11 +145,16 @@ class LocalMP(nn.Module):
         self.W_out = Linear(dim, 1)
         self.W = nn.Parameter(torch.empty(dim, 1))
 
-    def _modulate(self, m_neighbor, folded: FoldedSBF, idx, t_mask, plain):
-        fn = sbf_modulate_plain if plain else sbf_modulate
+    def _modulate(self, m_neighbor, folded: FoldedSBF, idx, t_mask, plain,
+                  groups: Groups | None):
+        """The folded stage (kernel B); ``groups`` the CSR of ``idx`` that
+        its backward sums over."""
         s1, s2 = self.mlp_sbf[0][0], self.mlp_sbf[1][0]
-        return fn(folded.proj, m_neighbor, folded.cbf, folded.bias, s1.weight,
-                  s1.bias, s2.weight, s2.bias, idx, t_mask)
+        args = (folded.proj, m_neighbor, folded.cbf, folded.bias, s1.weight,
+                s1.bias, s2.weight, s2.bias, idx, t_mask)
+        if plain:
+            return sbf_modulate_plain(*args)
+        return sbf_modulate(*args, groups=groups)
 
     def forward(self, x, rbf, sbf2, sbf1, g, plain: bool = False):
         """``sbf2``/``sbf1``: (T, dim) outputs of the model-level sbf MLPs,
@@ -165,8 +170,10 @@ class LocalMP(nn.Module):
                                    plain=plain, i_groups=i_groups, j_groups=j_groups)
 
         if isinstance(sbf2, FoldedSBF):
-            m2 = self._modulate(m_neighbor, sbf2, g.t2_kj, g.t2_mask, plain)
-            m1 = self._modulate(m_neighbor, sbf1, g.t1_jj, g.t1_mask, plain)
+            m2 = self._modulate(m_neighbor, sbf2, g.t2_kj, g.t2_mask, plain,
+                                g.groups("t2_kj"))
+            m1 = self._modulate(m_neighbor, sbf1, g.t1_jj, g.t1_mask, plain,
+                                g.groups("t1_jj"))
             m_other = (
                 aggregate(m2, g.t2_ji_off, g.t2_ji, g.t2_mask, num_edges,
                           total=g.valid["t2"], plain=plain)

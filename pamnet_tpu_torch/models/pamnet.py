@@ -3,12 +3,12 @@ JAX counterpart ``pamnet_tpu/models/pamnet.py:116-397``).
 
 The batch carries host-f64 distances and spherical-basis tables
 (``data/batch.py``); the trainable Bessel basis is evaluated here.  Where
-``sbf_modulate`` has a kernel for ``(num_spherical, dim)`` (the RNA dim-16
-model) and the batch is not a training batch, the model-level sbf MLP folds
-through the triplet gather: the radial table is projected once per edge and
-the folded stage runs in that kernel; otherwise (training, and QM9 at dim
-128) the triplet basis is expanded and passed through the MLP per triplet,
-and kernel A gathers and modulates.  The QM9 branch
+``sbf_modulate`` has kernels for ``(num_spherical, dim)`` (the RNA dim-16
+model), the model-level sbf MLP folds through the triplet gather, in scoring
+and in training: the radial table is projected once per edge and the folded
+stage runs in that kernel, forward and backward; otherwise (QM9 at dim 128)
+the triplet basis is expanded and passed through the MLP per triplet, and
+kernel A gathers and modulates.  The QM9 branch
 embeds 5 atom types and pools by sum; RNA pools by mean.
 """
 
@@ -61,23 +61,22 @@ class PAMNet(nn.Module):
             generator = torch.Generator().manual_seed(0)
         init_(self, generator)
 
-    def fold_sbf(self, g: GraphBatch) -> bool:
+    def fold_sbf(self) -> bool:
         """Fold the sbf MLP through the gather and run the folded stage in
-        ``sbf_modulate``: by default where that kernel is built, for batches
-        without backward arrays.  ``sbf_modulate`` has no backward, so a
-        training batch (``build_perms=True``) takes the unfolded path, whose
-        radial-table gather carries no gradient; the JAX package unfolds its
-        training batches too (``_fold_gate``: under ELL tables)."""
+        ``sbf_modulate``: by default wherever that kernel is built, training
+        batches included, as the JAX package folds every batch without ELL
+        tables (``_fold_gate``; its main_rna_puzzles.py builds none), and the port
+        builds no ELL tables."""
         cfg = self.cfg
         if cfg.fold_sbf is not None:
             return cfg.fold_sbf
-        return (cfg.num_spherical, cfg.dim) in KERNEL_SHAPES and not g.perms
+        return (cfg.num_spherical, cfg.dim) in KERNEL_SHAPES
 
     def _triplet_basis(self, g: GraphBatch, plain: bool):
         """(edge_attr_sbf2, edge_attr_sbf1): (T, dim) tensors, or
         ``FoldedSBF`` inputs of the fused folded stage."""
         ns, nr = self.cfg.num_spherical, self.cfg.num_radial
-        if not self.fold_sbf(g):
+        if not self.fold_sbf():
             # Geometry only: the radial table's gather has no backward.
             gather = row_gather_plain if plain else row_gather
 

@@ -1,8 +1,9 @@
 """Training and evaluation steps (JAX counterpart: ``pamnet_tpu/train/
 loop.py:37-97`` and its ``EpochRunner``).
 
-One step: forward, masked mean loss, ``backward`` through the kernels'
-backward Functions, the optimizer and the EMA.  Nothing in a step reads a
+One step: forward, masked mean loss of the caller's kind, ``backward``
+through the kernels' backward Functions, the optimizer and, where the caller
+keeps one (QM9), the EMA.  Nothing in a step reads a
 value back from the card: the lr comes from the host's update count, the
 clip decision stays on the card, and an epoch's loss sum is accumulated
 there and read once at the end.
@@ -11,6 +12,7 @@ there and read once at the end.
 from __future__ import annotations
 
 import copy
+import os
 
 import numpy as np
 import torch
@@ -39,9 +41,10 @@ def loss_terms(pred: torch.Tensor, y: torch.Tensor, graph_mask: torch.Tensor,
     return (e * graph_mask).sum(), graph_mask.sum()
 
 
-def batch_loss(model, batch: GraphBatch, plain: bool = False):
-    """Mean L1 loss over the batch's valid graphs (QM9's, main_qm9.py:108)."""
-    total, count = loss_terms(model(batch, plain=plain), batch.y, batch.graph_mask, "l1")
+def batch_loss(model, batch: GraphBatch, kind: str, plain: bool = False):
+    """Mean loss of ``kind`` over the batch's valid graphs (QM9 trains on
+    "l1", main_qm9.py:108; RNA on "smooth_l1", main_rna_puzzles.py:92)."""
+    total, count = loss_terms(model(batch, plain=plain), batch.y, batch.graph_mask, kind)
     return total / count.clamp_min(1.0)
 
 
@@ -86,11 +89,12 @@ class Optimizer:
 
 
 def train_step(model, optimizer: Optimizer, ema: dict | None,
-               batch: GraphBatch) -> torch.Tensor:
-    """One optimizer step on ``batch`` (on the model's device) and the EMA
-    at decay 0.999; returns the batch's mean loss as a device tensor."""
+               batch: GraphBatch, loss_kind: str) -> torch.Tensor:
+    """One optimizer step on ``batch`` (on the model's device) and, with an
+    ``ema``, its update at decay 0.999; returns the batch's mean loss as a
+    device tensor."""
     optimizer.zero_grad()
-    loss = batch_loss(model, batch)
+    loss = batch_loss(model, batch, loss_kind)
     loss.backward()
     optimizer.step()
     if ema is not None:
@@ -99,7 +103,7 @@ def train_step(model, optimizer: Optimizer, ema: dict | None,
 
 
 def run_epoch(model, optimizer: Optimizer, ema: dict | None, batches,
-              device) -> tuple[float, int, list]:
+              device, loss_kind: str) -> tuple[float, int, list]:
     """Train over ``batches`` (host ``GraphBatch``es).  Returns the sum of
     the batches' mean losses weighted by their valid graphs (the
     reference's accounting, main_qm9.py:109,119), the graph count and the
@@ -107,7 +111,7 @@ def run_epoch(model, optimizer: Optimizer, ema: dict | None, batches,
     loss_sum = torch.zeros((), dtype=torch.float64, device=device)
     graphs, losses = 0, []
     for gb in batches:
-        loss = train_step(model, optimizer, ema, gb.to(device))
+        loss = train_step(model, optimizer, ema, gb.to(device), loss_kind)
         loss_sum += loss.double() * gb.num_graphs
         graphs += gb.num_graphs
         losses.append(loss)
@@ -128,3 +132,22 @@ def mae(model, batches, device) -> float:
     """Mean absolute error over the valid graphs (reference: main_qm9.py:29-37)."""
     pred, y = predict(model, batches, device)
     return float(np.abs(pred - y).mean())
+
+
+def smooth_l1(model, batches, device) -> float:
+    """SmoothL1 (beta 1) over the valid graphs, a mean over structures
+    (reference: main_rna_puzzles.py:23-42)."""
+    pred, y = predict(model, batches, device)
+    a = np.abs(pred - y)
+    return float(np.where(a < 1.0, 0.5 * a * a, a - 0.5).mean())
+
+
+def log_csv(path: str, row: dict) -> None:
+    """Append ``row`` to the CSV file ``path``, its keys as the header of a
+    new file."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    new = not os.path.exists(path)
+    with open(path, "a") as f:
+        if new:
+            f.write(",".join(row) + "\n")
+        f.write(",".join(str(v) for v in row.values()) + "\n")

@@ -25,7 +25,7 @@ import torch
 from pamnet_tpu.ops.pallas_triplet import _BT, fused_triplet_aggregate
 from pamnet_tpu_torch.data.batch import build_perm_np
 from pamnet_tpu_torch.ops.gather import edge_message, row_gather
-from pamnet_tpu_torch.ops.sbf_modulate import sbf_modulate
+from pamnet_tpu_torch.ops.sbf_modulate import sbf_modulate, sbf_modulate_backward
 from pamnet_tpu_torch.ops.triplet import (AggregateGrad, Groups, gather_product,
                                           group_sum, triplet_aggregate,
                                           triplet_aggregate_grad_a)
@@ -244,15 +244,19 @@ def test_no_function_drops_a_gradient():
 
 
 def test_sbf_modulate_raises_under_grad():
+    """Under grad kernel B needs the CSR of its index; without grad it runs."""
     d, ns, t = 16, 7, 5
     args = [torch.zeros(s) for s in [(4, ns * d), (4, d), (t, ns), (d,), (d, d), (d,),
                                      (d, d), (d,)]]
     args += [torch.zeros(t, dtype=torch.int32), torch.ones(t)]
     args[1].requires_grad_()
-    with pytest.raises(RuntimeError, match="no backward"):
+    with pytest.raises(ValueError, match="Groups"):
         sbf_modulate(*args)
     with torch.inference_mode():
         assert sbf_modulate(*args).shape == (t, d)
+    out = sbf_modulate(*args, groups=_groups(np.zeros(t, np.int32), t, 4))
+    out.sum().backward()
+    assert args[1].grad.shape == (4, d)
 
 
 def test_every_kernel_wrapper_counts_its_launches():
@@ -263,7 +267,8 @@ def test_every_kernel_wrapper_counts_its_launches():
 
     wrappers = [triplet_ops.triplet_aggregate, triplet_ops.triplet_aggregate_grad_a,
                 triplet_ops.group_sum, triplet_ops.gather_product, gather_ops.row_gather,
-                gather_ops.edge_message, gather_ops.edge_message_backward, sbf_modulate]
+                gather_ops.edge_message, gather_ops.edge_message_backward, sbf_modulate,
+                sbf_modulate_backward]
     before = [fn.launches for fn in wrappers]
     assert all(isinstance(n, int) for n in before)
     test_backward_pieces_match_their_formulas()

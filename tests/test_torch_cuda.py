@@ -9,12 +9,13 @@ import torch
 from pamnet_tpu_torch.config import PAMNetConfig
 from pamnet_tpu_torch.data.batch import build_perm_np
 from pamnet_tpu_torch.data.loader import GraphLoader
-from pamnet_tpu_torch.data.synthetic import synthetic_qm9_dataset
+from pamnet_tpu_torch.data.synthetic import synthetic_qm9_dataset, synthetic_rna_dataset
 from pamnet_tpu_torch.models.pamnet import PAMNet
 from pamnet_tpu_torch.ops.gather import (edge_message, edge_message_backward,
                                          edge_message_backward_plain, edge_message_plain,
                                          row_gather, row_gather_plain)
-from pamnet_tpu_torch.ops.sbf_modulate import sbf_modulate, sbf_modulate_plain
+from pamnet_tpu_torch.ops.sbf_modulate import (sbf_modulate, sbf_modulate_backward,
+                                               sbf_modulate_plain)
 from pamnet_tpu_torch.ops.triplet import (Groups, gather_product, gather_product_plain,
                                           group_sum, group_sum_plain, triplet_aggregate,
                                           triplet_aggregate_grad_a,
@@ -230,9 +231,128 @@ def test_training_gradients_kernels_vs_plain(cuda):
     grads = []
     for plain in (False, True):
         model.zero_grad()
-        batch_loss(model, gb, plain=plain).backward()
+        batch_loss(model, gb, "l1", plain=plain).backward()
         grads.append({n: p.grad for n, p in model.named_parameters() if p.grad is not None})
     assert grads[0].keys() == grads[1].keys()
     for name, want in grads[1].items():
         err = float((grads[0][name] - want).abs().max())
         assert err <= 1e-4 * float(want.abs().max()) + 1e-6, name
+
+
+def _sbf_case(cuda, d, edges, t, valid, seed, idx=None):
+    """Inputs of kernel B with a padded tail past ``valid`` (mask 0, index
+    0), a few masked triplets inside it, and the CSR of the index."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    ns = 7
+    r = lambda *s: torch.randn(*s, device=cuda, generator=g)  # noqa: E731
+    if idx is None:
+        idx = torch.randint(0, edges, (t,), device=cuda, generator=g).to(torch.int32)
+    idx[valid:] = 0
+    mask = (torch.arange(t, device=cuda) < valid).float()
+    mask[: valid // 7] = 0.0
+    args = [r(edges, ns * d), r(edges, d), r(t, ns), r(d), r(d, d) / d**0.5, r(d),
+            r(d, d) / d**0.5, r(d), idx, mask]
+    return args, _perm_groups(idx, valid, edges, cuda), r(t, d)
+
+
+def _plain_grads(args, cot):
+    leaves = [a.detach().clone().requires_grad_() if i in _SBF_GRAD else a
+              for i, a in enumerate(args)]
+    (sbf_modulate_plain(*leaves) * cot).sum().backward()
+    return [leaves[i].grad for i in _SBF_GRAD]
+
+
+# proj, m_neighbor, bias, w1, b1, w2, b2 among sbf_modulate's arguments.
+_SBF_GRAD = (0, 1, 3, 4, 5, 6, 7)
+
+
+def _assert_sbf_grads(got, want):
+    """Each gradient within 1e-4 * max|g_plain| + 1e-6 (expf against
+    torch.sigmoid, f32 sums in another order)."""
+    for i, (a, w) in zip(_SBF_GRAD, zip(got, want)):
+        assert a.shape == w.shape, i
+        err = float((a - w).abs().max())
+        assert err <= 1e-4 * float(w.abs().max()) + 1e-6, (i, err)
+
+
+@pytest.mark.parametrize("d", [16, 8])
+@pytest.mark.parametrize("edges,t,valid", [(300, 2049, 1949), (700, 513, 512), (40, 256, 256)])
+def test_sbf_modulate_backward_kernel(cuda, d, edges, t, valid):
+    """Kernel B's backward against autograd of the plain version: many
+    triplets per edge, more edges than triplets (empty groups, groups of
+    one), masked and padded triplets; bitwise repeatable."""
+    args, groups, cot = _sbf_case(cuda, d, edges, t, valid, seed=d + t)
+    before = sbf_modulate_backward.launches
+    got = sbf_modulate_backward(*args, groups, cot)
+    torch.cuda.synchronize()
+    assert sbf_modulate_backward.launches == before + 1
+    _assert_sbf_grads(got, _plain_grads(args, cot))
+    again = sbf_modulate_backward(*args, groups, cot)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    empty = (groups.off[1:] == groups.off[:-1])
+    assert torch.all(got[0][empty] == 0.0) and torch.all(got[1][empty] == 0.0)
+
+
+def test_sbf_modulate_backward_one_triplet_per_edge_and_none(cuda):
+    """Edge e holds triplet e alone for e < 50 (groups of one); the other
+    edges hold none, and no triplet is valid past 50."""
+    t, edges = 128, 90
+    idx = torch.arange(t, device=cuda, dtype=torch.int32) % edges
+    args, groups, cot = _sbf_case(cuda, 16, edges, t, 50, seed=1, idx=idx)
+    got = sbf_modulate_backward(*args, groups, cot)
+    _assert_sbf_grads(got, _plain_grads(args, cot))
+    assert torch.all(got[0][50:] == 0.0) and torch.all(got[1][50:] == 0.0)
+
+
+def test_sbf_modulate_function_on_the_card(cuda):
+    """The Function end to end: backward through the kernel, one forward and
+    one backward launch; it raises without the groups, for geometry that
+    requires grad, and for a width that is not built."""
+    args, groups, cot = _sbf_case(cuda, 16, 300, 1024, 1000, seed=2)
+    leaves = [a.clone().requires_grad_() if i in _SBF_GRAD else a for i, a in enumerate(args)]
+    f0, b0 = sbf_modulate.launches, sbf_modulate_backward.launches
+    out = sbf_modulate(*leaves, groups=groups)
+    (out * cot).sum().backward()
+    torch.cuda.synchronize()
+    assert (sbf_modulate.launches, sbf_modulate_backward.launches) == (f0 + 1, b0 + 1)
+    _assert_sbf_grads([leaves[i].grad for i in _SBF_GRAD], _plain_grads(args, cot))
+    with pytest.raises(ValueError, match="Groups"):
+        sbf_modulate(*leaves)
+    with pytest.raises(ValueError, match="geometry"):
+        sbf_modulate(*leaves[:2], leaves[2].clone().requires_grad_(), *leaves[3:],
+                     groups=groups)
+    with torch.no_grad():  # no graph node, no groups needed
+        assert not sbf_modulate(*leaves).requires_grad
+    d = 32
+    wide = [torch.zeros(s, device=cuda) for s in
+            [(4, 7 * d), (4, d), (2, 7), (d,), (d, d), (d,), (d, d), (d,)]]
+    wide += [torch.zeros(2, dtype=torch.int32, device=cuda), torch.ones(2, device=cuda)]
+    with pytest.raises(ValueError, match="no kernel"):
+        sbf_modulate_backward(*wide, _perm_groups(wide[8], 2, 4, cuda),
+                              torch.zeros(2, d, device=cuda))
+
+
+def test_rna_training_gradients_kernels_vs_plain(cuda):
+    """An RNA SmoothL1 loss's parameter gradients on the folded path, through
+    kernel B's backward, against PyTorch's autograd of the plain versions and
+    against the unfolded path, per tensor within 1e-4 * max|g| + 1e-6."""
+    mols = synthetic_rna_dataset(4, seed=2, n_atoms=60)
+    gb = next(iter(GraphLoader(mols, "rna", 2.6, 20.0, 4, build_perms=True))).to(cuda)
+    kw = dict(dataset="rna_train", dim=16, n_layer=2, cutoff_l=2.6, cutoff_g=20.0,
+              flow="target_to_source")
+    model = PAMNet(PAMNetConfig(**kw)).to(cuda)
+    unfolded = PAMNet(PAMNetConfig(**kw, fold_sbf=False)).to(cuda)
+    unfolded.load_state_dict(model.state_dict())
+    grads = []
+    for net, plain in ((model, False), (model, True), (unfolded, False)):
+        net.zero_grad()
+        before = sbf_modulate_backward.launches
+        batch_loss(net, gb, "smooth_l1", plain=plain).backward()
+        assert sbf_modulate_backward.launches - before == (4 if net is model and not plain
+                                                           else 0)
+        grads.append({n: p.grad.clone() for n, p in net.named_parameters()})
+    for other in grads[1:]:
+        assert grads[0].keys() == other.keys()
+        for name, want in other.items():
+            err = float((grads[0][name] - want).abs().max())
+            assert err <= 1e-4 * float(want.abs().max()) + 1e-6, name

@@ -180,7 +180,7 @@ def test_forward_matches_apply_pamnet(n_layer, dim):
 def test_loss_gradients_match_jax_grad(n_layer, dim):
     params, tb, _, want, cfg = _reference(n_layer, dim)
     model = _model(params, cfg)
-    batch_loss(model, tb).backward()
+    batch_loss(model, tb, "l1").backward()
     got = {n: p.grad for n, p in model.named_parameters()}
     assert set(got) == set(want)
     assert got["init_linear.weight"] is None  # unused by the QM9 forward
@@ -213,6 +213,6 @@ def test_training_batch_without_perms_refuses_grad():
     tb = next(iter(GraphLoader(mols, "qm9", CUT, CUT, batch_size=2)))
     model = PAMNet(PAMNetConfig(dataset="QM9", dim=16, n_layer=1))
     with pytest.raises(ValueError, match="Groups"):
-        batch_loss(model, tb)
+        batch_loss(model, tb, "l1")
     with torch.inference_mode():
         assert torch.isfinite(model(tb)).all()

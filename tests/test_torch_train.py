@@ -118,7 +118,7 @@ def test_loss_decreases():
     model = PAMNet(PAMNetConfig(dataset="QM9", dim=16, n_layer=1))
     opt = Optimizer(model.parameters(), tsched.constant(1e-3), clip_norm=1000.0)
     ema = ema_init(model.state_dict())
-    losses = [float(train_step(model, opt, ema, gb)) for _ in range(30)]
+    losses = [float(train_step(model, opt, ema, gb, "l1")) for _ in range(30)]
     assert losses[-1] < 0.5 * losses[0], losses[:3] + losses[-3:]
     assert opt.count == 30
 
@@ -130,7 +130,7 @@ def test_main_qm9_runs_in_process(capsys, tmp_path):
     csv = tmp_path / "metrics.csv"
     res = main_qm9.main(["--synthetic", "--limit", "64", "--dim", "16", "--n_layer", "1",
                          "--epochs", "2", "--batch_size", "8", "--device", "cpu",
-                         "--metrics_csv", str(csv)])
+                         "--metrics_csv", str(csv), "--save_dir", str(tmp_path / "save")])
     out = capsys.readouterr().out
     assert "Data loaded! train=51 val=6 test=7" in out and "Start training!" in out
     epochs = _EPOCH.findall(out)
