@@ -17,7 +17,8 @@ Phases, each printing one JSON line:
   4. service: the HTTP server on an ephemeral port answers JSON and raw-PDB
      requests, compared with direct scoring;
   5. train_kernels: each backward kernel against its plain version at the
-     QM9 batch-32 pads (D=128), on the CSR arrays of a real training batch;
+     QM9 batch-32 pads (D=128), on the CSR arrays of a real training batch,
+     and the unfolded path's gather of the radial table (D=42) at its pads;
   6. train: QM9 training at the recipe (dim 128, 6 layers, batch 32, f32,
      L1, Adam + clip 1000 + EMA 0.999, warmup-exponential at lr 1e-4) on
      synthetic molecules: the first step's gradients through the kernels
@@ -43,8 +44,14 @@ Phases, each printing one JSON line:
      ``python -m pamnet_tpu_torch.main_rna_puzzles`` in-process: three epochs
      straight, two epochs and a ``--resume`` for the third, which must give
      the same losses bit for bit, and ``RNAScoringService`` scoring the
-     validation structures with the exported ``pamnet_rna_best.pt``;
+     validation structures with the exported ``pamnet_rna_best.pt``.
+     The group sums of both training phases are bitwise equal across two
+     calls; the embedding's (the sum by ``z``) takes the split kernel
+     (``group_sum_split``) on both training paths;
   9. kernels: one line listing every kernel with its numbers.
+With ``--profile`` each phase also lists its device time by kernel and, for
+a QM9 and an RNA training step, each launch of the port's kernels with its
+device time (``port_kernel_launches``).
 Then the nvidia-smi line and, last, {"ok": true, "device": {...}}.
 Any mismatch raises and the script exits non-zero.  It exits non-zero with no
 result when CUDA is absent.
@@ -462,20 +469,26 @@ def edge_backward_case(gb, which: str, d: int, gen, flow: str = "source_to_targe
 
 def group_sum_case(gb, key: str, d: int, gen) -> dict:
     """A row gather's backward, sum of row gradients by the index ``key``,
-    over the batch's CSR of it; ``library_ms`` times index_add_.  Held to
-    atol + 1e-5 |want| per element, atol = 1e-4 for groups of up to 512 rows
-    and growing with the longest group beyond that: an f32 running sum's
-    rounding grows with its length, and the two versions add in different
-    orders."""
+    over the batch's CSR of it, by the kernel ``group_sum`` routes it to
+    (``route``); ``library_ms`` times index_add_.  Held to atol + 1e-5 |want|
+    per element, atol = 1e-4 for groups of up to 512 rows and growing with
+    the longest group beyond that: an f32 running sum's rounding grows with
+    its length, and the two versions add in different orders.  Two calls
+    must be bitwise equal."""
     import torch
 
-    from pamnet_tpu_torch.ops.triplet import group_sum, group_sum_plain
+    from pamnet_tpu_torch.ops.triplet import group_sum, group_sum_plain, group_sum_route
 
     groups, ids = gb.groups(key), getattr(gb, key)
     valid, num = groups.total, groups.off.shape[0] - 1
     longest = int((groups.off[1:] - groups.off[:-1]).max())
-    atol = 1e-4 * max(1.0, longest / 512)
+    if groups.longest != longest:
+        raise AssertionError(f"the batch's longest group of {key}: {groups.longest}, "
+                             f"its offsets say {longest}")
     x = torch.randn(ids.shape[0], d, device="cuda", generator=gen)
+    if not torch.equal(group_sum(x, groups), group_sum(x, groups)):
+        raise AssertionError(f"group_sum by {key} is not bitwise repeatable")
+    atol = 1e-4 * max(1.0, longest / 512)
     ids_long, xs, acc = ids[:valid].long(), x[:valid], torch.zeros(num, d, device="cuda")
     nbytes = (valid * d * 4 + (valid * 4 if groups.perm is not None else 0)
               + (num + 1) * 4 + num * d * 4)
@@ -484,7 +497,8 @@ def group_sum_case(gb, key: str, d: int, gen) -> dict:
         lambda: group_sum(x, groups), lambda: group_sum_plain(x, groups),
         lambda: acc.index_add_(0, ids_long, xs), group_sum(x, groups),
         group_sum_plain(x, groups), atol, 1e-5, nbytes, valid * d, groups=num,
-        longest_group=longest, rows=ids.shape[0], valid=valid, d=d)
+        longest_group=longest, route=group_sum_route(groups), bitwise_repeat=True,
+        rows=ids.shape[0], valid=valid, d=d)
 
 
 def row_gather_batch_case(gb, key: str, d: int, gen) -> dict:
@@ -514,6 +528,25 @@ def row_gather_batch_case(gb, key: str, d: int, gen) -> dict:
         lambda: torch.index_select(src, 0, idx_long), row_gather(src, idx, valid=valid),
         row_gather_plain(src, idx, valid), 0.0, 0.0, nbytes, 0.0, table_rows=table_rows,
         rows=rows, valid=used, d=d)
+
+
+def radial_gather_case(gb, kind: str) -> dict:
+    """The unfolded path's gather of the batch's radial table (``sbf_radial``,
+    D=42) by ``t2_kj`` / ``t1_jj``, every row as the model gathers it: exact
+    against the plain version; ``library_ms`` times ``torch.index_select``."""
+    import torch
+
+    from pamnet_tpu_torch.ops.gather import row_gather, row_gather_plain
+
+    src, idx = gb.sbf_radial, gb.t2_kj if kind == "t2" else gb.t1_jj
+    rows, d = idx.shape[0], src.shape[1]
+    idx_long = idx.long()
+    nbytes = _unique(idx, rows) * d * 4 + rows * 4 + rows * d * 4
+    return _timed_case(
+        f"radial table at {kind} (unfolded path)", lambda: row_gather(src, idx),
+        lambda: row_gather_plain(src, idx), lambda: torch.index_select(src, 0, idx_long),
+        row_gather(src, idx), row_gather_plain(src, idx), 0.0, 0.0, nbytes, 0.0,
+        table_rows=src.shape[0], rows=rows, d=d)
 
 
 def sbf_backward_case(gb, kind: str, d: int, gen) -> dict:
@@ -628,8 +661,8 @@ def main() -> int:
     from pamnet_tpu_torch.ops import _build
     from pamnet_tpu_torch.ops.gather import edge_message, edge_message_backward, row_gather
     from pamnet_tpu_torch.ops.sbf_modulate import sbf_modulate, sbf_modulate_backward
-    from pamnet_tpu_torch.ops.triplet import (gather_product, group_sum, triplet_aggregate,
-                                              triplet_aggregate_grad_a)
+    from pamnet_tpu_torch.ops.triplet import (gather_product, group_sum, group_sum_split,
+                                              triplet_aggregate, triplet_aggregate_grad_a)
     from pamnet_tpu_torch.serve import RNAScoringService, make_server
     from pamnet_tpu_torch.weights import init_params
 
@@ -688,6 +721,7 @@ def main() -> int:
                 "edge_message": edge_message, "row_gather": row_gather,
                 "triplet_aggregate_grad_a": triplet_aggregate_grad_a,
                 "gather_product": gather_product, "group_sum": group_sum,
+                "group_sum_split": group_sum_split,
                 "edge_message_backward": edge_message_backward,
                 "sbf_modulate_backward": sbf_modulate_backward}
     serve_kernels = ("triplet_aggregate", "sbf_modulate", "edge_message", "row_gather")
@@ -831,12 +865,13 @@ def main() -> int:
     # Each kernel's top-level numbers are those of one main-path case: the
     # folded t2 triplet sum, the global message and the embedding lookup (RNA
     # batch-16 scoring shapes); the t2 role swap and product, the global
-    # message's backward and the embedding's backward sum (QM9 training
-    # shapes); kernel B's backward at t2 and dim 16 (RNA batch-8 training
-    # shapes).  "rna_train" holds the same numbers of the kernel's first case
-    # at the RNA training shapes (null for the two kernels that path does not
-    # run).  Launches add the serving, the QM9 training and the RNA training
-    # main paths.
+    # message's backward, the sum by el_src and the embedding's backward sum
+    # by the split kernel (QM9 training shapes); kernel B's backward at t2 and
+    # dim 16 (RNA batch-8 training shapes).  "rna_train" holds the same
+    # numbers of the kernel's first case at the RNA training shapes (null for
+    # the two kernels that path does not run).  Launches add the serving, the
+    # QM9 training and the RNA training main paths; group_sum counts its
+    # calls, of either kernel, and group_sum_split the split kernel's.
     table = [
         ("triplet_aggregate", "triplet_aggregate.cu", "pamnet_tpu/ops/pallas_triplet.py:47",
          a_cases, a_cases[0]),
@@ -855,6 +890,8 @@ def main() -> int:
          bwd_cases["edge_message_backward"], bwd_cases["edge_message_backward"][0]),
         ("group_sum", "triplet_aggregate.cu", "tools/vmem_gather_probe.py:42",
          bwd_cases["group_sum"], bwd_cases["group_sum"][0]),
+        ("group_sum_split", "group_sum.cu", "tools/vmem_gather_probe.py:42",
+         bwd_cases["group_sum_split"], bwd_cases["group_sum_split"][0]),
         ("sbf_modulate_backward", "sbf_modulate_backward.cu",
          "tools/fused_sbf_kernel_probe.py:42", [], rna_cases["sbf_modulate_backward"][0]),
     ]
@@ -866,7 +903,8 @@ def main() -> int:
          "launches": launches[name] + train_launches[name] + rna_launches[name],
          "launches_by_path": {"serve": launches[name], "train": train_launches[name],
                               "rna_train": rna_launches[name]},
-         "max_abs_err": max(c["max_abs_err"] for c in cases + rna_cases.get(name, [])),
+         "max_abs_err": max(c["max_abs_err"] for c in
+                            cases + bwd_cases.get(name, []) + rna_cases.get(name, [])),
          **{k: rep[k] for k in numbers}, "timed_case": rep["case"],
          "rna_train": ({"timed_case": rna_cases[name][0]["case"],
                         **{k: rna_cases[name][0][k] for k in numbers}}
@@ -939,7 +977,9 @@ def train_phase(args, gen, reset_counts, read_counts, emit_kernels) -> tuple[dic
         "edge_message_backward": [edge_backward_case(gb, w, d, gen)
                                   for w in ("global", "local m_kj", "local m_ji")],
         "group_sum": [group_sum_case(gb, k, d, gen)
-                      for k in ("z", "el_src", "eg_src", "el_dst", "eg_dst")],
+                      for k in ("el_src", "eg_src", "el_dst", "eg_dst")],
+        "group_sum_split": [group_sum_case(gb, "z", d, gen)],
+        "row_gather": [radial_gather_case(gb, k) for k in ("t2", "t1")],
     }
     emit_kernels({"phase": "train_kernels", "pads": dataclasses.asdict(loader.pads),
                   "valid": gb.valid, **cases})
@@ -970,8 +1010,9 @@ def train_phase(args, gen, reset_counts, read_counts, emit_kernels) -> tuple[dic
     bwd = read_counts()
     need_fwd = ("triplet_aggregate", "edge_message", "row_gather")
     need_bwd = ("triplet_aggregate_grad_a", "gather_product", "group_sum",
-                "edge_message_backward", "row_gather")
-    if min(fwd[k] for k in need_fwd) < 1 or min(bwd[k] for k in need_bwd) < 1:
+                "group_sum_split", "edge_message_backward", "row_gather")
+    if (min(fwd[k] for k in need_fwd) < 1 or min(bwd[k] for k in need_bwd) < 1
+            or bwd["group_sum"] <= bwd["group_sum_split"]):
         raise AssertionError(f"a step skipped a kernel: forward {fwd}, backward {bwd}")
 
     # One step from the same state, twice: bitwise equal.
@@ -997,7 +1038,8 @@ def train_phase(args, gen, reset_counts, read_counts, emit_kernels) -> tuple[dic
     torch.cuda.synchronize()
     epoch_s = time.perf_counter() - t0
     launches = read_counts()
-    if min(launches[k] for k in set(need_fwd + need_bwd)) < 1:
+    if (min(launches[k] for k in set(need_fwd + need_bwd)) < 1
+            or launches["group_sum"] <= launches["group_sum_split"]):
         raise AssertionError(f"the training path skipped a kernel: {launches}")
     step_losses = [float(v) for v in torch.stack(losses).cpu()]
     if not all(math.isfinite(v) for v in step_losses):
@@ -1050,6 +1092,7 @@ def train_phase(args, gen, reset_counts, read_counts, emit_kernels) -> tuple[dic
         emit_kernels({"phase": "profile_train", "train_step_top": rows[:25],
                       "device_ms_per_step_total": device_ms,
                       "device_idle_share_vs_event_ms": 1.0 - device_ms / step_ms,
+                      "port_kernel_launches": port_kernel_launches(prof, 3),
                       "host_top": host,
                       "python_self_top": [
                           {"function": f"{os.path.basename(k[0])}:{k[1]}:{k[2]}",
@@ -1154,7 +1197,8 @@ def rna_train_phase(args, mols, gen, reset_counts, read_counts, emit_line) -> tu
             "edge_message_backward": [edge_backward_case(gb, w, d, gen, flow)
                                       for w in ("global", "local m_kj", "local m_ji")],
             "group_sum": [group_sum_case(gb, k, d, gen)
-                          for k in ("z", "el_src", "eg_dst", "el_dst", "eg_src")],
+                          for k in ("el_src", "eg_dst", "el_dst", "eg_src")],
+            "group_sum_split": [group_sum_case(gb, "z", d, gen)],
         }
         emit_line({"phase": "rna_train_kernels", "pads": dataclasses.asdict(pd),
                    "valid": gb.valid, **cases})
@@ -1191,8 +1235,10 @@ def rna_train_phase(args, mols, gen, reset_counts, read_counts, emit_line) -> tu
         if fwd["sbf_modulate"] != 2 or bwd["sbf_modulate_backward"] != 2:
             raise AssertionError(f"kernel B launches per step: forward {fwd}, backward {bwd}")
         need_fwd = ("triplet_aggregate", "sbf_modulate", "edge_message", "row_gather")
-        need_bwd = ("sbf_modulate_backward", "group_sum", "edge_message_backward", "row_gather")
-        if min(fwd[k] for k in need_fwd) < 1 or min(bwd[k] for k in need_bwd) < 1:
+        need_bwd = ("sbf_modulate_backward", "group_sum", "group_sum_split",
+                    "edge_message_backward", "row_gather")
+        if (min(fwd[k] for k in need_fwd) < 1 or min(bwd[k] for k in need_bwd) < 1
+                or bwd["group_sum"] <= bwd["group_sum_split"]):
             raise AssertionError(f"a step skipped a kernel: forward {fwd}, backward {bwd}")
 
         # One step from the same state, twice: bitwise equal.
@@ -1215,7 +1261,8 @@ def rna_train_phase(args, mols, gen, reset_counts, read_counts, emit_line) -> tu
         torch.cuda.synchronize()
         epoch_s = time.perf_counter() - t0
         launches = read_counts()
-        if min(launches[k] for k in set(need_fwd + need_bwd)) < 1:
+        if (min(launches[k] for k in set(need_fwd + need_bwd)) < 1
+                or launches["group_sum"] <= launches["group_sum_split"]):
             raise AssertionError(f"the RNA training path skipped a kernel: {launches}")
         step_losses = [float(v) for v in torch.stack(losses).cpu()]
         if not all(math.isfinite(v) for v in step_losses):

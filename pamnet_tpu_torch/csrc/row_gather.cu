@@ -36,38 +36,84 @@
 // * The sum, silu, gate and mask happen in registers: the plain version's
 //   two gathered (E, D) tensors, their sum and the silu output are never
 //   written, and the int32 indices are read as they are (no int64 copy).
-// * row_gather takes the 16-byte path when D % 4 == 0 and a thread per
-//   element otherwise (the radial table has 42 columns).
+// * row_gather takes the 16-byte path, a thread per (row, 4 columns), when
+//   D % 4 == 0.
+// * Otherwise (the unfolded path's radial table has D = 42 columns, a
+//   168-byte row) a warp owns a tile of 32 consecutive output rows, which
+//   are 32 * D contiguous floats: lanes take its 8-byte (float2) columns
+//   when D is even (4-byte ones when it is odd) in order, so each step of
+//   the warp writes 256 contiguous bytes.  Each lane reads one row's index
+//   and the lanes broadcast it with __shfl_sync; a lane's row and column
+//   advance by 32 elements a step with 32-bit adds (one division per thread,
+//   where a thread per element did a 64-bit division and remainder each),
+//   and each lane issues eight loads before its eight stores, which are
+//   marked streaming (evict first), so the output leaves the gathered table
+//   in L2.
 #include <cuda_runtime.h>
 
 namespace {
 
 __device__ __forceinline__ float silu(float x) { return x / (1.0f + expf(-x)); }
 
-template <bool VEC4>
-__global__ void row_gather_kernel(const float* __restrict__ src,
-                                  const int* __restrict__ idx,
-                                  float* __restrict__ out, int rows, int valid,
-                                  int cols) {
-  // cols counts float4s when VEC4, floats otherwise.  Rows past `valid`
-  // are written as zeros and their indices are not read.
+__global__ void row_gather_vec4_kernel(const float4* __restrict__ src,
+                                       const int* __restrict__ idx,
+                                       float4* __restrict__ out, int rows, int valid,
+                                       int vecs) {
+  // Rows past `valid` are written as zeros and their indices are not read.
   const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (tid >= static_cast<long long>(rows) * cols) return;
-  const int r = static_cast<int>(tid / cols);
-  const int c = static_cast<int>(tid - static_cast<long long>(r) * cols);
-  if (r >= valid) {
-    if (VEC4) {
-      reinterpret_cast<float4*>(out)[tid] = make_float4(0.f, 0.f, 0.f, 0.f);
-    } else {
-      out[tid] = 0.f;
+  if (tid >= static_cast<long long>(rows) * vecs) return;
+  const int r = static_cast<int>(tid / vecs);
+  const int c = static_cast<int>(tid - static_cast<long long>(r) * vecs);
+  out[tid] = r < valid ? __ldg(src + static_cast<long long>(__ldg(idx + r)) * vecs + c)
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+template <typename T>
+__device__ __forceinline__ T zero_of();
+template <>
+__device__ __forceinline__ float zero_of<float>() { return 0.f; }
+template <>
+__device__ __forceinline__ float2 zero_of<float2>() { return make_float2(0.f, 0.f); }
+
+// T is float2 (D even, vecs = D / 2) or float (vecs = D).  A warp writes
+// output rows [32 w, 32 w + 32) as one run of 32 * vecs elements: element e
+// of the run is column e % vecs of row e / vecs.  Rows past `valid` are
+// written as zeros and their indices are not read.
+template <typename T>
+__global__ void row_gather_tile_kernel(const T* __restrict__ src, const int* __restrict__ idx,
+                                       T* __restrict__ out, int rows, int valid, int vecs) {
+  constexpr int kUnroll = 8;
+  constexpr unsigned kAll = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const int row0 = (blockIdx.x * blockDim.x + threadIdx.x - lane);  // 32 rows per warp
+  if (row0 >= rows) return;  // the whole warp
+  const int tile_rows = min(32, rows - row0);
+  const int mine = row0 + lane < valid ? __ldg(idx + row0 + lane) : -1;  // -1: a zero row
+  T* tile = out + static_cast<long long>(row0) * vecs;
+  int tr = lane / vecs;  // this lane's row in the tile and column, advanced by
+  int col = lane % vecs;  // 32 elements a step
+  const int step_r = 32 / vecs;
+  const int step_c = 32 % vecs;
+  for (int i0 = 0; i0 < vecs; i0 += kUnroll) {
+    T v[kUnroll];
+    int at[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int s = __shfl_sync(kAll, mine, tr & 31);
+      const bool in = i0 + u < vecs && tr < tile_rows;
+      at[u] = in ? tr * vecs + col : -1;
+      v[u] = in && s >= 0 ? __ldg(src + static_cast<long long>(s) * vecs + col) : zero_of<T>();
+      tr += step_r;
+      col += step_c;
+      if (col >= vecs) {
+        col -= vecs;
+        ++tr;
+      }
     }
-    return;
-  }
-  const long long s = static_cast<long long>(__ldg(idx + r)) * cols + c;
-  if (VEC4) {
-    reinterpret_cast<float4*>(out)[tid] = __ldg(reinterpret_cast<const float4*>(src) + s);
-  } else {
-    out[tid] = __ldg(src + s);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (at[u] >= 0) __stcs(tile + at[u], v[u]);  // streamed: leave L2 to the table
+    }
   }
 }
 
@@ -125,11 +171,16 @@ extern "C" int pamnet_row_gather(const float* src, const int* idx, float* out,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d % 4 == 0) {
     const int vecs = d / 4;
-    row_gather_kernel<true><<<blocks_for(static_cast<long long>(rows) * vecs), kThreads, 0, s>>>(
-        src, idx, out, rows, valid, vecs);
+    row_gather_vec4_kernel<<<blocks_for(static_cast<long long>(rows) * vecs), kThreads, 0, s>>>(
+        reinterpret_cast<const float4*>(src), idx, reinterpret_cast<float4*>(out), rows, valid,
+        vecs);
+  } else if (d % 2 == 0) {
+    row_gather_tile_kernel<float2><<<blocks_for(rows), kThreads, 0, s>>>(
+        reinterpret_cast<const float2*>(src), idx, reinterpret_cast<float2*>(out), rows, valid,
+        d / 2);
   } else {
-    row_gather_kernel<false><<<blocks_for(static_cast<long long>(rows) * d), kThreads, 0, s>>>(
-        src, idx, out, rows, valid, d);
+    row_gather_tile_kernel<float><<<blocks_for(rows), kThreads, 0, s>>>(src, idx, out, rows,
+                                                                        valid, d);
   }
   return static_cast<int>(cudaGetLastError());
 }

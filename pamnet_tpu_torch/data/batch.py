@@ -44,7 +44,9 @@ class GraphBatch:
     ``valid`` the real rows of each padded dimension ("n", "eg", "el", "t2",
     "t1"), host ints that the kernels' wrappers check against.  ``perms``
     holds the backward's CSR arrays (module docstring), empty unless the
-    batch was built with ``build_perms=True``."""
+    batch was built with ``build_perms=True``.  ``longest`` holds the most
+    rows of a group of each CSR the batch carries, by its key ("z",
+    "eg_src", "t2_ji", ...), a host int that picks ``group_sum``'s kernel."""
 
     z: torch.Tensor
     pos: torch.Tensor
@@ -83,6 +85,7 @@ class GraphBatch:
     num_graphs: int
     valid: dict[str, int]
     perms: dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    longest: dict[str, int] = dataclasses.field(default_factory=dict)
 
     def to(self, device) -> "GraphBatch":
         moved = {
@@ -97,12 +100,12 @@ class GraphBatch:
         """The CSR of index field ``key`` ("z", "eg_src", "el_src", "t2_kj",
         ...): its offsets where the rows are sorted by it, else its
         permutation from ``perms``; None when the batch holds neither."""
-        total = self.valid[_ROWS_OF[key]]
+        total, longest = self.valid[_ROWS_OF[key]], self.longest.get(key)
         off = getattr(self, key + "_off", None)
         if off is not None:
-            return Groups(off, None, total)
+            return Groups(off, None, total, longest)
         if key + "_perm" in self.perms:
-            return Groups(self.perms[key + "_poff"], self.perms[key + "_perm"], total)
+            return Groups(self.perms[key + "_poff"], self.perms[key + "_perm"], total, longest)
         return None
 
     def triplet_grad(self, kind: str) -> AggregateGrad:
@@ -282,6 +285,11 @@ def build_perm_np(ids: np.ndarray, num_valid: int, num_groups: int,
     return perm, poff
 
 
+def _longest(off: np.ndarray) -> int:
+    """The most rows of a group of CSR offsets ``off``."""
+    return int(np.diff(off).max()) if off.shape[0] > 1 else 0
+
+
 def _offsets(ids: np.ndarray, num_valid: int, num_groups: int) -> np.ndarray | None:
     """(groups+1,) int32 CSR offsets of rows sorted by ``ids``, or None when
     the first ``num_valid`` rows are not sorted."""
@@ -373,6 +381,11 @@ def collate_structures(structs: list[dict], pads: PadSizes | None = None,
                 f[key], n_valid, groups, rows)
         perms["t2_ji_by_kj"] = f["t2_ji"][perms["t2_kj_perm"]]
         perms["t1_ji_by_jj"] = f["t1_ji"][perms["t1_jj_perm"]]
+    sorted_off = {"eg_src": eg_src_off, "eg_dst": eg_dst_off, "el_dst": el_dst_off,
+                  "t2_ji": _offsets(f["t2_ji"], n_t2, pads.el),
+                  "t1_ji": _offsets(f["t1_ji"], n_t1, pads.el)}
+    longest = {k: _longest(v) for k, v in sorted_off.items() if v is not None}
+    longest.update({k[:-5]: _longest(v) for k, v in perms.items() if k.endswith("_poff")})
     y = np.array([s["y"] for s in structs], dtype=np.float32)
     node_graph = np.repeat(np.arange(nb, dtype=np.int32), n_per)
 
@@ -388,12 +401,9 @@ def collate_structures(structs: list[dict], pads: PadSizes | None = None,
         t1_mask=t(_mask(n_t1, pads.t1)),
         y=t(_pad1(y, pads.g)),
         graph_mask=t(_mask(nb, pads.g)),
-        eg_src_off=opt(eg_src_off),
-        eg_dst_off=opt(eg_dst_off),
-        el_dst_off=opt(el_dst_off),
-        t2_ji_off=opt(_offsets(f["t2_ji"], n_t2, pads.el)),
-        t1_ji_off=opt(_offsets(f["t1_ji"], n_t1, pads.el)),
+        **{k + "_off": opt(v) for k, v in sorted_off.items()},
         num_graphs=nb,
         valid={"n": num_nodes, "eg": n_eg, "el": n_el, "t2": n_t2, "t1": n_t1},
         perms={k: t(v) for k, v in perms.items()},
+        longest=longest,
     )

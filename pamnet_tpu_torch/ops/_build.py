@@ -35,6 +35,7 @@ _SIGNATURES = {
     "pamnet_edge_message": ([_P] * 8 + [_I, _I, _P], _I),
     "pamnet_gather_product": ([_P] * 5 + [_I, _I, _I, _P], _I),
     "pamnet_edge_message_backward": ([_P] * 10 + [_I, _I, _P], _I),
+    "pamnet_group_sum_split": ([_P] * 4 + [_I, _I, _I, _P], _I),
     "pamnet_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -21,8 +21,10 @@ tensors they launch ``csrc/triplet_aggregate.cu`` and
 where ``seg[r]`` is the output row of row ``r``.  The role swap sums over the
 CSR of ``idx`` (``Groups``: a permutation sorting the rows by ``idx`` and its
 offsets, built on the host per batch), reading ``g`` through ``seg[perm]``
-and ``b`` through ``perm``.  ``group_sum`` is kernel A over such a CSR
-alone: the backward of every row gather (``ops/gather.py``).
+and ``b`` through ``perm``.  ``group_sum`` sums rows over such a CSR alone,
+the backward of every row gather (``ops/gather.py``): kernel A where the
+groups are short, ``csrc/group_sum.cu`` (``group_sum_split``) where one is
+long (``group_sum_route``).
 
 Padded rows: a CSR's last offset is the batch's valid row count, so padded
 rows never enter a sum, forward or backward.  The sums of this module are
@@ -46,11 +48,12 @@ class Groups(NamedTuple):
     ``perm`` is None (the rows are sorted by the key).  ``off`` (groups+1,)
     int32 with ``off[-1]`` the valid row count, which ``total`` gives on the
     host where known; ``perm`` (rows,) int32 with the padded rows parked at
-    its end."""
+    its end; ``longest`` the most rows of a group, on the host where known."""
 
     off: torch.Tensor
     perm: torch.Tensor | None = None
     total: int | None = None
+    longest: int | None = None
 
 
 class AggregateGrad(NamedTuple):
@@ -83,8 +86,10 @@ def triplet_aggregate_plain(a: torch.Tensor, off: torch.Tensor,
     return out.index_add_(0, seg, vals)
 
 
-def _kernel_a(what: str, a, off, idx, b, bidx, total):
-    """Check the operands and launch kernel A on the current stream."""
+def _kernel_a(what: str, a, off, idx, b, bidx, total, split: bool = False,
+              longest: int | None = None):
+    """Check the operands and launch kernel A on the current stream, or with
+    ``split`` the split group sum (no ``b``; ``longest`` picks its grid)."""
     dev = a.device
     d = a.shape[1] if a.dim() == 2 else -1
     if d % 4 or d <= 0:
@@ -110,9 +115,14 @@ def _kernel_a(what: str, a, off, idx, b, bidx, total):
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.pamnet_triplet_aggregate(ptr(a), ptr(b), ptr(idx), ptr(bidx),
-                                            off.data_ptr(), out.data_ptr(), num_out,
-                                            d, stream)
+        if split:
+            code = lib.pamnet_group_sum_split(a.data_ptr(), ptr(idx), off.data_ptr(),
+                                              out.data_ptr(), num_out, d,
+                                              -1 if longest is None else longest, stream)
+        else:
+            code = lib.pamnet_triplet_aggregate(ptr(a), ptr(b), ptr(idx), ptr(bidx),
+                                                off.data_ptr(), out.data_ptr(), num_out,
+                                                d, stream)
     _build.check(code, what)
     return out
 
@@ -230,20 +240,61 @@ def group_sum_plain(x: torch.Tensor, groups: Groups) -> torch.Tensor:
     return triplet_aggregate_plain(x, groups.off, groups.perm)
 
 
+# Longest group (rows) up to which group_sum walks each group with kernel A.
+# A walk takes ~0.1 us a row in order, the split kernel a few us whatever
+# the length; a batch's short CSRs have groups of at most ~100 rows (global
+# edges by node), its embedding CSR groups of ~300 (QM9) to ~7,500 (RNA).
+SPLIT_ABOVE = 128
+
+
+def group_sum_route(groups: Groups) -> str:
+    """The kernel ``group_sum`` launches for ``groups``: "walk" (kernel A, a
+    thread per group and 4 columns walking the group in order) when the
+    longest group is known on the host and at most ``SPLIT_ABOVE`` rows,
+    else "split" (``group_sum_split``), which is right for every CSR."""
+    if groups.longest is not None and groups.longest <= SPLIT_ABOVE:
+        return "walk"
+    return "split"
+
+
 def group_sum(x: torch.Tensor, groups: Groups) -> torch.Tensor:
     """(groups, D): ``out[k] = sum of x[r] over the rows r of group k``, the
-    backward of a row gather ``src[idx]`` over the CSR of ``idx``: kernel A,
-    gathering through ``groups.perm`` (or reading sorted rows in place).
-    Counts its kernel launches in ``group_sum.launches``."""
+    backward of a row gather ``src[idx]`` over the CSR of ``idx``, gathering
+    through ``groups.perm`` (or reading sorted rows in place): kernel A or
+    the split kernel, as ``group_sum_route`` says, on CUDA tensors; the plain
+    version on CPU ones.  Counts its calls that launch a kernel in
+    ``group_sum.launches`` (the split kernel's in
+    ``group_sum_split.launches`` too)."""
     if x.device.type == "cpu":
         return group_sum_plain(x, groups)
-    out = _kernel_a("group_sum", x, groups.off, groups.perm, None, None, groups.total)
+    if group_sum_route(groups) == "split":
+        out = group_sum_split(x, groups)
+    else:
+        out = _kernel_a("group_sum", x, groups.off, groups.perm, None, None, groups.total)
     if out.shape[0]:
         group_sum.launches += 1
     return out
 
 
 group_sum.launches = 0
+
+
+def group_sum_split(x: torch.Tensor, groups: Groups) -> torch.Tensor:
+    """``group_sum`` by ``csrc/group_sum.cu``: each group's rows spread over
+    a block per 16 columns, or over a cluster of 8 such blocks where
+    ``groups.longest`` is beyond one batch of a block's lanes or unknown;
+    summed in a fixed order (bitwise repeatable).  The plain version for CPU
+    tensors.  Counts its kernel launches in ``group_sum_split.launches``."""
+    if x.device.type == "cpu":
+        return group_sum_plain(x, groups)
+    out = _kernel_a("group_sum_split", x, groups.off, groups.perm, None, None, groups.total,
+                    split=True, longest=groups.longest)
+    if out.shape[0]:
+        group_sum_split.launches += 1
+    return out
+
+
+group_sum_split.launches = 0
 
 
 def gather_product_plain(x, xi, y, yi, valid: int) -> torch.Tensor:

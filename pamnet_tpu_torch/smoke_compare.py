@@ -1,0 +1,103 @@
+"""Run ``chip_smoke.py`` of two checkouts in turns on one card and print the
+numbers that compare them.
+
+    python -m pamnet_tpu_torch.smoke_compare --parent DIR --change DIR \\
+        [--order p,c,c,p,c+] [--out build/smoke_compare]
+
+Each entry of ``--order`` runs ``python3 chip_smoke.py`` in the parent's
+(``p``) or the change's (``c``) directory, with ``--profile`` where it ends
+in ``+``; the runs go one after another, never side by side, and each one's
+output is kept whole under ``--out`` (``<i>_<p|c>.out``).  Printed, one JSON
+line per run: every kernel case of the group sums and the row gathers (by
+the case's name, whichever kernel list holds it), the training steps'
+times, and with ``--profile`` each launch of the group sums inside a QM9
+and an RNA training step.  It exits non-zero if a run failed.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+_CASE_KEYS = ("ms", "enqueue_ms", "device_ms", "bound_ms", "plain_ms", "library_ms",
+              "library_device_ms", "max_abs_err", "route")
+_STEP_KEYS = ("ms_per_step", "enqueue_ms_per_step", "device_ms_per_step",
+              "device_idle_share", "peak_mem_gb", "main_path_launches")
+_KERNEL_PHASES = ("kernels", "train_kernels", "rna_train_kernels")
+
+
+def _cases(phase: dict) -> list[dict]:
+    """The group-sum and row-gather cases of a kernel phase's line."""
+    out = []
+    for value in phase.values():
+        if not isinstance(value, list):
+            continue
+        for case in value:
+            name = case.get("case", "") if isinstance(case, dict) else ""
+            if name.startswith(("sum by", "rows by", "radial table", "atom-type")):
+                out.append({"case": name, "d": case.get("d"),
+                            **{k: case[k] for k in _CASE_KEYS if k in case}})
+    return out
+
+
+def _in_step(phase: dict) -> list[dict]:
+    """The launches of the sums by group of a profiled step: kernel A's
+    no-modulation launches and the split kernel's."""
+    return [ev for ev in phase.get("port_kernel_launches", [])
+            if ev["name"].startswith(("group_sum", "triplet_aggregate_kernel<true, false, false>",
+                                      "triplet_aggregate_kernel<false, false, false>"))]
+
+
+def summarize(lines: list[str]) -> dict:
+    """The compared numbers of one run's output lines."""
+    res: dict = {}
+    for line in lines:
+        if not line.startswith("{"):
+            continue
+        obj = json.loads(line)
+        phase = obj.get("phase")
+        if phase == "device":
+            res["nvidia_smi"] = obj["nvidia_smi"]
+        elif phase in _KERNEL_PHASES:
+            res[phase] = _cases(obj)
+        elif phase in ("train", "rna_train"):
+            res[phase] = {k: obj.get(k) for k in _STEP_KEYS}
+        elif phase == "slice":
+            res["slice"] = {k: obj.get(k) for k in ("folded_ms_per_batch",
+                                                    "unfolded_ms_per_batch")}
+        elif phase in ("profile_train", "profile_rna_train"):
+            res[phase] = {"device_ms_per_step_total": obj.get("device_ms_per_step_total"),
+                          "group_sum_launches": _in_step(obj)}
+        elif "ok" in obj:
+            res["ok"] = obj["ok"]
+    return res
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--parent", required=True)
+    parser.add_argument("--change", required=True)
+    parser.add_argument("--order", default="p,c,c,p,c+")
+    parser.add_argument("--out", default=os.path.join("build", "smoke_compare"))
+    args = parser.parse_args(argv)
+    os.makedirs(args.out, exist_ok=True)
+    failed = 0
+    for i, run in enumerate(args.order.split(",")):
+        which, profile = run[0], run.endswith("+")
+        cwd = {"p": args.parent, "c": args.change}[which]
+        cmd = [sys.executable, "chip_smoke.py"] + (["--profile"] if profile else [])
+        proc = subprocess.run(cmd, cwd=cwd, capture_output=True, text=True)
+        with open(os.path.join(args.out, f"{i}_{which}.out"), "w") as f:
+            f.write(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
+        failed += proc.returncode != 0
+        print(json.dumps({"run": i, "tree": which, "profile": profile,
+                          "returncode": proc.returncode,
+                          **summarize(proc.stdout.splitlines())}), flush=True)
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -17,8 +17,8 @@ from pamnet_tpu_torch.ops.gather import (edge_message, edge_message_backward,
 from pamnet_tpu_torch.ops.sbf_modulate import (sbf_modulate, sbf_modulate_backward,
                                                sbf_modulate_plain)
 from pamnet_tpu_torch.ops.triplet import (Groups, gather_product, gather_product_plain,
-                                          group_sum, group_sum_plain, triplet_aggregate,
-                                          triplet_aggregate_grad_a,
+                                          group_sum, group_sum_plain, group_sum_split,
+                                          triplet_aggregate, triplet_aggregate_grad_a,
                                           triplet_aggregate_grad_a_plain, triplet_aggregate_plain)
 from pamnet_tpu_torch.train.loop import batch_loss
 
@@ -211,6 +211,64 @@ def test_group_sum_kernel(cuda, groups, rows, d):
         assert group_sum.launches == before + 1
         torch.testing.assert_close(got, group_sum_plain(x, grp), rtol=1e-5, atol=1e-4)
         assert torch.equal(got, group_sum(x, grp))
+
+
+@pytest.mark.parametrize("longest", ["known", "unknown"])
+@pytest.mark.parametrize("sizes,d", [
+    ((7557, 5000, 4243), 16),                    # the RNA embedding's backward: 3 long groups
+    ((333, 200, 0, 31, 2), 128),                 # QM9's: 5 groups, one empty
+    ((20000,), 16),                              # one group holding every row
+    ((0, 900, 0) + (3,) * 500 + (0, 1, 70), 16),  # few long groups, many short, empty ones
+    ((1500, 40, 2), 12),                         # 3 column lanes
+    ((512, 129), 20),                            # the longest group one batch of the lanes
+    ((600, 600), 160),                           # ten blocks of 16 columns per group
+])
+def test_group_sum_split_kernel(cuda, sizes, d, longest):
+    """The split group sum against the plain version, through a permutation
+    and over sorted rows, with a padded tail; bitwise equal across two
+    calls; group_sum routes to it by the longest group.  A known longest
+    group of up to 512 rows takes a block per group and 16 columns, a longer
+    or unknown one a cluster of 8 blocks."""
+    g = torch.Generator(device=cuda).manual_seed(len(sizes) + d)
+    valid = sum(sizes)
+    rows = valid + 97
+    ids = torch.repeat_interleave(torch.arange(len(sizes), device=cuda),
+                                  torch.tensor(sizes, device=cuda)).to(torch.int32)
+    ids = torch.cat([ids[torch.randperm(valid, device=cuda, generator=g)],
+                     torch.zeros(rows - valid, dtype=torch.int32, device=cuda)])
+    x = torch.randn(rows, d, device=cuda, generator=g)
+    sorted_off = torch.tensor(np.concatenate([[0], np.cumsum(sizes)]), dtype=torch.int32,
+                              device=cuda)
+    for grp in (_perm_groups(ids, valid, len(sizes), cuda),
+                Groups(sorted_off, None, valid)):
+        grp = grp._replace(longest=max(sizes) if longest == "known" else None)
+        want = group_sum_plain(x, grp)
+        before = group_sum_split.launches, group_sum.launches
+        got = group_sum_split(x, grp)
+        torch.cuda.synchronize()
+        assert group_sum_split.launches == before[0] + 1
+        atol = 1e-4 * max(1.0, max(sizes) / 512)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=atol)
+        assert torch.equal(got, group_sum_split(x, grp))
+        assert torch.equal(got, group_sum(x, grp))
+        assert (group_sum_split.launches, group_sum.launches) == (before[0] + 3, before[1] + 1)
+
+
+@pytest.mark.parametrize("d", [42, 6, 2, 16, 3])
+@pytest.mark.parametrize("rows,valid", [(935, 900), (64, 64), (45, 0)])
+def test_row_gather_kernel_valid_count(cuda, d, rows, valid):
+    """Every width the row gather takes (float4, float2 and float columns),
+    with a valid count and a part-filled last warp: exact."""
+    g = torch.Generator(device=cuda).manual_seed(d * rows + valid)
+    src = torch.randn(301, d, device=cuda, generator=g)
+    idx = torch.randint(0, 301, (rows,), device=cuda, generator=g).to(torch.int32)
+    idx[valid:] = -7  # past the valid count: never read
+    before = row_gather.launches
+    got = row_gather(src, idx, valid=valid)
+    torch.cuda.synchronize()
+    assert row_gather.launches == before + 1
+    assert torch.equal(got, row_gather_plain(src, idx, valid))
+    assert torch.all(got[valid:] == 0.0)
 
 
 def test_row_gather_valid_rows_zero(cuda):
