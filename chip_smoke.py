@@ -8,12 +8,16 @@ Phases, each printing one JSON line:
   1. device: the card's name and power limit (nvidia-smi) and the kernel
      build time (nvcc, sm_90a, from the sources in the checkout);
   2. kernels: each CUDA kernel against its plain PyTorch version on the card
-     at the RNA batch-16 shapes, with kernel, plain, library and bound times;
+     at the RNA batch-16 shapes, with kernel, plain, library and bound times
+     (kernel B on random triplets as (T, D) rows and summed by center edge);
   3. slice: RNAScoringService(device="cuda") scores a batch of synthetic
      RNA-scale structures with seeded weights (the serving main path; every
      forward kernel's launch count must rise), then the folded, unfolded and
      plain paths score the same batch and are compared; graphs/s and ms per
-     batch;
+     batch; the folded forward must launch kernel B twice and kernel A two
+     times fewer than the unfolded one (no sum over the triplets); then
+     sbf_kernels: kernel B on that batch's own t2/t1 arrays, summed by
+     center edge and as rows, against its plain version, two calls bitwise;
   4. service: the HTTP server on an ephemeral port answers JSON and raw-PDB
      requests, compared with direct scoring;
   5. train_kernels: each backward kernel against its plain version at the
@@ -27,9 +31,11 @@ Phases, each printing one JSON line:
      every kernel of the path must launch), ms per step and molecules/s on a
      resident batch, host enqueue time and peak memory; then
      ``python -m pamnet_tpu_torch.main_qm9`` in-process for one epoch;
-  7. rna_train_kernels: kernel B's backward against PyTorch's autograd of its
-     plain version at the pads of an RNA training batch of 8, for (7, 16) and
-     (7, 8), on the t2 and t1 arrays of that batch; then every other wrapper
+  7. rna_train_kernels: kernel B's backward, summed by center edge and not,
+     against PyTorch's autograd of its plain version at the pads of an RNA
+     training batch of 8, for (7, 16) and (7, 8), on the t2 and t1 arrays of
+     that batch, two calls bitwise; kernel B forward on the same arrays and
+     on random ones in both modes; then every other wrapper
      an RNA training step launches, against its plain version at that
      batch's shapes (D=16): kernels A and B and the edge messages forward,
      the row gathers with a valid count, the edge messages' backward and
@@ -39,7 +45,9 @@ Phases, each printing one JSON line:
      structures written to and read from a TU directory: the first step's
      gradients through the kernels against the plain route and against the
      unfolded path, a repeated step bitwise, launches per step (kernel B 2
-     forward + 2 backward), an epoch (the RNA training main path), ms per
+     forward + 2 backward; kernel A 2 forward, the global and el_dst sums,
+     and 2 row gathers in the backward, their backward), an epoch (the RNA
+     training main path), ms per
      step, structures/s, device time per step, peak memory; then
      ``python -m pamnet_tpu_torch.main_rna_puzzles`` in-process: three epochs
      straight, two epochs and a ``--resume`` for the third, which must give
@@ -50,8 +58,8 @@ Phases, each printing one JSON line:
      (``group_sum_split``) on both training paths;
   9. kernels: one line listing every kernel with its numbers.
 With ``--profile`` each phase also lists its device time by kernel and, for
-a QM9 and an RNA training step, each launch of the port's kernels with its
-device time (``port_kernel_launches``).
+the scoring forward and a QM9 and an RNA training step, each launch of the
+port's kernels with its device time (``port_kernel_launches``).
 Then the nvidia-smi line and, last, {"ok": true, "device": {...}}.
 Any mismatch raises and the script exits non-zero.  It exits non-zero with no
 result when CUDA is absent.
@@ -253,39 +261,76 @@ def kernel_a_case(name, num_out, rows, d, gather, modulate, gen):
             "plain_ms": plain, "library_ms": lib, "bound_ms": bms, "bound_by": by}
 
 
-def kernel_b_case(num_edges, triplets, ns, d, gen, name="t2 fused folded gather"):
+def random_triplets(num_edges, triplets, ns, gen) -> dict:
+    """Triplet arrays of random data at a main-path shape, as a batch lays
+    them out: neighbour edges, basis rows, a padded tail (mask 0, index 0)
+    and the sorted CSR of random center edges over the valid triplets."""
+    import torch
+
+    from pamnet_tpu_torch.ops.triplet import Groups
+
+    dev = torch.device("cuda")
+    valid = triplets - triplets // 16
+    idx = torch.randint(0, num_edges, (triplets,), device=dev, generator=gen).to(torch.int32)
+    idx[valid:] = 0
+    seg = torch.sort(torch.randint(0, num_edges, (valid,), device=dev, generator=gen))[0]
+    off = torch.searchsorted(seg, torch.arange(num_edges + 1, device=dev)).to(torch.int32)
+    return {"idx": idx, "cbf": torch.randn(triplets, ns, device=dev, generator=gen),
+            "mask": (torch.arange(triplets, device=dev) < valid).float(), "valid": valid,
+            "out_groups": Groups(off, None, valid)}
+
+
+def batch_triplets(gb, kind: str) -> dict:
+    """The triplet arrays of stream ``kind`` ("t2" or "t1") of batch ``gb``."""
+    return {"idx": gb.t2_kj if kind == "t2" else gb.t1_jj,
+            "cbf": gb.cbf2 if kind == "t2" else gb.cbf1, "mask": getattr(gb, kind + "_mask"),
+            "valid": gb.valid[kind], "out_groups": gb.groups(kind + "_ji")}
+
+
+def kernel_b_case(name, num_edges, ns, d, gen, trip: dict, summed: bool) -> dict:
+    """Kernel B on the triplet arrays ``trip`` with random tables and
+    weights: summed by center edge (over ``trip["out_groups"]``) or the
+    (T, D) rows; against its plain version (kernel A's plain sum of the plain
+    rows where summed) within atol 1e-4 + rtol 1e-4, two calls bitwise
+    equal.  No one PyTorch call computes the function."""
     import torch
 
     from pamnet_tpu_torch.ops.sbf_modulate import sbf_modulate, sbf_modulate_plain
 
     dev = torch.device("cuda")
     r = lambda *s: torch.randn(*s, device=dev, generator=gen)  # noqa: E731
-    valid = triplets - triplets // 16
-    args = (r(num_edges, ns * d), r(num_edges, d), r(triplets, ns), r(d),
-            r(d, d) / d**0.5, r(d), r(d, d) / d**0.5, r(d),
-            torch.randint(0, num_edges, (triplets,), device=dev, generator=gen).to(torch.int32),
-            (torch.arange(triplets, device=dev) < valid).float())
-    got = sbf_modulate(*args)
-    want = sbf_modulate_plain(*args)
+    idx, triplets = trip["idx"], trip["idx"].shape[0]
+    args = (r(num_edges, ns * d), r(num_edges, d), trip["cbf"], r(d),
+            r(d, d) / d**0.5, r(d), r(d, d) / d**0.5, r(d), idx, trip["mask"])
+    out_groups = trip["out_groups"] if summed else None
+    fn = lambda: sbf_modulate(*args, out_groups=out_groups)  # noqa: E731
+    off = None if out_groups is None else out_groups.off
+    got, want = fn(), sbf_modulate_plain(*args, out_off=off)
     torch.cuda.synchronize()
-    err = compare("sbf_modulate", got, want, atol=1e-4, rtol=1e-4)
-    ms_first = time_ms(lambda: sbf_modulate(*args))
-    plain = time_ms(lambda: sbf_modulate_plain(*args))
-    ms = time_ms(lambda: sbf_modulate(*args))
-    enq = enqueue_ms(lambda: sbf_modulate(*args))
-    dev = device_ms(lambda: sbf_modulate(*args))
-    edges_read = torch.unique(args[8]).numel()
-    nbytes = (edges_read * (ns + 1) * d * 4 + triplets * (ns + 2) * 4
-              + (2 * d * d + 3 * d) * 4 + triplets * d * 4)
+    err = compare(f"sbf_modulate[{name}]", got, want, atol=1e-4, rtol=1e-4)
+    if not torch.equal(got, fn()):
+        raise AssertionError(f"sbf_modulate[{name}] is not bitwise repeatable")
+    ms_first = time_ms(fn)
+    plain = time_ms(lambda: sbf_modulate_plain(*args, out_off=off))
+    ms = time_ms(fn)
+    enq = enqueue_ms(fn)
+    dev_ms = device_ms(fn)
+    # The triplets the kernel reads: the valid ones where summed, every row
+    # of the (T, D) output otherwise.
+    rows = trip["valid"] if summed else triplets
+    out_bytes = ((off.shape[0] * 4 + (off.shape[0] - 1) * d * 4) if summed
+                 else triplets * d * 4)
+    nbytes = (_unique(idx, rows) * (ns + 1) * d * 4 + rows * (ns + 2) * 4
+              + (2 * d * d + 3 * d) * 4 + out_bytes)
     # Per triplet: ns*d multiply-adds, two d x d products, 3*d silu (4 ops
-    # each), the mask and the modulation.
-    flops = triplets * (2 * ns * d + 4 * d * d + 12 * d + 2 * d)
+    # each), the mask and the modulation, and the sum where summed.
+    flops = rows * (2 * ns * d + 4 * d * d + 12 * d + 2 * d + (d if summed else 0))
     bms, by = bound_ms(nbytes, flops)
-    return {"case": name, "edges": num_edges,
-            "triplets": triplets, "ns": ns, "d": d, **err, "ms": ms, "ms_first": ms_first,
-            "device_ms": dev, "library_device_ms": None,
-            "enqueue_ms": enq,
-            "plain_ms": plain, "library_ms": None, "bound_ms": bms, "bound_by": by}
+    return {"case": name, "summed": summed, "edges": num_edges, "triplets": triplets,
+            "valid": trip["valid"], "ns": ns, "d": d, **err, "bitwise_repeat": True,
+            "ms": ms, "ms_first": ms_first, "device_ms": dev_ms, "library_device_ms": None,
+            "enqueue_ms": enq, "plain_ms": plain, "library_ms": None, "bound_ms": bms,
+            "bound_by": by}
 
 
 def row_gather_case(name, table_rows, rows, d, gen):
@@ -549,11 +594,12 @@ def radial_gather_case(gb, kind: str) -> dict:
         table_rows=src.shape[0], rows=rows, d=d)
 
 
-def sbf_backward_case(gb, kind: str, d: int, gen) -> dict:
+def sbf_backward_case(gb, kind: str, d: int, gen, summed: bool = True) -> dict:
     """Kernel B's backward on the ``kind`` ("t2" or "t1") arrays of the RNA
-    training batch ``gb`` (index, its CSR, mask and cbf; random tables,
-    weights and output gradient), each of its seven outputs against PyTorch's
-    autograd of the plain version within 1e-4 * max|g_plain| + 1e-6.
+    training batch ``gb`` (index and its CSR, mask, cbf and, ``summed``, the
+    center edges' CSR and ids; random tables, weights and output gradient),
+    each of its seven outputs against PyTorch's autograd of the plain version
+    within 1e-4 * max|g_plain| + 1e-6; two calls bitwise equal.
     ``plain_ms`` times that autograd backward alone; no one PyTorch call
     computes the function."""
     import torch
@@ -563,41 +609,48 @@ def sbf_backward_case(gb, kind: str, d: int, gen) -> dict:
     ns = 7
     key, cbf = ("t2_kj", gb.cbf2) if kind == "t2" else ("t1_jj", gb.cbf1)
     idx, groups, mask = getattr(gb, key), gb.groups(key), getattr(gb, kind + "_mask")
+    out_groups, out_ids = (gb.groups(kind + "_ji"), getattr(gb, kind + "_ji")) if summed else (
+        None, None)
     edges, rows, valid = gb.el_src.shape[0], idx.shape[0], gb.valid[kind]
     r = lambda *s: torch.randn(*s, device="cuda", generator=gen)  # noqa: E731
     args = [r(edges, ns * d), r(edges, d), cbf, r(d), r(d, d) / d**0.5, r(d),
             r(d, d) / d**0.5, r(d), idx, mask]
-    cot = r(rows, d)
+    g_rows = out_groups.off.shape[0] - 1 if summed else rows
+    cot = r(g_rows, d)
     grad_at = (0, 1, 3, 4, 5, 6, 7)  # proj, m_neighbor, bias, w1, b1, w2, b2
     leaves = [a.clone().requires_grad_() if i in grad_at else a for i, a in enumerate(args)]
-    out = sbf_modulate_plain(*leaves)
+    out = sbf_modulate_plain(*leaves, out_off=None if out_groups is None else out_groups.off)
     wanted = [leaves[i] for i in grad_at]
     plain_fn = lambda: torch.autograd.grad(out, wanted, cot, retain_graph=True)  # noqa: E731
-    fn = lambda: sbf_modulate_backward(*args, groups, cot)  # noqa: E731
+    fn = lambda: sbf_modulate_backward(*args, groups, cot, out_groups, out_ids)  # noqa: E731
     got, want = fn(), plain_fn()
     torch.cuda.synchronize()
+    what = f"sbf_modulate_backward[{kind}, d={d}{', summed' if summed else ''}]"
     names = ("d_proj", "d_m_neighbor", "d_bias", "d_w1", "d_b1", "d_w2", "d_b2")
     errs = {}
     for name, g, w in zip(names, got, want):
         if not bool(torch.isfinite(g).all()):
-            raise AssertionError(f"sbf_modulate_backward[{kind}, d={d}] {name}: non-finite")
+            raise AssertionError(f"{what} {name}: non-finite")
         err, tol = float((g - w).abs().max()), 1e-4 * float(w.abs().max()) + 1e-6
         errs[name] = {"max_abs_err": err, "err_over_tolerance": err / tol}
         if err > tol:
-            raise AssertionError(f"sbf_modulate_backward[{kind}, d={d}] {name}: {err} > {tol}")
+            raise AssertionError(f"{what} {name}: {err} > {tol}")
     again = fn()
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
-        raise AssertionError("sbf_modulate_backward is not bitwise repeatable")
+        raise AssertionError(f"{what} is not bitwise repeatable")
     ms_first = time_ms(fn)
     plain = time_ms(plain_fn)
     ms = time_ms(fn)
     enq = enqueue_ms(fn)
     dev = device_ms(fn)
     # Each input read once (an edge's rows once however many triplets share
-    # them), each output written once; the gathered variant counts the rows
-    # per triplet, what a cold cache with no reuse would move.
-    per_triplet = (ns + d + 4) * 4  # cbf, g, idx, mask, perm
-    fixed = (2 * d * d + 3 * d) * 4 * 2 + (edges + 1) * 4 + edges * (ns + 1) * d * 4
+    # them, a G row once however many triplets read it), each output written
+    # once; the gathered variant counts the edge rows per triplet, what a
+    # cold cache with no reuse would move.
+    per_triplet = (ns + 3 + int(summed)) * 4  # cbf, mask, perm, center id
+    g_read = (_unique(out_ids, valid) if summed else valid) * d * 4
+    fixed = ((2 * d * d + 3 * d) * 4 * 2 + (edges + 1) * 4 + edges * (ns + 1) * d * 4
+             + g_read)
     nbytes = _unique(idx, valid) * (ns + 1) * d * 4 + valid * per_triplet + fixed
     gathered = valid * ((ns + 1) * d * 4 + per_triplet) + fixed
     # Per triplet: the slice multiply-adds and their transpose, two products
@@ -606,7 +659,8 @@ def sbf_backward_case(gb, kind: str, d: int, gen) -> dict:
     flops = valid * (4 * ns * d + 8 * d * d + 4 * d * d + 30 * d)
     bms, by = bound_ms(nbytes, flops)
     worst = max(errs.values(), key=lambda e: e["err_over_tolerance"])
-    return {"case": f"{kind} backward, d={d}", "edges": edges, "rows": rows, "valid": valid,
+    return {"case": f"{kind} backward{' summed' if summed else ''}, d={d}", "summed": summed,
+            "edges": edges, "rows": rows, "valid": valid,
             "ns": ns, "d": d, "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
             "worst_err_over_tolerance": worst["err_over_tolerance"], "errors": errs,
             "tolerance": "1e-4 * max|g_plain| + 1e-6 per output", "bitwise_repeat": True,
@@ -692,7 +746,12 @@ def main() -> int:
         kernel_a_case("eg_src global sum", p["n"], p["eg"], 16, False, False, gen),
         kernel_a_case("t2 gather+modulate D=128", p["el"], p["t2"], 128, True, True, gen),
     ]
-    b_case = kernel_b_case(p["el"], p["t2"], 7, 16, gen)
+    # Kernel B on random triplets at the t2 pads: the (T, D) rows and their
+    # sum by center edge (kernel B and kernel A's t2 sum in one launch).
+    rand_t2 = random_triplets(p["el"], p["t2"], 7, gen)
+    b_cases = [kernel_b_case("t2 fused folded gather", p["el"], 7, 16, gen, rand_t2, False),
+               kernel_b_case("t2 fused folded gather, summed", p["el"], 7, 16, gen, rand_t2,
+                             True)]
     e_cases = [
         edge_message_case("global message (gate, mask)", p["n"], p["eg"], 16, True, True, gen),
         edge_message_case("local m_kj (gate)", p["n"], p["el"], 16, True, False, gen),
@@ -702,7 +761,7 @@ def main() -> int:
         row_gather_case("atom-type embedding", 3, p["n"], 16, gen),
         row_gather_case("radial table at t2 (unfolded path)", p["el"], p["t2"], 42, gen),
     ]
-    emit({"phase": "kernels", "triplet_aggregate": a_cases, "sbf_modulate": [b_case],
+    emit({"phase": "kernels", "triplet_aggregate": a_cases, "sbf_modulate": b_cases,
           "edge_message": e_cases, "row_gather": g_cases})
 
     # ---- 3. the slice: scoring service on the card ----
@@ -784,6 +843,14 @@ def main() -> int:
         reset_counts()
         unfolded(gb)
         per_batch_unfolded = read_counts()
+        # Kernel B sums each stream by center edge itself: two launches and
+        # no kernel A sum over the triplets (the unfolded path's two
+        # gathered sums are those launches).
+        if (per_batch["sbf_modulate"] != 2 * cfg.n_layer or per_batch_unfolded["sbf_modulate"]
+                or per_batch["triplet_aggregate"]
+                != per_batch_unfolded["triplet_aggregate"] - 2 * cfg.n_layer):
+            raise AssertionError(f"folded forward launches {per_batch}, "
+                                 f"unfolded {per_batch_unfolded}")
         fold_ms = time_ms(lambda: folded(gb), iters=10)
         fold_enqueue_ms = enqueue_ms(lambda: folded(gb), iters=10)
         plain_ms = time_ms(lambda: folded(gb, plain=True), iters=10)
@@ -802,6 +869,18 @@ def main() -> int:
           "plain_ms_per_batch": plain_ms, "plain_graphs_per_s": ng / plain_ms * 1e3,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
 
+    # Kernel B on the scoring batch's own triplet arrays, both modes; then
+    # with every triplet on edge 0 (its rows always cached), which shows
+    # how much of the time the row gather takes.
+    sbf_batch = [kernel_b_case(f"{k} fused folded gather, {'summed' if summed else 'rows'}, batch",
+                               pads["el"], 7, cfg.dim, gen, batch_triplets(gb, k), summed)
+                 for summed in (True, False) for k in ("t2", "t1")]
+    cached = {**batch_triplets(gb, "t2"), "idx": torch.zeros_like(gb.t2_kj)}
+    sbf_cached = kernel_b_case("t2 fused folded gather, summed, batch, every triplet on edge 0",
+                               pads["el"], 7, cfg.dim, gen, cached, True)
+    emit({"phase": "sbf_kernels", "batch": f"scoring, {ng} structures", "pads": pads,
+          "sbf_modulate": sbf_batch, "sbf_modulate_rows_cached": sbf_cached})
+
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
 
@@ -813,6 +892,7 @@ def main() -> int:
         rows, host = profile_rows(prof, 3)
         emit({"phase": "profile", "folded_forward_top": rows[:15],
               "device_ms_per_batch_total": sum(r["device_ms_per_call"] for r in rows),
+              "port_kernel_launches": port_kernel_launches(prof, 3),
               "host_top": host})
 
     # ---- 4. the HTTP service ----
@@ -863,11 +943,12 @@ def main() -> int:
 
     # ---- 9. every kernel of the paths, with its numbers ----
     # Each kernel's top-level numbers are those of one main-path case: the
-    # folded t2 triplet sum, the global message and the embedding lookup (RNA
-    # batch-16 scoring shapes); the t2 role swap and product, the global
+    # folded t2 triplet sum (kernel A's, on random data), kernel B's t2 sum
+    # by center edge on the scoring batch, the global message and the
+    # embedding lookup (RNA batch-16 scoring shapes); the t2 role swap and product, the global
     # message's backward, the sum by el_src and the embedding's backward sum
-    # by the split kernel (QM9 training shapes); kernel B's backward at t2 and
-    # dim 16 (RNA batch-8 training shapes).  "rna_train" holds the same
+    # by the split kernel (QM9 training shapes); kernel B's summed backward
+    # at t2 and dim 16 (RNA batch-8 training shapes).  "rna_train" holds the same
     # numbers of the kernel's first case at the RNA training shapes (null for
     # the two kernels that path does not run).  Launches add the serving, the
     # QM9 training and the RNA training main paths; group_sum counts its
@@ -876,7 +957,7 @@ def main() -> int:
         ("triplet_aggregate", "triplet_aggregate.cu", "pamnet_tpu/ops/pallas_triplet.py:47",
          a_cases, a_cases[0]),
         ("sbf_modulate", "sbf_modulate.cu", "tools/fused_sbf_kernel_probe.py:42",
-         [b_case], b_case),
+         b_cases + sbf_batch, sbf_batch[0]),
         ("edge_message", "row_gather.cu", "tools/vmem_gather_probe.py:86",
          e_cases, e_cases[0]),
         ("row_gather", "row_gather.cu", "tools/vmem_gather_probe.py:42",
@@ -1178,11 +1259,19 @@ def rna_train_phase(args, mols, gen, reset_counts, read_counts, emit_line) -> tu
         # the pads, the backward ones on the batch's own index arrays.
         pd, flow = loader.pads, "target_to_source"
         i_key = "eg_src" if flow == "target_to_source" else "eg_dst"
+        rand = {k: random_triplets(pd.el, rows, 7, gen) for k, rows in (("t2", pd.t2),
+                                                                          ("t1", pd.t1))}
         cases = {
-            "sbf_modulate_backward": [sbf_backward_case(gb, k, dd, gen)
-                                      for dd in (16, 8) for k in ("t2", "t1")],
-            "sbf_modulate": [kernel_b_case(pd.el, rows, 7, d, gen, f"{k} fused folded gather")
-                             for k, rows in (("t2", pd.t2), ("t1", pd.t1))],
+            "sbf_modulate_backward": [sbf_backward_case(gb, k, dd, gen, summed)
+                                      for summed in (True, False) for dd in (16, 8)
+                                      for k in ("t2", "t1")],
+            "sbf_modulate": [
+                kernel_b_case(f"{k} fused folded gather, {'summed' if summed else 'rows'}, batch",
+                              pd.el, 7, d, gen, batch_triplets(gb, k), summed)
+                for summed in (True, False) for k in ("t2", "t1")] + [
+                kernel_b_case(f"{k} fused folded gather{', summed' if summed else ''}", pd.el, 7,
+                              d, gen, rand[k], summed)
+                for summed in (False, True) for k in ("t2", "t1")],
             "triplet_aggregate": [
                 kernel_a_case(name, num_out, rows, d, False, False, gen)
                 for name, num_out, rows in (
@@ -1232,8 +1321,20 @@ def rna_train_phase(args, mols, gen, reset_counts, read_counts, emit_line) -> tu
         loss.backward()
         torch.cuda.synchronize()
         bwd = read_counts()
+        reset_counts()
+        with torch.no_grad():
+            batch_loss(unfolded, gb, kind)
+        fwd_unfolded = read_counts()
         if fwd["sbf_modulate"] != 2 or bwd["sbf_modulate_backward"] != 2:
             raise AssertionError(f"kernel B launches per step: forward {fwd}, backward {bwd}")
+        # Kernel B sums the t2/t1 streams by center edge itself: the forward's
+        # kernel A launches are the global and the el_dst sums alone (the
+        # unfolded forward adds its two gathered sums), and the backward's row
+        # gathers are those two sums' backward alone (none by t2_ji/t1_ji).
+        if not (fwd["triplet_aggregate"] == 2 == fwd_unfolded["triplet_aggregate"] - 2
+                and bwd["row_gather"] == 2):
+            raise AssertionError(f"kernel A / row gather launches per step: forward {fwd}, "
+                                 f"backward {bwd}, unfolded forward {fwd_unfolded}")
         need_fwd = ("triplet_aggregate", "sbf_modulate", "edge_message", "row_gather")
         need_bwd = ("sbf_modulate_backward", "group_sum", "group_sum_split",
                     "edge_message_backward", "row_gather")
@@ -1284,7 +1385,8 @@ def rna_train_phase(args, mols, gen, reset_counts, read_counts, emit_line) -> tu
             "host_build_s": host_build_s, "pads": dataclasses.asdict(loader.pads),
             "resident_batch_valid": gb.valid, "gradient_checks": grad_checks,
             "bitwise_repeat": True, "launches_per_step_forward": fwd,
-            "launches_per_step_backward": bwd, "epoch_steps": len(losses), "epoch_s": epoch_s,
+            "launches_per_step_backward": bwd, "launches_unfolded_forward": fwd_unfolded,
+            "epoch_steps": len(losses), "epoch_s": epoch_s,
             "epoch_structures_per_s": ng / epoch_s, "epoch_train_loss": loss_sum / ng,
             "step_losses": step_losses, "main_path_launches": launches,
             "ms_per_step": step_ms, "structures_per_s": gb.num_graphs / step_ms * 1e3,

@@ -1,13 +1,13 @@
 // Kernel B's backward: the gradient of the folded spherical-basis modulate
-// stage (sbf_modulate.cu) with respect to the projected table, the neighbour
-// messages and the stage's weights.
+// stage (sbf_modulate.cu), summed by center edge or not, with respect to
+// the projected table, the neighbour messages and the stage's weights.
 //
 // Forward, per triplet t with neighbour edge e = idx[t]:
 //   acc = bias + sum_l cbf[t, l] * proj[e, l*D:(l+1)*D]     s0 = silu(acc)
 //   z1  = s0 @ W1^T + b1                                    s1 = silu(z1)
 //   z2  = s1 @ W2^T + b2                                    h  = silu(z2) * mask[t]
-//   out[t] = m[e] * h
-// Backward, for the output gradient g = d_out[t]:
+//   row(t) = m[e] * h,   summed into out[seg[t]] (or out[t] = row(t))
+// Backward, for the output gradient G and g = G[seg[t]] (or G[t]):
 //   d_mrow = g * h                       d_z2 = g * m[e] * mask[t] * silu'(z2)
 //   d_z1 = (d_z2 @ W2) * silu'(z1)       d_acc = (d_z1 @ W1) * silu'(acc)
 //   d_W2 += d_z2 (x) s1   d_b2 += d_z2   d_W1 += d_z1 (x) s0   d_b1 += d_z1
@@ -16,242 +16,264 @@
 //
 // Replaces: the gradient of tools/fused_sbf_kernel_probe.py:42 (make_kernel),
 // which the JAX package takes by autodiff of _fused_sbf_gather
-// (pamnet_tpu/models/layers.py:48-65).
+// (pamnet_tpu/models/layers.py:48-65) and of its sum by center edge
+// (:324-332).
 //
-// What bounds it on an H100: memory.  Each triplet reads its edge's 512 bytes
-// of projected row and message (random rows, about 5 triplets share one), its
-// 28 bytes of cbf and 64 bytes of g; each edge writes 512 bytes.  The
-// arithmetic (about 3 kflop per triplet) is far below the f32 rate.
+// What bounds it on an H100: by bytes, memory: the edge rows are read once
+// and written once (El x 1 KB); each triplet reads 40 bytes (perm, cbf,
+// mask, its center id) and its 64-byte row of G, which is El x 64 B (6 MB
+// at the RNA batch-8 pads) and stays in L2: about 118 MB, 0.035 ms at
+// 3.35 TB/s at the batch-8 t2 pads.  In practice the instructions bind it:
+// about 3 kflop a triplet over four D x D products and two outer products,
+// at 126 registers (two blocks of 256 an SM) for D=16.
 //
-// What the design does about it, and about the scatter to e:
-// * Pass 1, one thread per triplet: recomputes acc, z1, z2 in registers from
-//   proj[e], cbf[t] and the weights (the forward saves no (T, D) activation),
-//   and writes the two per-triplet gradients d_acc and d_mrow (2 x 64 bytes).
-// * The weight gradients are sums over all triplets of outer products.  Each
-//   block stages its threads' (d_z, s) vectors in shared memory and thread
-//   (o, i) sums d_z[n][o] * s[n][i] over the block's threads n in order; the
-//   block writes its 2*D*D + 3*D partial sums to its own row of a
-//   (blocks, P) buffer.  Pass 3 sums the rows in a fixed order.  No float
-//   atomics anywhere, so the result is bitwise repeatable; the grid depends on
-//   the padded triplet count only.
-// * Pass 2, one thread per (edge, 4 columns): walks the edge's group of
-//   triplets through the permutation that sorts the triplets by idx (the CSR
-//   the batch carries) in order, and sums cbf[t, l] * d_acc[t] and d_mrow[t]
-//   in registers, writing d_proj[e] and d_m[e] once.  Triplets past the valid
-//   count are outside every group and are skipped in pass 1.
+// What the design does about it:
+// * Edge-major: D lanes own one neighbour edge e and walk its triplets
+//   through the CSR of idx (perm, off) in order.  proj[e] and m[e] are
+//   read once per edge, d_proj[e] and d_m[e] summed in registers and written
+//   once; no per-triplet scratch is written or read back.
+// * Per chunk of D triplets, lane j loads the permuted triplet's cbf row,
+//   mask and center id (independent loads in flight together); the walk
+//   takes them by __shfl_sync and loads the next triplet's G row ahead.
+// * The chain is recomputed in registers.  The four D x D products read the
+//   group's vectors as broadcast float4 loads from a per-warp shared buffer
+//   and W1, W2 and their transposes from shared memory, rows padded by 4
+//   floats so that a quarter-warp's float4 loads hit distinct banks; each
+//   product runs as two FMA chains.  Registers are the limit (2 blocks of
+//   256 an SM), so values that a shuffle can bring back are not held.
+// * Weight gradients: lane c accumulates row c of d_W1 and d_W2 and entries c
+//   of d_b1, d_b2, d_bias in registers over every triplet it visits; a
+//   block adds its groups in a fixed tree (shuffles, then warps in order)
+//   into one row of partials.  The grid is a fixed number of blocks (2 an
+//   SM, fewer for few edges; the wrapper's choice from the edge count
+//   alone), each walking edges at a fixed stride (which balances their
+//   triplets better than contiguous ranges did), so a second kernel sums a
+//   few hundred rows in a fixed order.
+//   No float atomics: bitwise repeatable.
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr unsigned kFull = 0xffffffffu;
 
-// sigmoid(x); silu(x) = x * sg, silu'(x) = sg * (1 + x * (1 - sg)).
-__device__ __forceinline__ float sigmoid_f32(float x) { return 1.0f / (1.0f + expf(-x)); }
+// sigmoid(x) by the fast exponential and division (a few ulp, far inside
+// the gradients' 1e-4 tolerance); silu(x) = x * sg,
+// silu'(x) = sg * (1 + x * (1 - sg)).
+__device__ __forceinline__ float sigmoid_f32(float x) {
+  return __fdividef(1.0f, 1.0f + __expf(-x));
+}
 
-// out_w[o*D + i] = sum_n x[n][o] * y[n][i], out_b[o] = sum_n x[n][o] over the
-// block's threads n in order; x, y are (kThreads, D+1) in shared memory.
+// out + sum_i a[i] * w[i] over D floats from shared memory, both 16-byte
+// aligned, a read as a broadcast, w as lane c's own padded row.  Two chains
+// (even and odd groups of 4) halve the dependent FMAs; a fixed order.
 template <int D>
-__device__ __forceinline__ void block_outer(const float* s_x, const float* s_y,
-                                            float* out_w, float* out_b) {
-  constexpr int S = D + 1;
-  if (threadIdx.x < D * D) {
-    const int o = threadIdx.x / D, i = threadIdx.x % D;
-    float w = 0.0f, b = 0.0f;
-    for (int n = 0; n < kThreads; ++n) {
-      const float xv = s_x[n * S + o];
-      w += xv * s_y[n * S + i];
-      b += xv;
-    }
-    out_w[o * D + i] = w;
-    if (i == 0) out_b[o] = b;
+__device__ __forceinline__ float dot_shared(const float* a, const float* w, float out) {
+  const float4* a4 = reinterpret_cast<const float4*>(a);
+  const float4* w4 = reinterpret_cast<const float4*>(w);
+  float acc[2] = {out, 0.0f};
+#pragma unroll
+  for (int q = 0; q < D / 4; ++q) {
+    const float4 x = a4[q], y = w4[q];
+    float& r = acc[q & 1];
+    r += x.x * y.x;
+    r += x.y * y.y;
+    r += x.z * y.z;
+    r += x.w * y.w;
+  }
+  return acc[0] + acc[1];
+}
+
+// acc[i] += s * a[i] over D floats read from shared memory as broadcasts.
+template <int D>
+__device__ __forceinline__ void outer_row(const float* a, float s, float (&acc)[D]) {
+  const float4* a4 = reinterpret_cast<const float4*>(a);
+#pragma unroll
+  for (int q = 0; q < D / 4; ++q) {
+    const float4 x = a4[q];
+    acc[4 * q + 0] += s * x.x;
+    acc[4 * q + 1] += s * x.y;
+    acc[4 * q + 2] += s * x.z;
+    acc[4 * q + 3] += s * x.w;
   }
 }
 
-template <int NS, int D>
-__global__ void __launch_bounds__(kThreads)
-sbf_backward_triplet_kernel(const float* __restrict__ proj, const float* __restrict__ m,
-                            const float* __restrict__ cbf, const float* __restrict__ bias,
-                            const float* __restrict__ w1, const float* __restrict__ b1,
-                            const float* __restrict__ w2, const float* __restrict__ b2,
-                            const int* __restrict__ idx, const float* __restrict__ mask,
-                            const float* __restrict__ g, float* __restrict__ d_acc,
-                            float* __restrict__ d_mrow, float* __restrict__ partial,
-                            int num_valid) {
-  constexpr int S = D + 1;
-  constexpr int P = 2 * D * D + 3 * D;  // [W1 | b1 | W2 | b2 | bias]
-  __shared__ float s_w1[D * D], s_w2[D * D], s_b1[D], s_b2[D], s_bias[D];
-  __shared__ float s_x[kThreads * S], s_y[kThreads * S];
+// SUMMED: triplet t's output gradient is G[seg[t]] for t < rows_with_grad,
+// zero after; else G[t].  Writes d_proj, d_m for every edge and row
+// blockIdx.x of partial = [d_W1 | d_b1 | d_W2 | d_b2 | d_bias] of the
+// block's triplets.
+template <int NS, int D, bool SUMMED>
+__global__ void __launch_bounds__(kThreads, 2)
+sbf_backward_kernel(const float* __restrict__ proj, const float* __restrict__ m,
+                    const float* __restrict__ cbf, const float* __restrict__ bias,
+                    const float* __restrict__ w1, const float* __restrict__ b1,
+                    const float* __restrict__ w2, const float* __restrict__ b2,
+                    const float* __restrict__ mask, const float* __restrict__ g,
+                    const int* __restrict__ seg, const int* __restrict__ perm,
+                    const int* __restrict__ off, float* __restrict__ partial,
+                    float* __restrict__ d_proj, float* __restrict__ d_m, int num_edges,
+                    int rows_with_grad) {
+  static_assert(D == 8 || D == 16, "a group is a power-of-two part of a warp");
+  constexpr int kWarps = kThreads / 32;
+  constexpr int kGroups = kThreads / D;
+  constexpr int S = D + 4;                 // padded row of a weight matrix
+  constexpr int P = 2 * D * D + 3 * D;     // [W1 | b1 | W2 | b2 | bias]
+  // W1 rows, W1 columns (W1^T rows), W2 rows, W2 columns.
+  __shared__ __align__(16) float s_w[4][D * S];
+  // Per warp: s0, s1, d_z2, d_z1 of the warp's groups.
+  __shared__ __align__(16) float s_act[kWarps][4][32];
+  __shared__ float s_red[kWarps * P];
   for (int i = threadIdx.x; i < D * D; i += kThreads) {
-    s_w1[i] = w1[i];
-    s_w2[i] = w2[i];
-  }
-  for (int i = threadIdx.x; i < D; i += kThreads) {
-    s_b1[i] = b1[i];
-    s_b2[i] = b2[i];
-    s_bias[i] = bias[i];
+    const int o = i / D, k = i % D;
+    s_w[0][o * S + k] = w1[i];
+    s_w[1][k * S + o] = w1[i];
+    s_w[2][o * S + k] = w2[i];
+    s_w[3][k * S + o] = w2[i];
   }
   __syncthreads();
-  const int tid = threadIdx.x;
-  const int t = blockIdx.x * kThreads + tid;
-  const bool active = t < num_valid;
-  float* block_partial = partial + static_cast<long long>(blockIdx.x) * P;
 
-  // s0, s1: the activations; fa, f1: silu' of acc and z1, later d_acc and
-  // d_z1 in place; dz: d_z2.  An inactive thread contributes zeros.
-  float s0[D], fa[D], s1[D], f1[D], dz[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) s0[d] = fa[d] = s1[d] = f1[d] = dz[d] = 0.0f;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = lane & (D - 1);
+  const int base = lane - c;
+  float(*act)[32] = s_act[warp];
+  const float* w1_row = s_w[0] + c * S;
+  const float* w1_col = s_w[1] + c * S;
+  const float* w2_row = s_w[2] + c * S;
+  const float* w2_col = s_w[3] + c * S;
+  const float bias_c = __ldg(bias + c), b1_c = __ldg(b1 + c), b2_c = __ldg(b2 + c);
 
-  if (active) {
-    const long long e = __ldg(idx + t);
+  float dw1[D], dw2[D], db1 = 0.0f, db2 = 0.0f, dbias = 0.0f;
 #pragma unroll
-    for (int d = 0; d < D; ++d) fa[d] = s_bias[d];
-    const float4* p4 = reinterpret_cast<const float4*>(proj + e * (NS * D));
+  for (int i = 0; i < D; ++i) dw1[i] = dw2[i] = 0.0f;
+
+  // The warp's groups take edges first, first + 1, ...; every lane of the
+  // warp runs the same edge and triplet steps (shuffles, warp barriers).
+  // Strided over the grid: each block's edges spread over the batch, which
+  // balances the blocks' triplets.
+  const long long stride = static_cast<long long>(gridDim.x) * kGroups;
+  const long long first = static_cast<long long>(blockIdx.x) * kGroups + warp * (32 / D);
+  for (long long e0 = first; e0 < num_edges; e0 += stride) {
+    const long long e = e0 + lane / D;
+    const bool edge = e < num_edges;
+    float p[NS], mv = 0.0f;
 #pragma unroll
-    for (int l = 0; l < NS; ++l) {
-      const float c = __ldg(cbf + static_cast<long long>(t) * NS + l);
+    for (int l = 0; l < NS; ++l) p[l] = 0.0f;
+    int begin = 0, count = 0;
+    if (edge) {
+      const float* pr = proj + e * (NS * D) + c;
 #pragma unroll
-      for (int q = 0; q < D / 4; ++q) {
-        const float4 v = __ldg(p4 + l * (D / 4) + q);
-        fa[4 * q + 0] += c * v.x;
-        fa[4 * q + 1] += c * v.y;
-        fa[4 * q + 2] += c * v.z;
-        fa[4 * q + 3] += c * v.w;
+      for (int l = 0; l < NS; ++l) p[l] = __ldg(pr + l * D);
+      mv = __ldg(m + e * D + c);
+      begin = __ldg(off + e);
+      count = __ldg(off + e + 1) - begin;
+    }
+    float dp[NS], dm = 0.0f;
+#pragma unroll
+    for (int l = 0; l < NS; ++l) dp[l] = 0.0f;
+    const int steps = static_cast<int>(__reduce_max_sync(kFull, static_cast<unsigned>(count)));
+    for (int k0 = 0; k0 < steps; k0 += D) {
+      // Lane c: the chunk's c-th triplet's basis row, mask and G row (-1:
+      // none, the triplet takes no gradient).
+      int row_c = -1;
+      float mk_c = 0.0f, cb_row[NS];
+#pragma unroll
+      for (int l = 0; l < NS; ++l) cb_row[l] = 0.0f;
+      if (k0 + c < count) {
+        const int t = __ldg(perm + begin + k0 + c);
+        mk_c = __ldg(mask + t);
+        const float* cr = cbf + static_cast<long long>(t) * NS;
+#pragma unroll
+        for (int l = 0; l < NS; ++l) cb_row[l] = __ldg(cr + l);
+        if (SUMMED) {
+          row_c = t < rows_with_grad ? __ldg(seg + t) : -1;
+        } else {
+          row_c = t;
+        }
+      }
+      const int n = min(D, steps - k0);
+      const int r0 = __shfl_sync(kFull, row_c, base);
+      float gv = r0 >= 0 ? __ldg(g + static_cast<long long>(r0) * D + c) : 0.0f;
+      for (int j = 0; j < n; ++j) {
+        // The next triplet's G row, in flight during this one's arithmetic.
+        const int rn = __shfl_sync(kFull, row_c, base + ((j + 1) & (D - 1)));
+        const float gn = (j + 1 < n && rn >= 0)
+                             ? __ldg(g + static_cast<long long>(rn) * D + c) : 0.0f;
+        float acc = bias_c;
+#pragma unroll
+        for (int l = 0; l < NS; ++l) acc += __shfl_sync(kFull, cb_row[l], base + j) * p[l];
+        const float mk = __shfl_sync(kFull, mk_c, base + j);
+        const float sg0 = sigmoid_f32(acc);
+        const float f0 = sg0 * (1.0f + acc * (1.0f - sg0));
+        __syncwarp();  // the previous triplet's reads of act are done
+        act[0][lane] = acc * sg0;
+        __syncwarp();
+        const float z1 = dot_shared<D>(act[0] + base, w1_row, b1_c);
+        const float sg1 = sigmoid_f32(z1);
+        const float f1 = sg1 * (1.0f + z1 * (1.0f - sg1));
+        act[1][lane] = z1 * sg1;
+        __syncwarp();
+        const float z2 = dot_shared<D>(act[1] + base, w2_row, b2_c);
+        const float sg2 = sigmoid_f32(z2);
+        // A lane past its edge's triplets has gv = 0: it adds zeros.
+        dm += gv * (z2 * sg2 * mk);
+        const float dz2 = gv * mv * mk * (sg2 * (1.0f + z2 * (1.0f - sg2)));
+        act[2][lane] = dz2;
+        __syncwarp();
+        outer_row<D>(act[1] + base, dz2, dw2);
+        db2 += dz2;
+        const float dz1 = f1 * dot_shared<D>(act[2] + base, w2_col, 0.0f);
+        act[3][lane] = dz1;
+        __syncwarp();
+        outer_row<D>(act[0] + base, dz1, dw1);
+        db1 += dz1;
+        const float dacc = f0 * dot_shared<D>(act[3] + base, w1_col, 0.0f);
+        dbias += dacc;
+        // The basis values again by shuffle: cheaper than holding NS
+        // registers across the chain.
+#pragma unroll
+        for (int l = 0; l < NS; ++l) dp[l] += __shfl_sync(kFull, cb_row[l], base + j) * dacc;
+        gv = gn;
       }
     }
+    if (edge) {
+      float* dr = d_proj + e * (NS * D) + c;
 #pragma unroll
-    for (int d = 0; d < D; ++d) {
-      const float x = fa[d], sg = sigmoid_f32(x);
-      s0[d] = x * sg;
-      fa[d] = sg * (1.0f + x * (1.0f - sg));
-    }
-#pragma unroll
-    for (int o = 0; o < D; ++o) {
-      float z = s_b1[o];
-#pragma unroll
-      for (int i = 0; i < D; ++i) z += s0[i] * s_w1[o * D + i];
-      const float sg = sigmoid_f32(z);
-      s1[o] = z * sg;
-      f1[o] = sg * (1.0f + z * (1.0f - sg));
-    }
-    const float mk = __ldg(mask + t);
-    const float4* g4 = reinterpret_cast<const float4*>(g + static_cast<long long>(t) * D);
-    const float4* m4 = reinterpret_cast<const float4*>(m + e * D);
-    float4* r4 = reinterpret_cast<float4*>(d_mrow + static_cast<long long>(t) * D);
-#pragma unroll
-    for (int q = 0; q < D / 4; ++q) {
-      const float4 gv = __ldg(g4 + q);
-      const float4 mv = __ldg(m4 + q);
-      const float gq[4] = {gv.x, gv.y, gv.z, gv.w};
-      const float mq[4] = {mv.x, mv.y, mv.z, mv.w};
-      float rq[4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int o = 4 * q + k;
-        float z = s_b2[o];
-#pragma unroll
-        for (int i = 0; i < D; ++i) z += s1[i] * s_w2[o * D + i];
-        const float sg = sigmoid_f32(z);
-        rq[k] = gq[k] * (z * sg * mk);
-        dz[o] = gq[k] * mq[k] * mk * (sg * (1.0f + z * (1.0f - sg)));
-      }
-      r4[q] = make_float4(rq[0], rq[1], rq[2], rq[3]);
+      for (int l = 0; l < NS; ++l) dr[l * D] = dp[l];
+      d_m[e * D + c] = dm;
     }
   }
 
-  // d_W2 = sum d_z2 (x) s1, d_b2 = sum d_z2.
+  // The block's weight gradients: the warp's groups by a fixed shuffle
+  // tree, then the warps in order.
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    s_x[tid * S + d] = dz[d];
-    s_y[tid * S + d] = s1[d];
-  }
-  __syncthreads();
-  block_outer<D>(s_x, s_y, block_partial + D * D + D, block_partial + 2 * D * D + D);
-  __syncthreads();
-
-  // d_z1 = (d_z2 @ W2) * silu'(z1), in f1.
+  for (int s = 16; s >= D; s >>= 1) {
 #pragma unroll
-  for (int i = 0; i < D; ++i) {
-    float s = 0.0f;
-#pragma unroll
-    for (int o = 0; o < D; ++o) s += dz[o] * s_w2[o * D + i];
-    f1[i] *= s;
-  }
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    s_x[tid * S + d] = f1[d];
-    s_y[tid * S + d] = s0[d];
-  }
-  __syncthreads();
-  block_outer<D>(s_x, s_y, block_partial, block_partial + D * D);
-  __syncthreads();
-
-  // d_acc = (d_z1 @ W1) * silu'(acc), in fa.
-#pragma unroll
-  for (int i = 0; i < D; ++i) {
-    float s = 0.0f;
-#pragma unroll
-    for (int o = 0; o < D; ++o) s += f1[o] * s_w1[o * D + i];
-    fa[i] *= s;
-  }
-  if (active) {
-    float4* a4 = reinterpret_cast<float4*>(d_acc + static_cast<long long>(t) * D);
-#pragma unroll
-    for (int q = 0; q < D / 4; ++q) {
-      a4[q] = make_float4(fa[4 * q + 0], fa[4 * q + 1], fa[4 * q + 2], fa[4 * q + 3]);
+    for (int i = 0; i < D; ++i) {
+      dw1[i] += __shfl_down_sync(kFull, dw1[i], s);
+      dw2[i] += __shfl_down_sync(kFull, dw2[i], s);
     }
+    db1 += __shfl_down_sync(kFull, db1, s);
+    db2 += __shfl_down_sync(kFull, db2, s);
+    dbias += __shfl_down_sync(kFull, dbias, s);
   }
+  float* red = s_red + warp * P;
+  if (lane < D) {
 #pragma unroll
-  for (int d = 0; d < D; ++d) s_x[tid * S + d] = fa[d];
-  __syncthreads();
-  if (tid < D) {
-    float b = 0.0f;
-    for (int n = 0; n < kThreads; ++n) b += s_x[n * S + tid];
-    block_partial[2 * D * D + 2 * D + tid] = b;
-  }
-}
-
-// d_proj[e, l*D + c] = sum over the group of e of cbf[t, l] * d_acc[t, c],
-// d_m[e, c] = sum of d_mrow[t, c]; t = perm[r] for r in [off[e], off[e+1]).
-template <int NS, int D>
-__global__ void sbf_backward_edge_kernel(const float* __restrict__ cbf,
-                                         const float* __restrict__ d_acc,
-                                         const float* __restrict__ d_mrow,
-                                         const int* __restrict__ perm,
-                                         const int* __restrict__ off,
-                                         float* __restrict__ d_proj,
-                                         float* __restrict__ d_m, int num_edges) {
-  constexpr int Q = D / 4;
-  const long long gid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (gid >= static_cast<long long>(num_edges) * Q) return;
-  const long long e = gid / Q;
-  const int q = static_cast<int>(gid % Q);
-  float4 dp[NS];
-#pragma unroll
-  for (int l = 0; l < NS; ++l) dp[l] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  float4 dm = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  const int end = __ldg(off + e + 1);
-  for (int r = __ldg(off + e); r < end; ++r) {
-    const long long t = __ldg(perm + r);
-    const float4 a = __ldg(reinterpret_cast<const float4*>(d_acc + t * D) + q);
-    const float4 mr = __ldg(reinterpret_cast<const float4*>(d_mrow + t * D) + q);
-    dm.x += mr.x;
-    dm.y += mr.y;
-    dm.z += mr.z;
-    dm.w += mr.w;
-#pragma unroll
-    for (int l = 0; l < NS; ++l) {
-      const float c = __ldg(cbf + t * NS + l);
-      dp[l].x += c * a.x;
-      dp[l].y += c * a.y;
-      dp[l].z += c * a.z;
-      dp[l].w += c * a.w;
+    for (int i = 0; i < D; ++i) {
+      red[c * D + i] = dw1[i];
+      red[D * D + D + c * D + i] = dw2[i];
     }
+    red[D * D + c] = db1;
+    red[2 * D * D + D + c] = db2;
+    red[2 * D * D + 2 * D + c] = dbias;
   }
-  float4* p4 = reinterpret_cast<float4*>(d_proj + e * (NS * D));
+  __syncthreads();
+  for (int i = threadIdx.x; i < P; i += kThreads) {
+    float v = 0.0f;
 #pragma unroll
-  for (int l = 0; l < NS; ++l) p4[l * Q + q] = dp[l];
-  reinterpret_cast<float4*>(d_m + e * D)[q] = dm;
+    for (int w = 0; w < kWarps; ++w) v += s_red[w * P + i];
+    partial[static_cast<long long>(blockIdx.x) * P + i] = v;
+  }
 }
 
 // out[j] = sum over the blocks of partial[b, j]: thread k sums rows k,
@@ -277,54 +299,51 @@ sbf_backward_reduce_kernel(const float* __restrict__ partial, float* __restrict_
 template <int NS, int D>
 int launch(const float* proj, const float* m, const float* cbf, const float* bias,
            const float* w1, const float* b1, const float* w2, const float* b2,
-           const int* idx, const float* mask, const float* g, const int* perm,
-           const int* off, float* d_acc, float* d_mrow, float* partial, float* wgrad,
-           float* d_proj, float* d_m, int num_blocks, int num_valid, int num_edges,
-           cudaStream_t stream) {
+           const float* mask, const float* g, const int* seg, const int* perm, const int* off,
+           float* partial, float* wgrad, float* d_proj, float* d_m, int num_blocks,
+           int num_edges, int rows_with_grad, cudaStream_t stream) {
   constexpr int P = 2 * D * D + 3 * D;
-  sbf_backward_triplet_kernel<NS, D><<<num_blocks, kThreads, 0, stream>>>(
-      proj, m, cbf, bias, w1, b1, w2, b2, idx, mask, g, d_acc, d_mrow, partial, num_valid);
+  if (seg != nullptr) {
+    sbf_backward_kernel<NS, D, true><<<num_blocks, kThreads, 0, stream>>>(
+        proj, m, cbf, bias, w1, b1, w2, b2, mask, g, seg, perm, off, partial, d_proj, d_m,
+        num_edges, rows_with_grad);
+  } else {
+    sbf_backward_kernel<NS, D, false><<<num_blocks, kThreads, 0, stream>>>(
+        proj, m, cbf, bias, w1, b1, w2, b2, mask, g, seg, perm, off, partial, d_proj, d_m,
+        num_edges, rows_with_grad);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   sbf_backward_reduce_kernel<<<P, kThreads, 0, stream>>>(partial, wgrad, num_blocks, P);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long threads = static_cast<long long>(num_edges) * (D / 4);
-  const unsigned blocks = static_cast<unsigned>((threads + kThreads - 1) / kThreads);
-  sbf_backward_edge_kernel<NS, D><<<blocks, kThreads, 0, stream>>>(
-      cbf, d_acc, d_mrow, perm, off, d_proj, d_m, num_edges);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Inputs as pamnet_sbf_modulate, plus g: (T, d) f32 the output gradient;
-// perm: (T,) i32 and off: (El+1,) i32 the CSR of idx over its first
-// num_valid rows (off[El] == num_valid).  Scratch: d_acc, d_mrow: (T, d);
-// partial: (num_blocks, 2*d*d + 3*d) with num_blocks * 256 >= num_valid.
-// Outputs: wgrad: (2*d*d + 3*d,) = [d_W1 | d_b1 | d_W2 | d_b2 | d_bias];
-// d_proj: (El, ns*d); d_m: (El, d).  Compiled for ns = 7 and d in {8, 16}.
-// Returns the first failed launch's cudaError_t.
+// Inputs as pamnet_sbf_modulate (idx through its CSR), plus g, the output
+// gradient: with seg (T,) i32, the center edge of each triplet, g is
+// (rows, d) and triplet t < rows_with_grad takes g[seg[t]] (the others
+// none); with seg NULL, g is (T, d) and triplet t takes g[t].  perm: (T,)
+// i32 and off: (El+1,) i32 the CSR of idx over its valid rows.  Scratch:
+// partial (num_blocks, 2*d*d + 3*d), num_blocks >= 1 blocks of 256 threads
+// walking the edges.  Outputs: wgrad: (2*d*d + 3*d,) = [d_W1 | d_b1 | d_W2 |
+// d_b2 | d_bias]; d_proj: (El, ns*d); d_m: (El, d).  Compiled for ns = 7
+// and d in {8, 16}.  Returns the first failed launch's cudaError_t.
 extern "C" int pamnet_sbf_modulate_backward(
-    const float* proj, const float* m, const float* cbf, const float* bias,
-    const float* w1, const float* b1, const float* w2, const float* b2, const int* idx,
-    const float* mask, const float* g, const int* perm, const int* off, float* d_acc,
-    float* d_mrow, float* partial, float* wgrad, float* d_proj, float* d_m,
-    int num_blocks, int num_valid, int num_edges, int ns, int d, void* stream) {
-  if (num_blocks <= 0 || num_edges <= 0 || num_valid < 0 ||
-      static_cast<long long>(num_blocks) * kThreads < num_valid) {
-    return cudaErrorInvalidValue;
-  }
+    const float* proj, const float* m, const float* cbf, const float* bias, const float* w1,
+    const float* b1, const float* w2, const float* b2, const float* mask, const float* g,
+    const int* seg, const int* perm, const int* off, float* partial, float* wgrad,
+    float* d_proj, float* d_m, int num_blocks, int num_edges, int rows_with_grad, int ns,
+    int d, void* stream) {
+  if (num_blocks <= 0 || num_edges <= 0 || rows_with_grad < 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (ns == 7 && d == 16) {
-    return launch<7, 16>(proj, m, cbf, bias, w1, b1, w2, b2, idx, mask, g, perm, off, d_acc,
-                         d_mrow, partial, wgrad, d_proj, d_m, num_blocks, num_valid,
-                         num_edges, s);
+    return launch<7, 16>(proj, m, cbf, bias, w1, b1, w2, b2, mask, g, seg, perm, off, partial,
+                         wgrad, d_proj, d_m, num_blocks, num_edges, rows_with_grad, s);
   }
   if (ns == 7 && d == 8) {
-    return launch<7, 8>(proj, m, cbf, bias, w1, b1, w2, b2, idx, mask, g, perm, off, d_acc,
-                        d_mrow, partial, wgrad, d_proj, d_m, num_blocks, num_valid,
-                        num_edges, s);
+    return launch<7, 8>(proj, m, cbf, bias, w1, b1, w2, b2, mask, g, seg, perm, off, partial,
+                        wgrad, d_proj, d_m, num_blocks, num_edges, rows_with_grad, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -32,7 +32,7 @@ from pamnet_tpu_torch.ops.triplet import AggregateGrad, Groups
 
 # Which padded dimension each grouping key indexes rows of.
 _ROWS_OF = {"z": "n", "eg_src": "eg", "eg_dst": "eg", "el_src": "el",
-            "el_dst": "el", "t2_kj": "t2", "t1_jj": "t1"}
+            "el_dst": "el", "t2_kj": "t2", "t1_jj": "t1", "t2_ji": "t2", "t1_ji": "t1"}
 
 
 @dataclasses.dataclass

@@ -3,13 +3,15 @@ local_message_passing.py; JAX counterpart ``pamnet_tpu/models/layers.py``).
 
 Every aggregation goes through ``ops.triplet.triplet_aggregate`` over the
 batch's CSR offsets, every edge message through ``ops.gather.edge_message``
-(which gathers its node rows itself), and the folded triplet stream through
-``ops.sbf_modulate.sbf_modulate``.  The layers hand those autograd Functions
-the batch's backward arrays (``GraphBatch.groups``, ``triplet_grad``), so a
-loss differentiates through the backward kernels.  ``plain=True`` calls the
-plain PyTorch versions of the kernels on any device, which PyTorch's own
-autograd differentiates: the reference route that checks the kernels and
-their backwards on the card.  Layers return ``(x, out, att)``: the new node
+(which gathers its node rows itself), and each folded triplet stream
+through ``ops.sbf_modulate.sbf_modulate``, which sums its rows by center
+edge itself (``out_groups``: the batch's ``t2_ji_off``/``t1_ji_off``), so
+the folded path runs no kernel A sum over the triplets.  The layers hand
+those autograd Functions the batch's backward arrays (``GraphBatch.groups``,
+``triplet_grad``), so a loss differentiates through the backward kernels.
+``plain=True`` calls the plain PyTorch versions of the kernels on any
+device, which PyTorch's own autograd differentiates: the reference route
+that checks the kernels and their backwards on the card.  Layers return ``(x, out, att)``: the new node
 state, the per-node scalar head and the attention logit of the fusion.
 """
 
@@ -145,16 +147,23 @@ class LocalMP(nn.Module):
         self.W_out = Linear(dim, 1)
         self.W = nn.Parameter(torch.empty(dim, 1))
 
-    def _modulate(self, m_neighbor, folded: FoldedSBF, idx, t_mask, plain,
-                  groups: Groups | None):
-        """The folded stage (kernel B); ``groups`` the CSR of ``idx`` that
-        its backward sums over."""
+    def _modulate(self, m_neighbor, folded: FoldedSBF, g, kind: str, plain):
+        """The folded stage of triplet stream ``kind`` ("t2" or "t1";
+        kernel B) summed by center edge: (El, dim).  Its backward walks the
+        CSR of the neighbour index and reads the center edge of each
+        triplet."""
+        idx = g.t2_kj if kind == "t2" else g.t1_jj
         s1, s2 = self.mlp_sbf[0][0], self.mlp_sbf[1][0]
         args = (folded.proj, m_neighbor, folded.cbf, folded.bias, s1.weight,
-                s1.bias, s2.weight, s2.bias, idx, t_mask)
+                s1.bias, s2.weight, s2.bias, idx, getattr(g, kind + "_mask"))
+        center = g.groups(kind + "_ji")
+        if center is None:
+            raise ValueError(f"LocalMP: the folded path needs the batch's triplets "
+                             f"sorted by {kind}_ji ({kind}_ji_off)")
         if plain:
-            return sbf_modulate_plain(*args)
-        return sbf_modulate(*args, groups=groups)
+            return sbf_modulate_plain(*args, out_off=center.off)
+        return sbf_modulate(*args, groups=g.groups("t2_kj" if kind == "t2" else "t1_jj"),
+                            out_groups=center, out_ids=getattr(g, kind + "_ji"))
 
     def forward(self, x, rbf, sbf2, sbf1, g, plain: bool = False):
         """``sbf2``/``sbf1``: (T, dim) outputs of the model-level sbf MLPs,
@@ -170,16 +179,8 @@ class LocalMP(nn.Module):
                                    plain=plain, i_groups=i_groups, j_groups=j_groups)
 
         if isinstance(sbf2, FoldedSBF):
-            m2 = self._modulate(m_neighbor, sbf2, g.t2_kj, g.t2_mask, plain,
-                                g.groups("t2_kj"))
-            m1 = self._modulate(m_neighbor, sbf1, g.t1_jj, g.t1_mask, plain,
-                                g.groups("t1_jj"))
-            m_other = (
-                aggregate(m2, g.t2_ji_off, g.t2_ji, g.t2_mask, num_edges,
-                          total=g.valid["t2"], plain=plain)
-                + aggregate(m1, g.t1_ji_off, g.t1_ji, g.t1_mask, num_edges,
-                            total=g.valid["t1"], plain=plain)
-            )
+            m_other = (self._modulate(m_neighbor, sbf2, g, "t2", plain)
+                       + self._modulate(m_neighbor, sbf1, g, "t1", plain))
         else:
             # The gradient reaches mlp_sbf through b (kernel A's d_b).
             b2 = self.mlp_sbf(sbf2) * g.t2_mask[:, None]

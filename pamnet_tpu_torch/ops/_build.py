@@ -29,8 +29,8 @@ _I = ctypes.c_int
 # C signature of each exported function: (argtypes, restype).
 _SIGNATURES = {
     "pamnet_triplet_aggregate": ([_P] * 6 + [_I, _I, _P], _I),
-    "pamnet_sbf_modulate": ([_P] * 11 + [_I, _I, _I, _P], _I),
-    "pamnet_sbf_modulate_backward": ([_P] * 19 + [_I] * 5 + [_P], _I),
+    "pamnet_sbf_modulate": ([_P] * 12 + [_I] * 5 + [_P], _I),
+    "pamnet_sbf_modulate_backward": ([_P] * 17 + [_I] * 5 + [_P], _I),
     "pamnet_row_gather": ([_P, _P, _P, _I, _I, _I, _P], _I),
     "pamnet_edge_message": ([_P] * 8 + [_I, _I, _P], _I),
     "pamnet_gather_product": ([_P] * 5 + [_I, _I, _I, _P], _I),

@@ -9,9 +9,13 @@ Each entry of ``--order`` runs ``python3 chip_smoke.py`` in the parent's
 in ``+``; the runs go one after another, never side by side, and each one's
 output is kept whole under ``--out`` (``<i>_<p|c>.out``).  Printed, one JSON
 line per run: every kernel case of the group sums and the row gathers (by
-the case's name, whichever kernel list holds it), the training steps'
-times, and with ``--profile`` each launch of the group sums inside a QM9
-and an RNA training step.  It exits non-zero if a run failed.
+the case's name, whichever kernel list holds it), under ``<phase>_sbf`` the
+cases of kernel B forward and backward and of kernel A's sums over the
+triplets, the launches per scored batch and per RNA step, the training
+steps' times, and with ``--profile`` the scoring forward's device time and
+each launch of the group sums, of kernel B, kernel A and the row gathers
+inside a QM9 and an RNA training step and the scoring forward.  It exits
+non-zero if a run failed.
 """
 
 from __future__ import annotations
@@ -25,8 +29,11 @@ import sys
 _CASE_KEYS = ("ms", "enqueue_ms", "device_ms", "bound_ms", "plain_ms", "library_ms",
               "library_device_ms", "max_abs_err", "route")
 _STEP_KEYS = ("ms_per_step", "enqueue_ms_per_step", "device_ms_per_step",
-              "device_idle_share", "peak_mem_gb", "main_path_launches")
+              "device_idle_share", "peak_mem_gb", "main_path_launches",
+              "launches_per_step_forward", "launches_per_step_backward")
 _KERNEL_PHASES = ("kernels", "train_kernels", "rna_train_kernels")
+_SBF_KEYS = ("ms", "enqueue_ms", "device_ms", "bound_ms", "plain_ms", "max_abs_err",
+             "worst_err_over_tolerance", "valid")
 
 
 def _cases(phase: dict) -> list[dict]:
@@ -41,6 +48,28 @@ def _cases(phase: dict) -> list[dict]:
                 out.append({"case": name, "d": case.get("d"),
                             **{k: case[k] for k in _CASE_KEYS if k in case}})
     return out
+
+
+def _sbf_cases(phase: dict) -> list[dict]:
+    """Kernel B's cases (forward, "... fused folded gather ...", and
+    backward) and kernel A's sums over the triplets ("t2 sum (folded
+    path)"), the work kernel B now does in one launch."""
+    out = []
+    for value in phase.values():
+        for case in value if isinstance(value, list) else ():
+            name = case.get("case", "") if isinstance(case, dict) else ""
+            if name.startswith(("t2 ", "t1 ")) and any(
+                    w in name for w in ("fused", "backward", "sum (folded")):
+                out.append({"case": name, "d": case.get("d"),
+                            **{k: case[k] for k in _SBF_KEYS if k in case}})
+    return out
+
+
+def _sbf_launches(phase: dict) -> list[dict]:
+    """The launches of kernel B (forward, backward and its reduce), kernel A
+    and the row gathers in a profiled forward or step."""
+    return [ev for ev in phase.get("port_kernel_launches", [])
+            if ev["name"].startswith(("sbf_", "triplet_aggregate_kernel", "row_gather"))]
 
 
 def _in_step(phase: dict) -> list[dict]:
@@ -61,16 +90,23 @@ def summarize(lines: list[str]) -> dict:
         phase = obj.get("phase")
         if phase == "device":
             res["nvidia_smi"] = obj["nvidia_smi"]
-        elif phase in _KERNEL_PHASES:
-            res[phase] = _cases(obj)
+        elif phase in _KERNEL_PHASES or phase == "sbf_kernels":
+            if phase in _KERNEL_PHASES:
+                res[phase] = _cases(obj)
+            res[phase + "_sbf"] = _sbf_cases(obj)
         elif phase in ("train", "rna_train"):
             res[phase] = {k: obj.get(k) for k in _STEP_KEYS}
         elif phase == "slice":
-            res["slice"] = {k: obj.get(k) for k in ("folded_ms_per_batch",
-                                                    "unfolded_ms_per_batch")}
+            res["slice"] = {k: obj.get(k) for k in (
+                "folded_ms_per_batch", "unfolded_ms_per_batch", "launches_per_batch",
+                "launches_per_batch_unfolded")}
+        elif phase == "profile":
+            res["profile"] = {"device_ms_per_batch_total": obj.get("device_ms_per_batch_total"),
+                              "sbf_launches": _sbf_launches(obj)}
         elif phase in ("profile_train", "profile_rna_train"):
             res[phase] = {"device_ms_per_step_total": obj.get("device_ms_per_step_total"),
-                          "group_sum_launches": _in_step(obj)}
+                          "group_sum_launches": _in_step(obj),
+                          "sbf_launches": _sbf_launches(obj)}
         elif "ok" in obj:
             res["ok"] = obj["ok"]
     return res

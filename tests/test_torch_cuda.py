@@ -414,3 +414,98 @@ def test_rna_training_gradients_kernels_vs_plain(cuda):
         for name, want in other.items():
             err = float((grads[0][name] - want).abs().max())
             assert err <= 1e-4 * float(want.abs().max()) + 1e-6, name
+
+
+def _center_groups(cuda, num_out, t, valid, seed, long_group=0):
+    """The sorted CSR of random center edges over ``valid`` triplets, some
+    groups empty and, with ``long_group``, center edge 3 holding that many
+    triplets; returns (Groups, ids) with ids 0 past ``valid``."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    ids = torch.randint(0, num_out, (valid - long_group,), device=cuda, generator=g)
+    ids = torch.sort(torch.cat([ids, torch.full((long_group,), 3, device=cuda)]))[0]
+    off = torch.searchsorted(ids, torch.arange(num_out + 1, device=cuda)).to(torch.int32)
+    ids = torch.cat([ids, torch.zeros(t - valid, dtype=ids.dtype, device=cuda)])
+    return Groups(off, None, valid), ids.to(torch.int32)
+
+
+# (center edges, triplets, valid, long group): more triplets than centers,
+# more centers than triplets (empty groups), a center edge of 300 triplets.
+_SUMMED_CASES = [(300, 2049, 1949, 0), (700, 513, 512, 0), (64, 1024, 1000, 300)]
+
+
+@pytest.mark.parametrize("d", [16, 8])
+@pytest.mark.parametrize("num_out,t,valid,long_group", _SUMMED_CASES)
+def test_sbf_modulate_summed_kernel(cuda, d, num_out, t, valid, long_group):
+    """The summed forward against its plain version (the (T, D) rows summed
+    by kernel A's plain version), empty groups exact zeros, bitwise
+    repeatable, one launch a call."""
+    args, _, _ = _sbf_case(cuda, d, 300, t, valid, seed=d + t)
+    out_groups, _ = _center_groups(cuda, num_out, t, valid, seed=t, long_group=long_group)
+    before = sbf_modulate.launches
+    got = sbf_modulate(*args, out_groups=out_groups)
+    torch.cuda.synchronize()
+    assert sbf_modulate.launches == before + 1 and got.shape == (num_out, d)
+    torch.testing.assert_close(got, sbf_modulate_plain(*args, out_off=out_groups.off),
+                               rtol=1e-4, atol=1e-4)
+    empty = out_groups.off[1:] == out_groups.off[:-1]
+    assert torch.all(got[empty] == 0.0)
+    assert torch.equal(got, sbf_modulate(*args, out_groups=out_groups))
+
+
+@pytest.mark.parametrize("d", [16, 8])
+def test_sbf_modulate_identity_groups_give_the_rows(cuda, d):
+    """A group per triplet: the summed kernel writes the (T, D) kernel's
+    rows bit for bit."""
+    t = 1000
+    args, _, _ = _sbf_case(cuda, d, 300, t, 950, seed=5)
+    identity = Groups(torch.arange(t + 1, dtype=torch.int32, device=cuda), None, t)
+    assert torch.equal(sbf_modulate(*args, out_groups=identity), sbf_modulate(*args))
+
+
+@pytest.mark.parametrize("d", [16, 8])
+@pytest.mark.parametrize("num_out,t,valid,long_group", _SUMMED_CASES)
+def test_sbf_modulate_summed_backward_kernel(cuda, d, num_out, t, valid, long_group):
+    """The summed op's backward against autograd of its plain version; two
+    calls bitwise equal."""
+    args, groups, _ = _sbf_case(cuda, d, 300, t, valid, seed=d + t + 1)
+    out_groups, ids = _center_groups(cuda, num_out, t, valid, seed=t + 1,
+                                     long_group=long_group)
+    cot = torch.randn(num_out, d, device=cuda)
+    leaves = [a.clone().requires_grad_() if i in _SBF_GRAD else a for i, a in enumerate(args)]
+    (sbf_modulate_plain(*leaves, out_off=out_groups.off) * cot).sum().backward()
+    want = [leaves[i].grad for i in _SBF_GRAD]
+    before = sbf_modulate_backward.launches
+    got = sbf_modulate_backward(*args, groups, cot, out_groups, ids)
+    torch.cuda.synchronize()
+    assert sbf_modulate_backward.launches == before + 1
+    _assert_sbf_grads(got, want)
+    again = sbf_modulate_backward(*args, groups, cot, out_groups, ids)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_sbf_modulate_summed_function_on_the_card(cuda):
+    """The summed Function end to end: one forward and one backward launch,
+    gradients as autograd of the plain version; it raises without the
+    center edges' ids or with a CSR that is not sorted or holds too many
+    rows."""
+    args, groups, _ = _sbf_case(cuda, 16, 300, 1024, 1000, seed=3)
+    out_groups, ids = _center_groups(cuda, 200, 1024, 1000, seed=4, long_group=40)
+    cot = torch.randn(200, 16, device=cuda)
+    leaves = [a.clone().requires_grad_() if i in _SBF_GRAD else a for i, a in enumerate(args)]
+    f0, b0 = sbf_modulate.launches, sbf_modulate_backward.launches
+    out = sbf_modulate(*leaves, groups=groups, out_groups=out_groups, out_ids=ids)
+    (out * cot).sum().backward()
+    torch.cuda.synchronize()
+    assert (sbf_modulate.launches, sbf_modulate_backward.launches) == (f0 + 1, b0 + 1)
+    plain = [a.clone().requires_grad_() if i in _SBF_GRAD else a for i, a in enumerate(args)]
+    (sbf_modulate_plain(*plain, out_off=out_groups.off) * cot).sum().backward()
+    _assert_sbf_grads([leaves[i].grad for i in _SBF_GRAD], [plain[i].grad for i in _SBF_GRAD])
+    with pytest.raises(ValueError, match="out_ids"):
+        sbf_modulate(*leaves, groups=groups, out_groups=out_groups)
+    with pytest.raises(ValueError, match="Groups"):
+        sbf_modulate(*leaves, out_groups=out_groups, out_ids=ids)
+    with pytest.raises(ValueError, match="sorted CSR"):
+        sbf_modulate(*leaves, groups=groups, out_groups=groups, out_ids=ids)
+    with pytest.raises(ValueError, match="sorted CSR"):
+        sbf_modulate(*leaves, groups=groups, out_groups=out_groups._replace(total=2000),
+                     out_ids=ids)

@@ -165,12 +165,14 @@ def test_folded_training_gradients_match_jax_grad(n_layer, dim, monkeypatch):
     calls = []
     import pamnet_tpu_torch.models.layers as layers
     monkeypatch.setattr(layers, "sbf_modulate",
-                        lambda *a, **k: calls.append(k["groups"]) or sbf_modulate(*a, **k))
+                        lambda *a, **k: calls.append(k) or sbf_modulate(*a, **k))
     with torch.no_grad():
         pred = model(tb).numpy()
     np.testing.assert_allclose(pred, want_pred, rtol=0, atol=5e-5)
     got = _grads(model, tb)
-    assert len(calls) == 4 * n_layer and all(g.perm is not None for g in calls)
+    assert len(calls) == 4 * n_layer and all(
+        k["groups"].perm is not None and k["out_groups"].perm is None
+        and k["out_ids"] is not None for k in calls)
     assert float(want["mlp_sbf1.0.0.weight"].abs().max()) > 0.0
     _assert_grads_close(got, want)
 
