@@ -594,6 +594,20 @@ def radial_gather_case(gb, kind: str) -> dict:
         table_rows=src.shape[0], rows=rows, d=d)
 
 
+def sbf_backward_bytes(ns: int, d: int, edges: int, valid: int, edges_read: int,
+                       g_rows_read: int, summed: bool) -> tuple[int, int]:
+    """Bytes kernel B's backward must move: each input read once (the
+    ``edges_read`` edges' rows once however many triplets share them, the
+    ``g_rows_read`` rows of G once however many triplets read them), each
+    output written once; and the same with the edge rows read per triplet,
+    what a cold cache with no reuse would move."""
+    per_triplet = (ns + 2 + int(summed)) * 4  # cbf, mask, perm, center id where summed
+    fixed = ((2 * d * d + 3 * d) * 4 * 2 + (edges + 1) * 4 + edges * (ns + 1) * d * 4
+             + g_rows_read * d * 4)
+    return (edges_read * (ns + 1) * d * 4 + valid * per_triplet + fixed,
+            valid * ((ns + 1) * d * 4 + per_triplet) + fixed)
+
+
 def sbf_backward_case(gb, kind: str, d: int, gen, summed: bool = True) -> dict:
     """Kernel B's backward on the ``kind`` ("t2" or "t1") arrays of the RNA
     training batch ``gb`` (index and its CSR, mask, cbf and, ``summed``, the
@@ -643,16 +657,9 @@ def sbf_backward_case(gb, kind: str, d: int, gen, summed: bool = True) -> dict:
     ms = time_ms(fn)
     enq = enqueue_ms(fn)
     dev = device_ms(fn)
-    # Each input read once (an edge's rows once however many triplets share
-    # them, a G row once however many triplets read it), each output written
-    # once; the gathered variant counts the edge rows per triplet, what a
-    # cold cache with no reuse would move.
-    per_triplet = (ns + 3 + int(summed)) * 4  # cbf, mask, perm, center id
-    g_read = (_unique(out_ids, valid) if summed else valid) * d * 4
-    fixed = ((2 * d * d + 3 * d) * 4 * 2 + (edges + 1) * 4 + edges * (ns + 1) * d * 4
-             + g_read)
-    nbytes = _unique(idx, valid) * (ns + 1) * d * 4 + valid * per_triplet + fixed
-    gathered = valid * ((ns + 1) * d * 4 + per_triplet) + fixed
+    nbytes, gathered = sbf_backward_bytes(
+        ns, d, edges, valid, _unique(idx, valid),
+        _unique(out_ids, valid) if summed else valid, summed)
     # Per triplet: the slice multiply-adds and their transpose, two products
     # recomputed and two transposed, two outer products, silu and silu' on
     # three vectors (about 10 operations each).

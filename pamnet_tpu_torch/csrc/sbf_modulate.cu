@@ -41,8 +41,9 @@
 //   rows of (center edge, column) pairs k, k + 256, ... in triplet order.
 //   The sums are written once, a D-float row per center edge; the (T, D)
 //   rows never reach device memory.  Nearly every block is one full tile,
-//   and thousands of small blocks keep the SMs evenly loaded (blocks of
-//   ~1,000 triplets ran slower: part-filled tiles, few waves).
+//   and thousands of small blocks keep the SMs evenly loaded.  (Blocks of
+//   ~1,000 triplets read slower in trials that the repository does not
+//   keep; part-filled tiles and few waves are the likely cause, unmeasured.)
 // * silu takes the fast exponential and division (a few ulp, far inside the
 //   stage's 1e-4 tolerance).
 // * No atomics: each center edge's sum is one thread's, in triplet order,

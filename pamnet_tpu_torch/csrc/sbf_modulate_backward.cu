@@ -23,9 +23,10 @@
 // and written once (El x 1 KB); each triplet reads 40 bytes (perm, cbf,
 // mask, its center id) and its 64-byte row of G, which is El x 64 B (6 MB
 // at the RNA batch-8 pads) and stays in L2: about 118 MB, 0.035 ms at
-// 3.35 TB/s at the batch-8 t2 pads.  In practice the instructions bind it:
-// about 3 kflop a triplet over four D x D products and two outer products,
-// at 126 registers (two blocks of 256 an SM) for D=16.
+// 3.35 TB/s at the batch-8 t2 pads.  It runs at about a quarter of that
+// bound; the likely limit, which no hardware counter has checked, is its
+// instructions: about 3 kflop a triplet over four D x D products and two
+// outer products, at 126 registers (two blocks of 256 an SM) for D=16.
 //
 // What the design does about it:
 // * Edge-major: D lanes own one neighbour edge e and walk its triplets
@@ -46,9 +47,9 @@
 //   block adds its groups in a fixed tree (shuffles, then warps in order)
 //   into one row of partials.  The grid is a fixed number of blocks (2 an
 //   SM, fewer for few edges; the wrapper's choice from the edge count
-//   alone), each walking edges at a fixed stride (which balances their
-//   triplets better than contiguous ranges did), so a second kernel sums a
-//   few hundred rows in a fixed order.
+//   alone), each walking edges at a fixed stride, so a second kernel sums
+//   a few hundred rows in a fixed order.  (Contiguous ranges of edges per
+//   block read slower in trials that the repository does not keep.)
 //   No float atomics: bitwise repeatable.
 #include <cuda_runtime.h>
 

@@ -266,3 +266,52 @@ def test_smoke_compare_reads_kernel_b_cases():
     assert [c["case"] for c in got["rna_train_kernels_sbf"]] == [bwd["case"]]
     assert [c["case"] for c in got["rna_train_kernels"]] == [other["case"]]
     assert got["profile"] == {"device_ms_per_batch_total": 1.8, "sbf_launches": launches[:1]}
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_for_tests", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("summed,per_triplet", [(True, 40), (False, 36)])
+def test_backward_bound_counts_the_words_the_kernel_reads(summed, per_triplet):
+    """Kernel B's backward reads per triplet its basis row, mask and place in
+    the neighbour edge's CSR, and its center edge where summed (NS=7): 40 or
+    36 bytes on top of the edge rows, G and the weights."""
+    bytes_of = _chip_smoke().sbf_backward_bytes
+    args = dict(ns=7, d=16, edges=50, edges_read=30, g_rows_read=20, summed=summed)
+    one, one_gathered = bytes_of(valid=100, **args)
+    two, two_gathered = bytes_of(valid=101, **args)
+    assert two - one == per_triplet
+    assert two_gathered - one_gathered == per_triplet + 8 * 16 * 4
+    assert one_gathered - one == (100 - 30) * 8 * 16 * 4
+
+
+def test_kernel_b_compare_cases_compute_one_function():
+    """The two-checkout comparison's cases on a small scoring batch: the
+    parent's folded path (rows, then kernel A's sum by center edge) and the
+    summed op give the same sums; a difference past 1e-4 + 1e-4|x| shows."""
+    from pamnet_tpu_torch.kernel_b_compare import cases, export_batch, max_excess
+
+    batch = export_batch(2, 60, 0)
+    sums = {}
+    for kind in ("t2", "t1"):
+        trip = batch[kind]
+        assert int(trip["off"][-1]) == trip["valid"] and trip["valid"] > 0
+        assert float(trip["mask"][trip["valid"]:].abs().sum()) == 0.0
+        fns = cases(batch, kind, torch.Generator().manual_seed(0), "cpu")
+        assert list(fns) == ["rows + sum", "summed"]
+        for name, fn in fns.items():
+            sums[f"{kind} {name}"] = fn()
+        assert sums[f"{kind} summed"].shape == (batch["el"], 16)
+        torch.testing.assert_close(sums[f"{kind} summed"], sums[f"{kind} rows + sum"],
+                                   rtol=1e-5, atol=1e-5)
+    assert max_excess(sums, sums) == 0.0
+    off = {k: v + 2e-4 if k == "t1 summed" else v for k, v in sums.items()}
+    assert max_excess(off, sums) > 1.0
