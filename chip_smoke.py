@@ -14,10 +14,16 @@ Phases, each printing one JSON line:
      RNA-scale structures with seeded weights (the serving main path; every
      forward kernel's launch count must rise), then the folded, unfolded and
      plain paths score the same batch and are compared; graphs/s and ms per
-     batch; the folded forward must launch kernel B twice and kernel A two
-     times fewer than the unfolded one (no sum over the triplets); then
+     batch; the folded forward must launch kernel B twice, the global
+     message summed by node once and kernel A once (the el_dst sum; the
+     unfolded one adds its two triplet sums); then
      sbf_kernels: kernel B on that batch's own t2/t1 arrays, summed by
      center edge and as rows, against its plain version, two calls bitwise;
+     walk_kernels: kernel A's global and el_dst sums on that batch's own
+     CSRs, and the global message summed by node on them against its plain
+     version, timed beside the rows + kernel A sum of the same arrays, and
+     ``walk_shape_trials`` (each team shape of the walk timed at those CSRs;
+     the training kernel phases carry the same trials at theirs);
   4. service: the HTTP server on an ephemeral port answers JSON and raw-PDB
      requests, compared with direct scoring;
   5. train_kernels: each backward kernel against its plain version at the
@@ -27,7 +33,8 @@ Phases, each printing one JSON line:
      L1, Adam + clip 1000 + EMA 0.999, warmup-exponential at lr 1e-4) on
      synthetic molecules: the first step's gradients through the kernels
      against the plain route, a repeated step bitwise, launches per step of
-     every forward and backward kernel, an epoch (the training main path;
+     every forward and backward kernel (kernel A 3 a layer, the summed
+     global message 1, 1 row gather in the backward), an epoch (the training main path;
      every kernel of the path must launch), ms per step and molecules/s on a
      resident batch, host enqueue time and peak memory; then
      ``python -m pamnet_tpu_torch.main_qm9`` in-process for one epoch;
@@ -35,7 +42,8 @@ Phases, each printing one JSON line:
      against PyTorch's autograd of its plain version at the pads of an RNA
      training batch of 8, for (7, 16) and (7, 8), on the t2 and t1 arrays of
      that batch, two calls bitwise; kernel B forward on the same arrays and
-     on random ones in both modes; then every other wrapper
+     on random ones in both modes; the summed global message and its
+     backward on the batch's own arrays; then every other wrapper
      an RNA training step launches, against its plain version at that
      batch's shapes (D=16): kernels A and B and the edge messages forward,
      the row gathers with a valid count, the edge messages' backward and
@@ -45,8 +53,9 @@ Phases, each printing one JSON line:
      structures written to and read from a TU directory: the first step's
      gradients through the kernels against the plain route and against the
      unfolded path, a repeated step bitwise, launches per step (kernel B 2
-     forward + 2 backward; kernel A 2 forward, the global and el_dst sums,
-     and 2 row gathers in the backward, their backward), an epoch (the RNA
+     forward + 2 backward; kernel A 1 forward, the el_dst sum, and 1 row
+     gather in the backward, its backward; the global message summed by
+     node 1), an epoch (the RNA
      training main path), ms per
      step, structures/s, device time per step, peak memory; then
      ``python -m pamnet_tpu_torch.main_rna_puzzles`` in-process: three epochs
@@ -117,7 +126,7 @@ def kernel_resources(library: str) -> dict[str, dict[str, int]]:
     found = re.findall(pattern, out)
     if not found:
         raise AssertionError(f"cuobjdump -res-usage named no kernel: {out[:400]}")
-    return {re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}\d+", "", name)[:44]:
+    return {re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}\d+", "", name)[:64]:
             {"registers": int(reg), "stack": int(stack), "shared": int(shared),
              "local": int(local)}
             for name, reg, stack, shared, local in found}
@@ -219,7 +228,8 @@ def kernel_a_case(name, num_out, rows, d, gather, modulate, gen):
     version; ``library_ms`` times index_add_ of the product computed before."""
     import torch
 
-    from pamnet_tpu_torch.ops.triplet import triplet_aggregate, triplet_aggregate_plain
+    from pamnet_tpu_torch.ops.triplet import (triplet_aggregate, triplet_aggregate_plain,
+                                              walk_shape)
 
     dev = torch.device("cuda")
     valid = rows - rows // 16  # a padded tail, as in batches
@@ -231,7 +241,10 @@ def kernel_a_case(name, num_out, rows, d, gather, modulate, gen):
            if gather else None)
     b = torch.randn(rows, d, device=dev, generator=gen) if modulate else None
 
-    got = triplet_aggregate(a, off, idx, b)
+    # The valid row count goes with the CSR, as the main path passes it (the
+    # walk's team shape follows it).
+    fn = lambda: triplet_aggregate(a, off, idx, b, total=valid)  # noqa: E731
+    got = fn()
     want = triplet_aggregate_plain(a, off, idx, b)
     torch.cuda.synchronize()
     err = compare(f"triplet_aggregate[{name}]", got, want, atol=1e-4, rtol=1e-5)
@@ -242,12 +255,12 @@ def kernel_a_case(name, num_out, rows, d, gather, modulate, gen):
     seg_long = seg.long()
     acc = torch.zeros(num_out, d, device=dev)
     # Kernel timed before and after the others, to show its spread.
-    ms_first = time_ms(lambda: triplet_aggregate(a, off, idx, b))
+    ms_first = time_ms(fn)
     plain = time_ms(lambda: triplet_aggregate_plain(a, off, idx, b))
     lib = time_ms(lambda: acc.index_add_(0, seg_long, vals))
-    ms = time_ms(lambda: triplet_aggregate(a, off, idx, b))
-    enq = enqueue_ms(lambda: triplet_aggregate(a, off, idx, b))
-    dev = device_ms(lambda: triplet_aggregate(a, off, idx, b))
+    ms = time_ms(fn)
+    enq = enqueue_ms(fn)
+    dev = device_ms(fn)
     lib_dev = device_ms(lambda: acc.index_add_(0, seg_long, vals))
     a_read = (torch.unique(idx[:valid]).numel() if gather else valid) * d * 4
     nbytes = (a_read + (valid * d * 4 if modulate else 0) + (valid * 4 if gather else 0)
@@ -255,7 +268,8 @@ def kernel_a_case(name, num_out, rows, d, gather, modulate, gen):
     flops = valid * d * (2 if modulate else 1)
     bms, by = bound_ms(nbytes, flops)
     return {"case": name, "num_out": num_out, "rows": rows, "d": d,
-            "gather": gather, "modulate": modulate, **err, "ms": ms, "ms_first": ms_first,
+            "gather": gather, "modulate": modulate,
+            "walk_shape": walk_shape(d, num_out, valid), **err, "ms": ms, "ms_first": ms_first,
             "device_ms": dev, "library_device_ms": lib_dev,
             "enqueue_ms": enq,
             "plain_ms": plain, "library_ms": lib, "bound_ms": bms, "bound_by": by}
@@ -479,10 +493,13 @@ def gather_product_case(gb, kind: str, d: int, gen) -> dict:
         valid * d, rows=idx.shape[0], valid=valid, d=d)
 
 
-def edge_backward_case(gb, which: str, d: int, gen, flow: str = "source_to_target") -> dict:
+def edge_backward_case(gb, which: str, d: int, gen, flow: str = "source_to_target",
+                       summed: bool = False) -> dict:
     """The edge message's backward (d_pre, d_gate) for the global message
     (gate, mask; ``flow`` picks which endpoint is ``i``, as the global layer
-    does) or a local one (m_kj: gate; m_ji: none)."""
+    does) or a local one (m_kj: gate; m_ji: none).  ``summed``: the backward
+    of the global message summed by node, the (N, D) gradient read at each
+    row's ``i`` and rows past the valid count zero (the global layer's)."""
     import torch
 
     from pamnet_tpu_torch.ops.gather import edge_message_backward, edge_message_backward_plain
@@ -498,18 +515,155 @@ def edge_backward_case(gb, which: str, d: int, gen, flow: str = "source_to_targe
     gated = which != "local m_ji"
     rows = i.shape[0]
     args = (r(nodes, d), r(nodes, d), i, j, r(rows, d), r(rows, d) if gated else None,
-            mask, r(rows, d))
+            mask, r(nodes if summed else rows, d))
+    kw = dict(at_i=True, valid=valid) if summed else {}
+    g_bytes = _unique(i, valid) * d * 4 if summed else rows * d * 4
     nbytes = ((_unique(i, rows) + _unique(j, rows)) * d * 4 + rows * 8
-              + rows * d * 4 * (2 + gated) + (rows * 4 if mask is not None else 0)
+              + rows * d * 4 * (1 + gated) + g_bytes + (rows * 4 if mask is not None else 0)
               + rows * d * 4 * (1 + gated))
     # Per element: the pre-activation (2 adds), sigmoid (exp, add, divide),
     # silu' (4), silu (1), the mask and the gate products.
     flops = rows * d * (10 + int(mask is not None) + 2 * int(gated))
     return _timed_case(
-        f"edge message backward, {which}", lambda: edge_message_backward(*args),
-        lambda: edge_message_backward_plain(*args), None, edge_message_backward(*args),
-        edge_message_backward_plain(*args), 1e-6, 1e-5, nbytes, flops, nodes=nodes,
-        rows=rows, valid=valid, d=d, gated=gated, masked=mask is not None)
+        f"edge message backward, {which}{', summed' if summed else ''}",
+        lambda: edge_message_backward(*args, **kw),
+        lambda: edge_message_backward_plain(*args, **kw), None,
+        edge_message_backward(*args, **kw), edge_message_backward_plain(*args, **kw),
+        1e-6, 1e-5, nbytes, flops, nodes=nodes, rows=rows, valid=valid, d=d, gated=gated,
+        masked=mask is not None, summed=summed)
+
+
+def batch_sum_case(gb, key: str, name: str, d: int, gen) -> dict:
+    """Kernel A's sum by the sorted index ``key`` over batch ``gb``'s own CSR
+    (its offsets, valid count and group lengths) of random rows, as the
+    forward's edge->node sums call it; ``library_ms`` times index_add_."""
+    import torch
+
+    from pamnet_tpu_torch.ops.triplet import (triplet_aggregate, triplet_aggregate_plain,
+                                              walk_shape)
+
+    groups, ids = gb.groups(key), getattr(gb, key)
+    if groups is None or groups.perm is not None:
+        raise AssertionError(f"the batch's rows are not sorted by {key}")
+    off, valid, num = groups.off, groups.total, groups.off.shape[0] - 1
+    x = torch.randn(ids.shape[0], d, device="cuda", generator=gen)
+    fn = lambda: triplet_aggregate(x, off, total=valid)  # noqa: E731
+    if not torch.equal(fn(), fn()):
+        raise AssertionError(f"kernel A's sum by {key} is not bitwise repeatable")
+    ids_long, xs, acc = ids[:valid].long(), x[:valid], torch.zeros(num, d, device="cuda")
+    nbytes = valid * d * 4 + (num + 1) * 4 + num * d * 4
+    return _timed_case(
+        name, fn, lambda: triplet_aggregate_plain(x, off),
+        lambda: acc.index_add_(0, ids_long, xs), fn(), triplet_aggregate_plain(x, off),
+        1e-4 * max(1.0, groups.longest / 512), 1e-5, nbytes, valid * d, num_out=num,
+        rows=ids.shape[0], valid=valid, longest_group=groups.longest, d=d,
+        walk_shape=walk_shape(d, num, valid), bitwise_repeat=True)
+
+
+def walk_shape_trial(name: str, fn, d: int, num_out: int, total: int) -> dict:
+    """Design trial of the CSR walk's team shape: the device time of one
+    call of ``fn`` (a walk route at D=``d`` over ``num_out`` groups of
+    ``total`` rows) under each team shape the walk takes at that D (the
+    lanes ``walk_shape`` gives, 1 to a block's worth of slots), beside the
+    shape ``walk_shape`` picks.  The shapes are timed in two passes, up and
+    down, each after a warm-up run of the same shape (clocks and the L2
+    settle), and each shape keeps the lower reading.  The wrappers' shape is
+    swapped in for the trial and put back after it."""
+    from pamnet_tpu_torch.ops import gather, triplet
+
+    real = triplet.walk_shape
+    picked = real(d, num_out, total)
+    lanes = picked[0]
+    slots = [s for s in (1, 2, 4, 8, 16, 32, 64) if lanes * s <= 256]
+    shapes: dict[str, list] = {f"{lanes}x{s}": [] for s in slots}
+    try:
+        for s in slots + slots[::-1]:
+            triplet.walk_shape = gather.walk_shape = lambda *a, _s=(lanes, s): _s
+            time_ms(fn, iters=10)
+            shapes[f"{lanes}x{s}"].append(device_ms(fn))
+    finally:
+        triplet.walk_shape = gather.walk_shape = real
+    return {"case": name, "d": d, "groups": num_out, "rows": total,
+            "mean_group": total / max(1, num_out), "picked": f"{picked[0]}x{picked[1]}",
+            "device_ms_by_shape": {k: min((x for x in v if x is not None), default=None)
+                                   for k, v in shapes.items()},
+            "device_ms_passes": shapes}
+
+
+def walk_trials(gb, d: int, gen, keys: tuple, message_flow: str | None) -> list[dict]:
+    """``walk_shape_trial`` for kernel A's sum over each CSR of ``keys`` of
+    batch ``gb`` (sorted offsets or a permutation) on random rows, and for
+    the global message summed by node in ``message_flow``."""
+    import torch
+
+    from pamnet_tpu_torch.ops.gather import edge_message
+    from pamnet_tpu_torch.ops.triplet import group_sum, triplet_aggregate
+
+    out = []
+    for key in keys:
+        groups = gb.groups(key)
+        x = torch.randn(getattr(gb, key).shape[0], d, device="cuda", generator=gen)
+        fn = ((lambda g=groups, x=x: triplet_aggregate(x, g.off, total=g.total))
+              if groups.perm is None else (lambda g=groups, x=x: group_sum(x, g)))
+        out.append(walk_shape_trial(f"sum by {key}", fn, d, groups.off.shape[0] - 1,
+                                    groups.total))
+    if message_flow is not None:
+        i_key, j_key = (("eg_dst", "eg_src") if message_flow == "source_to_target"
+                        else ("eg_src", "eg_dst"))
+        groups, n, rows = gb.groups(i_key), gb.z.shape[0], gb.eg_src.shape[0]
+        r = lambda *s: torch.randn(*s, device="cuda", generator=gen)  # noqa: E731
+        args = (r(n, d), r(n, d), getattr(gb, i_key), getattr(gb, j_key), r(rows, d),
+                r(rows, d), gb.eg_mask)
+        out.append(walk_shape_trial("global message summed", lambda: edge_message(
+            *args, out_groups=groups), d, n, groups.total))
+    return out
+
+
+def message_sum_case(gb, name: str, d: int, gen, flow: str) -> dict:
+    """The global message summed by the node it goes to
+    (``edge_message(..., out_groups=)``) on batch ``gb``'s own arrays: its
+    sorted CSR of ``i`` (``flow`` picks the endpoint, as the global layer
+    does), ``j`` and edge mask, with random node projections, base and gate;
+    against its plain version (the rows, then kernel A's plain sum) within
+    atol 1e-4 + rtol 1e-5, two calls bitwise equal.  Timed alike beside it:
+    ``rows_sum_*``, the same arrays through the rows kernel and kernel A's
+    sum (the global layer's forward without the fold).  No one PyTorch call
+    computes it."""
+    import torch
+
+    from pamnet_tpu_torch.ops.gather import edge_message, edge_message_plain
+    from pamnet_tpu_torch.ops.triplet import triplet_aggregate, walk_shape
+
+    i_key, j_key = (("eg_dst", "eg_src") if flow == "source_to_target"
+                    else ("eg_src", "eg_dst"))
+    groups = gb.groups(i_key)
+    if groups is None or groups.perm is not None:
+        raise AssertionError(f"the batch's global edges are not sorted by {i_key}")
+    i, j, mask = getattr(gb, i_key), getattr(gb, j_key), gb.eg_mask
+    nodes, rows, valid = gb.z.shape[0], i.shape[0], groups.total
+    r = lambda *s: torch.randn(*s, device="cuda", generator=gen)  # noqa: E731
+    args = (r(nodes, d), r(nodes, d), i, j, r(rows, d), r(rows, d), mask)
+    fn = lambda: edge_message(*args, out_groups=groups)  # noqa: E731
+    rows_sum = lambda: triplet_aggregate(edge_message(*args), groups.off, total=valid)  # noqa: E731
+    got = fn()
+    if not torch.equal(got, fn()):
+        raise AssertionError(f"edge_message_sum[{name}] is not bitwise repeatable")
+    rows_sum_err = compare(f"rows + sum[{name}]", rows_sum(), got, atol=1e-4, rtol=1e-5)
+    # Each input read once: per valid row j, the mask and the base and gate
+    # rows; the j rows of xj and the non-empty groups' rows of xi; the
+    # offsets; the (N, D) output written once.
+    filled = int((groups.off[1:] > groups.off[:-1]).sum())
+    nbytes = (valid * (8 + 2 * d * 4) + (_unique(j, valid) + filled) * d * 4
+              + (nodes + 1) * 4 + nodes * d * 4)
+    # Per element of a row: two adds, silu (4), gate and mask, the sum.
+    flops = valid * d * 9
+    res = _timed_case(name, fn, lambda: edge_message_plain(*args, out_off=groups.off), None,
+                      got, edge_message_plain(*args, out_off=groups.off), 1e-4, 1e-5, nbytes,
+                      flops, nodes=nodes, rows=rows, valid=valid, longest_group=groups.longest,
+                      d=d, walk_shape=walk_shape(d, nodes, valid), bitwise_repeat=True)
+    res.update(rows_sum_ms=time_ms(rows_sum), rows_sum_device_ms=device_ms(rows_sum),
+               rows_sum_max_abs_err=rows_sum_err["max_abs_err"])
+    return res
 
 
 def group_sum_case(gb, key: str, d: int, gen) -> dict:
@@ -720,7 +874,8 @@ def main() -> int:
     from pamnet_tpu_torch.data.synthetic import synthetic_rna_dataset
     from pamnet_tpu_torch.models.pamnet import PAMNet
     from pamnet_tpu_torch.ops import _build
-    from pamnet_tpu_torch.ops.gather import edge_message, edge_message_backward, row_gather
+    from pamnet_tpu_torch.ops.gather import (edge_message, edge_message_backward,
+                                             edge_message_sum, row_gather)
     from pamnet_tpu_torch.ops.sbf_modulate import sbf_modulate, sbf_modulate_backward
     from pamnet_tpu_torch.ops.triplet import (gather_product, group_sum, group_sum_split,
                                               triplet_aggregate, triplet_aggregate_grad_a)
@@ -784,13 +939,15 @@ def main() -> int:
     service = RNAScoringService(state, cfg, batch_size=16, device="cuda")
 
     wrappers = {"triplet_aggregate": triplet_aggregate, "sbf_modulate": sbf_modulate,
-                "edge_message": edge_message, "row_gather": row_gather,
+                "edge_message": edge_message, "edge_message_sum": edge_message_sum,
+                "row_gather": row_gather,
                 "triplet_aggregate_grad_a": triplet_aggregate_grad_a,
                 "gather_product": gather_product, "group_sum": group_sum,
                 "group_sum_split": group_sum_split,
                 "edge_message_backward": edge_message_backward,
                 "sbf_modulate_backward": sbf_modulate_backward}
-    serve_kernels = ("triplet_aggregate", "sbf_modulate", "edge_message", "row_gather")
+    serve_kernels = ("triplet_aggregate", "sbf_modulate", "edge_message", "edge_message_sum",
+                     "row_gather")
 
     def reset_counts():
         for fn in wrappers.values():
@@ -852,10 +1009,13 @@ def main() -> int:
         per_batch_unfolded = read_counts()
         # Kernel B sums each stream by center edge itself: two launches and
         # no kernel A sum over the triplets (the unfolded path's two
-        # gathered sums are those launches).
+        # gathered sums are those launches).  The global message sums itself
+        # by node: kernel A's one launch a layer is the el_dst sum.
         if (per_batch["sbf_modulate"] != 2 * cfg.n_layer or per_batch_unfolded["sbf_modulate"]
-                or per_batch["triplet_aggregate"]
-                != per_batch_unfolded["triplet_aggregate"] - 2 * cfg.n_layer):
+                or per_batch["triplet_aggregate"] != cfg.n_layer
+                or per_batch_unfolded["triplet_aggregate"] != 3 * cfg.n_layer
+                or per_batch["edge_message_sum"] != cfg.n_layer
+                or per_batch["edge_message"] != 3 * cfg.n_layer):
             raise AssertionError(f"folded forward launches {per_batch}, "
                                  f"unfolded {per_batch_unfolded}")
         fold_ms = time_ms(lambda: folded(gb), iters=10)
@@ -887,6 +1047,18 @@ def main() -> int:
                                pads["el"], 7, cfg.dim, gen, cached, True)
     emit({"phase": "sbf_kernels", "batch": f"scoring, {ng} structures", "pads": pads,
           "sbf_modulate": sbf_batch, "sbf_modulate_rows_cached": sbf_cached})
+
+    # The CSR walk on the scoring batch's own CSRs: kernel A's global and
+    # el_dst sums, and the global message summed by node against the rows +
+    # kernel A's sum of the same arrays.
+    walk_batch = [batch_sum_case(gb, "eg_src", "eg_src global sum, scoring batch", cfg.dim, gen),
+                  batch_sum_case(gb, "el_dst", "el_dst edge->node sum, scoring batch", cfg.dim,
+                                 gen)]
+    msg_batch = [message_sum_case(gb, "global message summed, scoring batch", cfg.dim, gen,
+                                  cfg.flow)]
+    emit({"phase": "walk_kernels", "batch": f"scoring, {ng} structures", "pads": pads,
+          "triplet_aggregate": walk_batch, "edge_message_sum": msg_batch,
+          "walk_shape_trials": walk_trials(gb, cfg.dim, gen, ("eg_src", "el_dst"), cfg.flow)})
 
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
@@ -951,7 +1123,8 @@ def main() -> int:
     # ---- 9. every kernel of the paths, with its numbers ----
     # Each kernel's top-level numbers are those of one main-path case: the
     # folded t2 triplet sum (kernel A's, on random data), kernel B's t2 sum
-    # by center edge on the scoring batch, the global message and the
+    # by center edge on the scoring batch, the global message, its sum by
+    # node on the scoring batch and the
     # embedding lookup (RNA batch-16 scoring shapes); the t2 role swap and product, the global
     # message's backward, the sum by el_src and the embedding's backward sum
     # by the split kernel (QM9 training shapes); kernel B's summed backward
@@ -962,11 +1135,13 @@ def main() -> int:
     # calls, of either kernel, and group_sum_split the split kernel's.
     table = [
         ("triplet_aggregate", "triplet_aggregate.cu", "pamnet_tpu/ops/pallas_triplet.py:47",
-         a_cases, a_cases[0]),
+         a_cases + walk_batch, a_cases[0]),
         ("sbf_modulate", "sbf_modulate.cu", "tools/fused_sbf_kernel_probe.py:42",
          b_cases + sbf_batch, sbf_batch[0]),
         ("edge_message", "row_gather.cu", "tools/vmem_gather_probe.py:86",
          e_cases, e_cases[0]),
+        ("edge_message_sum", "row_gather.cu", "tools/vmem_gather_probe.py:86",
+         msg_batch, msg_batch[0]),
         ("row_gather", "row_gather.cu", "tools/vmem_gather_probe.py:42",
          g_cases, g_cases[0]),
         ("triplet_aggregate_grad_a", "triplet_aggregate.cu",
@@ -1029,7 +1204,7 @@ def port_kernel_launches(prof, calls: int) -> list[dict]:
                   and "anonymous namespace" in ev.name),
                  key=lambda ev: ev.time_range.start)
     evs = evs[:len(evs) // calls]
-    return [{"name": re.sub(r"^void \(anonymous namespace\)::", "", ev.name)[:60],
+    return [{"name": re.sub(r"^void |\(anonymous namespace\)::", "", ev.name)[:60],
              "device_us": ev.time_range.end - ev.time_range.start} for ev in evs]
 
 
@@ -1063,14 +1238,19 @@ def train_phase(args, gen, reset_counts, read_counts, emit_kernels) -> tuple[dic
         "gather_product": [gather_product_case(gb, "t2", d, gen),
                            gather_product_case(gb, "t1", d, gen)],
         "edge_message_backward": [edge_backward_case(gb, w, d, gen)
-                                  for w in ("global", "local m_kj", "local m_ji")],
+                                  for w in ("global", "local m_kj", "local m_ji")]
+        + [edge_backward_case(gb, "global", d, gen, summed=True)],
+        "edge_message_sum": [message_sum_case(gb, "global message summed, batch", d, gen,
+                                              "source_to_target")],
         "group_sum": [group_sum_case(gb, k, d, gen)
                       for k in ("el_src", "eg_src", "el_dst", "eg_dst")],
         "group_sum_split": [group_sum_case(gb, "z", d, gen)],
         "row_gather": [radial_gather_case(gb, k) for k in ("t2", "t1")],
     }
     emit_kernels({"phase": "train_kernels", "pads": dataclasses.asdict(loader.pads),
-                  "valid": gb.valid, **cases})
+                  "valid": gb.valid, **cases,
+                  "walk_shape_trials": walk_trials(gb, d, gen, ("eg_dst", "eg_src", "el_src"),
+                                                   "source_to_target")})
 
     # ---- 6. training at the recipe ----
     cfg = PAMNetConfig(dataset="QM9", dim=d, n_layer=6, cutoff_l=5.0, cutoff_g=5.0)
@@ -1096,12 +1276,19 @@ def train_phase(args, gen, reset_counts, read_counts, emit_kernels) -> tuple[dic
     loss.backward()
     torch.cuda.synchronize()
     bwd = read_counts()
-    need_fwd = ("triplet_aggregate", "edge_message", "row_gather")
+    need_fwd = ("triplet_aggregate", "edge_message", "edge_message_sum", "row_gather")
     need_bwd = ("triplet_aggregate_grad_a", "gather_product", "group_sum",
                 "group_sum_split", "edge_message_backward", "row_gather")
     if (min(fwd[k] for k in need_fwd) < 1 or min(bwd[k] for k in need_bwd) < 1
             or bwd["group_sum"] <= bwd["group_sum_split"]):
         raise AssertionError(f"a step skipped a kernel: forward {fwd}, backward {bwd}")
+    # The global message sums itself by node: per layer kernel A's forward
+    # launches are the t2/t1 gathered sums and the el_dst sum, and the
+    # backward's row gathers the el_dst sum's alone.
+    if (fwd["triplet_aggregate"] != 3 * cfg.n_layer or fwd["edge_message_sum"] != cfg.n_layer
+            or bwd["row_gather"] != cfg.n_layer):
+        raise AssertionError(f"kernel A / summed message / row gather launches per step: "
+                             f"forward {fwd}, backward {bwd}")
 
     # One step from the same state, twice: bitwise equal.
     params = list(model.parameters())
@@ -1291,13 +1478,18 @@ def rna_train_phase(args, mols, gen, reset_counts, read_counts, emit_line) -> tu
             "row_gather": [row_gather_batch_case(gb, k, d, gen)
                            for k in ("z", "t2_ji", "t1_ji", "el_dst", i_key)],
             "edge_message_backward": [edge_backward_case(gb, w, d, gen, flow)
-                                      for w in ("global", "local m_kj", "local m_ji")],
+                                      for w in ("global", "local m_kj", "local m_ji")]
+            + [edge_backward_case(gb, "global", d, gen, flow, summed=True)],
+            "edge_message_sum": [message_sum_case(gb, "global message summed, batch", d, gen,
+                                                  flow)],
             "group_sum": [group_sum_case(gb, k, d, gen)
                           for k in ("el_src", "eg_dst", "el_dst", "eg_src")],
             "group_sum_split": [group_sum_case(gb, "z", d, gen)],
         }
         emit_line({"phase": "rna_train_kernels", "pads": dataclasses.asdict(pd),
-                   "valid": gb.valid, **cases})
+                   "valid": gb.valid, **cases,
+                   "walk_shape_trials": walk_trials(gb, d, gen, ("eg_src", "eg_dst", "el_src"),
+                                                    flow)})
 
         # ---- 8. training at the recipe ----
         kw = dict(dataset="RNA-Puzzles", dim=d, n_layer=1, cutoff_l=2.6, cutoff_g=20.0,
@@ -1334,15 +1526,17 @@ def rna_train_phase(args, mols, gen, reset_counts, read_counts, emit_line) -> tu
         fwd_unfolded = read_counts()
         if fwd["sbf_modulate"] != 2 or bwd["sbf_modulate_backward"] != 2:
             raise AssertionError(f"kernel B launches per step: forward {fwd}, backward {bwd}")
-        # Kernel B sums the t2/t1 streams by center edge itself: the forward's
-        # kernel A launches are the global and the el_dst sums alone (the
-        # unfolded forward adds its two gathered sums), and the backward's row
-        # gathers are those two sums' backward alone (none by t2_ji/t1_ji).
-        if not (fwd["triplet_aggregate"] == 2 == fwd_unfolded["triplet_aggregate"] - 2
-                and bwd["row_gather"] == 2):
+        # Kernel B sums the t2/t1 streams by center edge itself and the
+        # global message sums itself by node: the forward's kernel A launch
+        # is the el_dst sum alone (the unfolded forward adds its two gathered
+        # sums), and the backward's row gather is that sum's backward alone
+        # (none by t2_ji/t1_ji, none by eg_src).
+        if not (fwd["triplet_aggregate"] == 1 == fwd_unfolded["triplet_aggregate"] - 2
+                and fwd["edge_message_sum"] == 1 and bwd["row_gather"] == 1):
             raise AssertionError(f"kernel A / row gather launches per step: forward {fwd}, "
                                  f"backward {bwd}, unfolded forward {fwd_unfolded}")
-        need_fwd = ("triplet_aggregate", "sbf_modulate", "edge_message", "row_gather")
+        need_fwd = ("triplet_aggregate", "sbf_modulate", "edge_message", "edge_message_sum",
+                    "row_gather")
         need_bwd = ("sbf_modulate_backward", "group_sum", "group_sum_split",
                     "edge_message_backward", "row_gather")
         if (min(fwd[k] for k in need_fwd) < 1 or min(bwd[k] for k in need_bwd) < 1

@@ -1,0 +1,137 @@
+// The CSR walk that every sum over sorted groups runs on the card:
+//
+//   out[e, :] = sum_{r in [off[e], off[e+1])} row(e, r)
+//
+// where the row value is a device functor (Row): kernel A's gathered,
+// modulated row a[idx[r]] * b[bidx[r]] (triplet_aggregate.cu) and the global
+// edge message silu(xi[e] + xj[j[r]] + base[r]) * gate[r] * mask[r]
+// (row_gather.cu).  Included by both; each gets its own copy.
+//
+// Layout: a team of lanes x slots threads owns one output row.  Lane l takes
+// the float4 columns l, l + lanes, ... (lanes a power of two, so a D that is
+// not, such as D = 12, leaves a lane idle); slot s takes the group's rows
+// off[e] + s, off[e] + s + slots, ..., fixed by position.  Each slot reads
+// the keys (indices, mask) of kWalkUnroll of its rows first, then issues
+// their row loads together, then adds them in row order: kWalkUnroll rows'
+// loads are in flight per thread, and a long group is spread over many
+// slots instead of one walker per row waiting on each row in turn.  The
+// slots' partial sums meet in a fixed order: a __shfl_xor_sync tree inside
+// each warp, then, for a team of several warps, the warps' sums added in
+// warp order through shared memory; slot 0 stores the row.  No atomics, no
+// scratch in device memory: for a fixed team shape (lanes, slots) the order
+// of every sum is fixed, so two calls give the same bits.  The host picks
+// the shape (ops/triplet.py::walk_shape) from D and the mean group length;
+// a team is at most a block and divides it.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kWalkThreads = 256;
+constexpr int kWalkUnroll = 4;
+constexpr unsigned kWalkAll = 0xffffffffu;
+
+__device__ __forceinline__ float silu(float x) { return x / (1.0f + expf(-x)); }
+
+__device__ __forceinline__ void add_to(float4& acc, const float4& v) {
+  acc.x += v.x;
+  acc.y += v.y;
+  acc.z += v.z;
+  acc.w += v.w;
+}
+
+// Row must provide:
+//   struct Key;    per summed row, loaded before the row's values (indices)
+//   struct Group;  per (output row, column), loaded once (e.g. xi[e])
+//   Group group(long long e, int c, bool ok) const;
+//   Key key(int r, bool ok) const;          ok false: r is past the group
+//   float4 value(const Group&, const Key&, int r, int c) const;
+template <class Row>
+__global__ void __launch_bounds__(kWalkThreads)
+csr_walk_kernel(Row row, const int* __restrict__ off, float4* __restrict__ out,
+                int num_out, int vecs, int lanes_log2, int slots_log2) {
+  // One float4 per thread: each warp's sum, for teams of several warps.
+  __shared__ float4 warp_sums[kWalkThreads];
+  const int team_log2 = lanes_log2 + slots_log2;
+  const int warp_team_log2 = min(team_log2, 5);
+  const long long t = static_cast<long long>(blockIdx.x) * kWalkThreads + threadIdx.x;
+  const long long e = t >> team_log2;
+  const int in_team = static_cast<int>(t & ((1 << team_log2) - 1));
+  const int slot = in_team >> lanes_log2;
+  const int lane = in_team & ((1 << lanes_log2) - 1);
+  const int lanes = 1 << lanes_log2;
+  const int stride = (1 << slots_log2) * kWalkUnroll;
+  const bool live = e < num_out;
+  const int start = live ? __ldg(off + e) : 0;
+  const int stop = live ? __ldg(off + e + 1) : 0;
+  // Every thread of the block runs the same column steps, so each reaches
+  // the shuffles and barriers below.
+  for (int c0 = 0; c0 < vecs; c0 += lanes) {
+    const int c = c0 + lane;
+    const bool col = live && c < vecs;
+    const typename Row::Group grp = row.group(e, c, col);
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int r0 = start + slot; r0 < stop; r0 += stride) {
+      typename Row::Key key[kWalkUnroll];
+#pragma unroll
+      for (int u = 0; u < kWalkUnroll; ++u) {
+        const int r = r0 + (u << slots_log2);
+        key[u] = row.key(r, r < stop);
+      }
+      float4 v[kWalkUnroll];
+#pragma unroll
+      for (int u = 0; u < kWalkUnroll; ++u) {
+        const int r = r0 + (u << slots_log2);
+        if (col && r < stop) v[u] = row.value(grp, key[u], r, c);
+      }
+#pragma unroll
+      for (int u = 0; u < kWalkUnroll; ++u) {
+        if (col && r0 + (u << slots_log2) < stop) add_to(acc, v[u]);
+      }
+    }
+    for (int o = lanes; o < (1 << warp_team_log2); o <<= 1) {
+      acc.x += __shfl_xor_sync(kWalkAll, acc.x, o);
+      acc.y += __shfl_xor_sync(kWalkAll, acc.y, o);
+      acc.z += __shfl_xor_sync(kWalkAll, acc.z, o);
+      acc.w += __shfl_xor_sync(kWalkAll, acc.w, o);
+    }
+    if (team_log2 > 5) {  // the same for the whole block
+      const int warp_in_team = in_team >> 5;
+      __syncthreads();  // the previous column step's sums are read
+      warp_sums[threadIdx.x] = acc;
+      __syncthreads();
+      if (warp_in_team == 0) {
+        for (int w = 1; w < (1 << (team_log2 - 5)); ++w) {
+          add_to(acc, warp_sums[threadIdx.x + (w << 5)]);
+        }
+      }
+    }
+    if (col && slot == 0) out[e * vecs + c] = acc;
+  }
+}
+
+int log2_of(int x) {
+  int n = 0;
+  while (n < 9 && (1 << n) < x) ++n;
+  return (1 << n) == x ? n : -1;
+}
+
+// Checks the team shape and launches the walk on `stream`; returns the
+// launch's cudaError_t.
+template <class Row>
+int launch_walk(const Row& row, const int* off, float* out, int num_out, int d, int lanes,
+                int slots, cudaStream_t stream) {
+  const int lanes_log2 = log2_of(lanes), slots_log2 = log2_of(slots);
+  if (d <= 0 || d % 4 != 0 || num_out <= 0 || lanes_log2 < 0 || slots_log2 < 0 ||
+      lanes > 32 || lanes * slots > kWalkThreads) {
+    return cudaErrorInvalidValue;
+  }
+  const long long threads = static_cast<long long>(num_out) << (lanes_log2 + slots_log2);
+  const unsigned blocks = static_cast<unsigned>((threads + kWalkThreads - 1) / kWalkThreads);
+  csr_walk_kernel<Row><<<blocks, kWalkThreads, 0, stream>>>(
+      row, off, reinterpret_cast<float4*>(out), num_out, d / 4, lanes_log2, slots_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace

@@ -4,11 +4,17 @@
 //   gather_product:         out[r, :] = x[xi[r], :] * y[yi[r], :]   (r < valid)
 //                           out[r, :] = 0                           (r >= valid)
 //   edge_message_backward:  pre       = xi[i[r], :] + xj[j[r], :] + base[r, :]
-//                           d_pre[r]  = g[r] * gate[r] * mask[r] * silu'(pre)
-//                           d_gate[r] = g[r] * mask[r] * silu(pre)
+//                           G         = g[r]  (rows), or g[i[r]]  (summed)
+//                           d_pre[r]  = G * gate[r] * mask[r] * silu'(pre)
+//                           d_gate[r] = G * mask[r] * silu(pre)
+//                           (r < valid; both 0 for r >= valid)
 //
 // gate and mask may be null (no factor; then no d_gate).  silu'(p) =
-// s (1 + p (1 - s)) with s = sigmoid(p).
+// s (1 + p (1 - s)) with s = sigmoid(p).  The summed form is the backward of
+// the edge message summed by the node it goes to (edge_message_sum in
+// row_gather.cu): the (N, D) node gradient is read at each edge's i, so the
+// (E, D) gather of it that kernel A's sum took in its backward is gone, and
+// rows past the CSR's valid count, which the sum never read, get zeros.
 //
 // gather_product is d_b[t] = a[idx[t]] * g[seg[t]] of kernel A's gather +
 // modulate sum.  The rest of the edge message's backward is
@@ -25,14 +31,17 @@
 // gathered 512-byte rows and writes one per row; edge_message_backward at
 // the global edges (23,808 rows) reads three gathered or streamed rows, the
 // gate and the output gradient and writes two rows: about 61 MB, 18 us at
-// 3.35 TB/s.  An exp and a dozen multiply-adds per element are far below the
-// f32 rate.
+// 3.35 TB/s.  Summed, the gradient is a gathered (N, D) table that stays in
+// L2 instead of an (E, D) stream.  An exp and a dozen multiply-adds per
+// element are far below the f32 rate.
 //
 // What the design does about it: one thread per (row, 4 columns) with
 // 16-byte loads and stores, as the forward kernels; the pre-activation is
 // recomputed from the gathered rows in registers (the forward never writes
 // it), so the backward reads the node tables (L2-resident) instead of an
 // (E, D) activation.  Rows are independent: no atomics, deterministic.
+// Registers (cuobjdump -res-usage, chip_smoke.py kernel_resources, sm_90a):
+// edge_message_backward 29 without a gate, 32 with one, in both forms.
 #include <cuda_runtime.h>
 
 namespace {
@@ -81,7 +90,7 @@ __device__ __forceinline__ void silu_backward(float p, float g, float gt,
   }
 }
 
-template <bool GATE, bool MASK>
+template <bool GATE, bool MASK, bool AT_I>
 __global__ void edge_message_backward_kernel(const float* __restrict__ xi,
                                              const float* __restrict__ xj,
                                              const int* __restrict__ i_idx,
@@ -92,17 +101,23 @@ __global__ void edge_message_backward_kernel(const float* __restrict__ xi,
                                              const float* __restrict__ grad,
                                              float* __restrict__ d_pre,
                                              float* __restrict__ d_gate, int rows,
-                                             int vecs) {
+                                             int valid, int vecs) {
   const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (tid >= static_cast<long long>(rows) * vecs) return;
   const int r = static_cast<int>(tid / vecs);
   const int c = static_cast<int>(tid - static_cast<long long>(r) * vecs);
-  const float4 u = __ldg(reinterpret_cast<const float4*>(xi)
-                         + static_cast<long long>(__ldg(i_idx + r)) * vecs + c);
+  if (r >= valid) {
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    reinterpret_cast<float4*>(d_pre)[tid] = zero;
+    if (GATE) reinterpret_cast<float4*>(d_gate)[tid] = zero;
+    return;
+  }
+  const long long ir = __ldg(i_idx + r);
+  const float4 u = __ldg(reinterpret_cast<const float4*>(xi) + ir * vecs + c);
   const float4 v = __ldg(reinterpret_cast<const float4*>(xj)
                          + static_cast<long long>(__ldg(j_idx + r)) * vecs + c);
   const float4 w = __ldg(reinterpret_cast<const float4*>(base) + tid);
-  float4 g = __ldg(reinterpret_cast<const float4*>(grad) + tid);
+  float4 g = __ldg(reinterpret_cast<const float4*>(grad) + (AT_I ? ir * vecs + c : tid));
   if (MASK) {
     const float k = __ldg(mask + r);
     g = make_float4(g.x * k, g.y * k, g.z * k, g.w * k);
@@ -116,6 +131,28 @@ __global__ void edge_message_backward_kernel(const float* __restrict__ xi,
   silu_backward<GATE>(u.w + v.w + w.w, g.w, gt.w, &dp.w, &dg.w);
   reinterpret_cast<float4*>(d_pre)[tid] = dp;
   if (GATE) reinterpret_cast<float4*>(d_gate)[tid] = dg;
+}
+
+template <bool AT_I>
+int launch_edge_backward(const float* xi, const float* xj, const int* i_idx, const int* j_idx,
+                         const float* base, const float* gate, const float* mask,
+                         const float* grad, float* d_pre, float* d_gate, int rows, int valid,
+                         int vecs, cudaStream_t s) {
+  const unsigned blocks = blocks_for(static_cast<long long>(rows) * vecs);
+  if (gate && mask) {
+    edge_message_backward_kernel<true, true, AT_I><<<blocks, kThreads, 0, s>>>(
+        xi, xj, i_idx, j_idx, base, gate, mask, grad, d_pre, d_gate, rows, valid, vecs);
+  } else if (gate) {
+    edge_message_backward_kernel<true, false, AT_I><<<blocks, kThreads, 0, s>>>(
+        xi, xj, i_idx, j_idx, base, gate, mask, grad, d_pre, d_gate, rows, valid, vecs);
+  } else if (mask) {
+    edge_message_backward_kernel<false, true, AT_I><<<blocks, kThreads, 0, s>>>(
+        xi, xj, i_idx, j_idx, base, gate, mask, grad, d_pre, d_gate, rows, valid, vecs);
+  } else {
+    edge_message_backward_kernel<false, false, AT_I><<<blocks, kThreads, 0, s>>>(
+        xi, xj, i_idx, j_idx, base, gate, mask, grad, d_pre, d_gate, rows, valid, vecs);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -136,33 +173,26 @@ extern "C" int pamnet_gather_product(const float* x, const int* xi, const float*
   return static_cast<int>(cudaGetLastError());
 }
 
-// xi, xj: (nodes, d) f32; i_idx, j_idx: (rows,) i32; base, grad: (rows, d)
-// f32; gate: (rows, d) f32 or null; mask: (rows,) f32 or null; d_pre:
-// (rows, d) f32; d_gate: (rows, d) f32, written only with a gate.  d % 4 ==
-// 0, all 16-byte aligned.  Returns the launch's cudaError_t.
+// xi, xj: (nodes, d) f32; i_idx, j_idx: (rows,) i32; base: (rows, d) f32;
+// grad: (rows, d) f32, or with grad_at_i (nodes of xi, d) f32 read at i;
+// gate: (rows, d) f32 or null; mask: (rows,) f32 or null; d_pre: (rows, d)
+// f32; d_gate: (rows, d) f32, written only with a gate; rows r >= valid get
+// zeros.  d % 4 == 0, all 16-byte aligned.  Returns the launch's cudaError_t.
 extern "C" int pamnet_edge_message_backward(const float* xi, const float* xj,
                                             const int* i_idx, const int* j_idx,
                                             const float* base, const float* gate,
                                             const float* mask, const float* grad,
                                             float* d_pre, float* d_gate, int rows,
-                                            int d, void* stream) {
-  if (rows <= 0 || d <= 0 || d % 4 != 0) return cudaErrorInvalidValue;
+                                            int valid, int d, int grad_at_i, void* stream) {
+  if (rows <= 0 || d <= 0 || d % 4 != 0 || valid < 0 || valid > rows) {
+    return cudaErrorInvalidValue;
+  }
   if (gate != nullptr && d_gate == nullptr) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int vecs = d / 4;
-  const unsigned blocks = blocks_for(static_cast<long long>(rows) * vecs);
-  if (gate && mask) {
-    edge_message_backward_kernel<true, true><<<blocks, kThreads, 0, s>>>(
-        xi, xj, i_idx, j_idx, base, gate, mask, grad, d_pre, d_gate, rows, vecs);
-  } else if (gate) {
-    edge_message_backward_kernel<true, false><<<blocks, kThreads, 0, s>>>(
-        xi, xj, i_idx, j_idx, base, gate, mask, grad, d_pre, d_gate, rows, vecs);
-  } else if (mask) {
-    edge_message_backward_kernel<false, true><<<blocks, kThreads, 0, s>>>(
-        xi, xj, i_idx, j_idx, base, gate, mask, grad, d_pre, d_gate, rows, vecs);
-  } else {
-    edge_message_backward_kernel<false, false><<<blocks, kThreads, 0, s>>>(
-        xi, xj, i_idx, j_idx, base, gate, mask, grad, d_pre, d_gate, rows, vecs);
+  if (grad_at_i) {
+    return launch_edge_backward<true>(xi, xj, i_idx, j_idx, base, gate, mask, grad, d_pre,
+                                      d_gate, rows, valid, d / 4, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  return launch_edge_backward<false>(xi, xj, i_idx, j_idx, base, gate, mask, grad, d_pre,
+                                     d_gate, rows, valid, d / 4, s);
 }

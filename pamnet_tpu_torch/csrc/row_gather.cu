@@ -1,9 +1,11 @@
 // Row gathers of the PAMNet forward: a plain row gather and the edge message
-// that gathers its node rows itself.
+// that gathers its node rows itself, as rows or summed by the node it goes to.
 //
-//   row_gather:    out[r, :] = src[idx[r], :]          (r < valid; 0 after)
-//   edge_message:  out[r, :] = silu(xi[i[r], :] + xj[j[r], :] + base[r, :])
-//                              * gate[r, :] * mask[r]        (gate, mask optional)
+//   row_gather:        out[r, :] = src[idx[r], :]          (r < valid; 0 after)
+//   edge_message:      out[r, :] = silu(xi[i[r], :] + xj[j[r], :] + base[r, :])
+//                                  * gate[r, :] * mask[r]    (gate, mask optional)
+//   edge_message_sum:  out[v, :] = sum_{r in [off[v], off[v+1])} of that row,
+//                      over the sorted CSR of i (i[r] = v in group v)
 //
 // row_gather is the atom-type embedding lookup, the unfolded path's gather
 // of the radial table and the backward of kernel A's no-gather sums
@@ -29,7 +31,22 @@
 // The arithmetic (an exp and a few multiply-adds per element) is far below
 // the f32 rate.
 //
+// The summed message is the global layer's message and its edge->node sum
+// (pamnet_tpu/models/layers.py:224-228, global_mp: the message, then the
+// segment sum at i), which kernel A took over the (E, D) rows before.  At the
+// batch-16 scoring pads it moves 1,675,136 edges x (a 4-byte j, 64 B of base,
+// 64 B of gate, a 4-byte mask) plus the 2.2 MB tables and the (N, D) output:
+// about 0.235 GB, 0.070 ms at 3.35 TB/s, where the rows (0.10 ms bound) and
+// kernel A's sum of them (~0.033 ms) moved 0.45 GB.
+//
 // What the design does about it:
+// * The summed message runs the CSR walk of csr_walk.cuh (kernel A's) with
+//   the message as its row functor: a team of lanes x slots threads per
+//   node (its shape from ops/triplet.py::walk_shape), xi[v] read once per
+//   group (the rows are sorted by i), the rows' j, mask, base and gate
+//   loaded 4 rows ahead; no (E, D) message is written.
+//   Registers (cuobjdump -res-usage, chip_smoke.py kernel_resources, sm_90a):
+//   64, with 8 bytes of stack where a mask is read; 4 KB of shared memory.
 // * One thread per (row, 4 columns): the D/4 threads of a row read a gathered
 //   row, and the row's base and gate, as consecutive 16-byte loads, and write
 //   the output the same way, so each transaction is whole.
@@ -49,11 +66,9 @@
 //   and each lane issues eight loads before its eight stores, which are
 //   marked streaming (evict first), so the output leaves the gathered table
 //   in L2.
-#include <cuda_runtime.h>
+#include "csr_walk.cuh"
 
 namespace {
-
-__device__ __forceinline__ float silu(float x) { return x / (1.0f + expf(-x)); }
 
 __global__ void row_gather_vec4_kernel(const float4* __restrict__ src,
                                        const int* __restrict__ idx,
@@ -154,6 +169,69 @@ __global__ void edge_message_kernel(const float* __restrict__ xi,
   reinterpret_cast<float4*>(out)[tid] = m;
 }
 
+// The summed message's row: silu(xi[v] + xj[j[r]] + base[r]) * gate[r] *
+// mask[r], with the operations of edge_message_kernel in its order, so a
+// group of one row gives that kernel's row bit for bit.
+template <bool GATE, bool MASK>
+struct MessageRow {
+  const float4* xi;
+  const float4* xj;
+  const int* j_idx;
+  const float4* base;
+  const float4* gate;
+  const float* mask;
+  int vecs;
+
+  struct Key {
+    int j;
+    float k;
+  };
+  struct Group {
+    float4 xi;
+  };
+
+  __device__ __forceinline__ Group group(long long v, int c, bool ok) const {
+    return {ok ? __ldg(xi + v * vecs + c) : make_float4(0.f, 0.f, 0.f, 0.f)};
+  }
+
+  __device__ __forceinline__ Key key(int r, bool ok) const {
+    return {ok ? __ldg(j_idx + r) : 0, MASK && ok ? __ldg(mask + r) : 1.f};
+  }
+
+  __device__ __forceinline__ float4 value(const Group& g, const Key& k, int r, int c) const {
+    const float4 u = g.xi;
+    const float4 v = __ldg(xj + static_cast<long long>(k.j) * vecs + c);
+    const float4 w = __ldg(base + static_cast<long long>(r) * vecs + c);
+    float4 m = make_float4(silu(u.x + v.x + w.x), silu(u.y + v.y + w.y),
+                           silu(u.z + v.z + w.z), silu(u.w + v.w + w.w));
+    if (GATE) {
+      const float4 gt = __ldg(gate + static_cast<long long>(r) * vecs + c);
+      m.x *= gt.x;
+      m.y *= gt.y;
+      m.z *= gt.z;
+      m.w *= gt.w;
+    }
+    if (MASK) {
+      m.x *= k.k;
+      m.y *= k.k;
+      m.z *= k.k;
+      m.w *= k.k;
+    }
+    return m;
+  }
+};
+
+template <bool GATE, bool MASK>
+int launch_message_sum(const float* xi, const float* xj, const int* j_idx, const float* base,
+                       const float* gate, const float* mask, const int* off, float* out,
+                       int num_out, int d, int lanes, int slots, cudaStream_t stream) {
+  const MessageRow<GATE, MASK> row{
+      reinterpret_cast<const float4*>(xi), reinterpret_cast<const float4*>(xj), j_idx,
+      reinterpret_cast<const float4*>(base), reinterpret_cast<const float4*>(gate), mask,
+      d / 4};
+  return launch_walk(row, off, out, num_out, d, lanes, slots, stream);
+}
+
 constexpr int kThreads = 256;
 
 unsigned blocks_for(long long total) {
@@ -211,4 +289,32 @@ extern "C" int pamnet_edge_message(const float* xi, const float* xj,
         xi, xj, i_idx, j_idx, base, gate, mask, out, rows, vecs);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// xi: (num_out, d) f32, the nodes the messages go to; xj: (nodes, d) f32;
+// j_idx: (rows,) i32; base: (rows, d) f32; gate: (rows, d) f32 or null;
+// mask: (rows,) f32 or null; off: (num_out + 1,) i32, the sorted CSR of the
+// rows by the node they go to; out: (num_out, d) f32.  d % 4 == 0, all
+// 16-byte aligned; lanes, slots: the walk's team shape.  Returns the
+// launch's cudaError_t.
+extern "C" int pamnet_edge_message_sum(const float* xi, const float* xj, const int* j_idx,
+                                       const float* base, const float* gate,
+                                       const float* mask, const int* off, float* out,
+                                       int num_out, int d, int lanes, int slots,
+                                       void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (gate && mask) {
+    return launch_message_sum<true, true>(xi, xj, j_idx, base, gate, mask, off, out, num_out,
+                                          d, lanes, slots, s);
+  }
+  if (gate) {
+    return launch_message_sum<true, false>(xi, xj, j_idx, base, gate, mask, off, out,
+                                           num_out, d, lanes, slots, s);
+  }
+  if (mask) {
+    return launch_message_sum<false, true>(xi, xj, j_idx, base, gate, mask, off, out,
+                                           num_out, d, lanes, slots, s);
+  }
+  return launch_message_sum<false, false>(xi, xj, j_idx, base, gate, mask, off, out, num_out,
+                                          d, lanes, slots, s);
 }

@@ -31,79 +31,87 @@
 // 3.35 TB/s.  It does 2 flops per 8 loaded bytes, far below the card's
 // ridge point.
 //
-// What the design does about it:
-// * Blocks own output rows and each thread walks the CSR range of its row,
-//   so there are no atomics and the sum order is fixed: the result is
-//   deterministic (a backward sum too), and no zero-fill pass of the output
-//   is needed.
-// * One thread per (output row, 4 columns): the D/4 threads of a row read a
-//   gathered row as consecutive 16-byte loads, one whole 64-byte segment at
-//   D=16, and write the output row the same way, so every transaction is
-//   full.  Read-only loads go through the non-coherent cache (__ldg).
-// * Groups are short (about 5 triplets per center edge, about 50 global
-//   edges per node), so a thread per row keeps the load balanced without a
-//   split of long groups.  The backward of the embedding lookup is the weak
-//   case: a handful of groups (atom types) of hundreds of rows each.
-#include <cuda_runtime.h>
+// What the design does about it (the walk itself is csr_walk.cuh, shared
+// with the summed edge message of row_gather.cu):
+// * Long groups need many loads in flight: one thread per (output row, 4
+//   columns) walking its group in order makes ~49 dependent steps at the
+//   RNA global sums (D=16, 4 threads a row) and reached 45-74% of the byte
+//   bound there.
+// * Now a team of lanes x slots threads owns a row: lanes = D/4 column
+//   lanes (rounded up to a power of two), slots row slots taking rows
+//   off[e] + s + k * slots, and each slot reads the indices of 4 of its rows
+//   before it issues their 4 row loads.  The host gives each slot ~4 rows of
+//   the mean group within two waves of the card's threads: at D=16 8 slots
+//   at the RNA batch-8 global sums (~49 rows a node), 2 at the scoring
+//   batch's and at the el sums; at D=128 (QM9, ~12 rows) 4 warps of 32 lanes.
+// * The slots' sums meet in a fixed shuffle tree, then in warp order through
+//   shared memory; slot 0 stores: no atomics and no zero-fill of the output,
+//   and for a fixed shape (lanes, slots) the sum order is fixed, so two
+//   calls give the same bits.
+// * Registers (cuobjdump -res-usage, chip_smoke.py kernel_resources, sm_90a):
+//   40 (no gather, no modulation) to 60 (gather, b through bidx), no stack;
+//   4 KB of shared memory for the warps' sums of a team of several warps.
+#include "csr_walk.cuh"
 
 namespace {
 
+// Kernel A's row: a[idx[r]] * b[bidx[r]], the gather, the modulation and
+// the indexed read of b each switched off by its flag.
 template <bool GATHER, bool MODULATE, bool BIDX>
-__global__ void triplet_aggregate_kernel(const float* __restrict__ a,
-                                         const float* __restrict__ b,
-                                         const int* __restrict__ idx,
-                                         const int* __restrict__ bidx,
-                                         const int* __restrict__ off,
-                                         float* __restrict__ out,
-                                         int num_out, int vecs_per_row) {
-  const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (tid >= static_cast<long long>(num_out) * vecs_per_row) return;
-  const int e = static_cast<int>(tid / vecs_per_row);
-  const int c = static_cast<int>(tid - static_cast<long long>(e) * vecs_per_row);
-  const float4* a4 = reinterpret_cast<const float4*>(a);
-  const float4* b4 = reinterpret_cast<const float4*>(b);
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  const int stop = __ldg(off + e + 1);
-  for (int r = __ldg(off + e); r < stop; ++r) {
-    const long long src = GATHER ? static_cast<long long>(__ldg(idx + r)) : r;
-    float4 v = __ldg(a4 + src * vecs_per_row + c);
+struct SumRow {
+  const float4* a;
+  const float4* b;
+  const int* idx;
+  const int* bidx;
+  int vecs;
+
+  struct Key {
+    int a, b;
+  };
+  struct Group {};
+
+  __device__ __forceinline__ Group group(long long, int, bool) const { return {}; }
+
+  __device__ __forceinline__ Key key(int r, bool ok) const {
+    Key k;
+    k.a = GATHER ? (ok ? __ldg(idx + r) : 0) : r;
+    k.b = BIDX ? (ok ? __ldg(bidx + r) : 0) : r;
+    return k;
+  }
+
+  __device__ __forceinline__ float4 value(const Group&, const Key& k, int, int c) const {
+    float4 v = __ldg(a + static_cast<long long>(k.a) * vecs + c);
     if (MODULATE) {
-      const long long brow = BIDX ? static_cast<long long>(__ldg(bidx + r)) : r;
-      const float4 w = __ldg(b4 + brow * vecs_per_row + c);
+      const float4 w = __ldg(b + static_cast<long long>(k.b) * vecs + c);
       v.x *= w.x;
       v.y *= w.y;
       v.z *= w.z;
       v.w *= w.w;
     }
-    acc.x += v.x;
-    acc.y += v.y;
-    acc.z += v.z;
-    acc.w += v.w;
+    return v;
   }
-  reinterpret_cast<float4*>(out)[tid] = acc;
-}
+};
 
 template <bool GATHER, bool MODULATE, bool BIDX>
-void launch(const float* a, const float* b, const int* idx, const int* bidx,
-            const int* off, float* out, int num_out, int vecs, cudaStream_t stream) {
-  constexpr int kThreads = 256;
-  const long long total = static_cast<long long>(num_out) * vecs;
-  const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
-  triplet_aggregate_kernel<GATHER, MODULATE, BIDX>
-      <<<blocks, kThreads, 0, stream>>>(a, b, idx, bidx, off, out, num_out, vecs);
+int launch(const float* a, const float* b, const int* idx, const int* bidx, const int* off,
+           float* out, int num_out, int d, int lanes, int slots, cudaStream_t stream) {
+  const SumRow<GATHER, MODULATE, BIDX> row{reinterpret_cast<const float4*>(a),
+                                           reinterpret_cast<const float4*>(b), idx, bidx,
+                                           d / 4};
+  return launch_walk(row, off, out, num_out, d, lanes, slots, stream);
 }
 
 template <bool GATHER>
-void launch_modulation(const float* a, const float* b, const int* idx,
-                       const int* bidx, const int* off, float* out, int num_out,
-                       int vecs, cudaStream_t s) {
+int launch_modulation(const float* a, const float* b, const int* idx, const int* bidx,
+                      const int* off, float* out, int num_out, int d, int lanes, int slots,
+                      cudaStream_t s) {
   if (b == nullptr) {
-    launch<GATHER, false, false>(a, b, idx, bidx, off, out, num_out, vecs, s);
-  } else if (bidx == nullptr) {
-    launch<GATHER, true, false>(a, b, idx, bidx, off, out, num_out, vecs, s);
-  } else {
-    launch<GATHER, true, true>(a, b, idx, bidx, off, out, num_out, vecs, s);
+    return launch<GATHER, false, false>(a, b, idx, bidx, off, out, num_out, d, lanes, slots, s);
   }
+  if (bidx == nullptr) {
+    return launch<GATHER, true, false>(a, b, idx, bidx, off, out, num_out, d, lanes, slots, s);
+  }
+  return launch<GATHER, true, true>(a, b, idx, bidx, off, out, num_out, d, lanes, slots, s);
 }
 
 }  // namespace
@@ -111,21 +119,18 @@ void launch_modulation(const float* a, const float* b, const int* idx,
 // a: (rows of a, d) f32; b: (rows of b, d) f32 or null; idx: (rows,) i32 or
 // null (no gather); bidx: (rows,) i32 or null (b read by row; needs b);
 // off: (num_out + 1,) i32; out: (num_out, d) f32.  d % 4 == 0, all 16-byte
-// aligned.  Returns the launch's cudaError_t.
+// aligned.  lanes, slots: the team shape (powers of two, lanes * slots <=
+// 32).  Returns the launch's cudaError_t.
 extern "C" int pamnet_triplet_aggregate(const float* a, const float* b,
                                         const int* idx, const int* bidx,
                                         const int* off, float* out, int num_out,
-                                        int d, void* stream) {
-  if (d <= 0 || d % 4 != 0 || num_out <= 0) return cudaErrorInvalidValue;
+                                        int d, int lanes, int slots, void* stream) {
   if (bidx != nullptr && b == nullptr) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int vecs = d / 4;
   if (idx != nullptr) {
-    launch_modulation<true>(a, b, idx, bidx, off, out, num_out, vecs, s);
-  } else {
-    launch_modulation<false>(a, b, idx, bidx, off, out, num_out, vecs, s);
+    return launch_modulation<true>(a, b, idx, bidx, off, out, num_out, d, lanes, slots, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  return launch_modulation<false>(a, b, idx, bidx, off, out, num_out, d, lanes, slots, s);
 }
 
 extern "C" const char* pamnet_cuda_error_string(int code) {

@@ -3,7 +3,9 @@ local_message_passing.py; JAX counterpart ``pamnet_tpu/models/layers.py``).
 
 Every aggregation goes through ``ops.triplet.triplet_aggregate`` over the
 batch's CSR offsets, every edge message through ``ops.gather.edge_message``
-(which gathers its node rows itself), and each folded triplet stream
+(which gathers its node rows itself; the global layer's sums its messages
+by node itself where the batch's rows are sorted by that node,
+``out_groups``), and each folded triplet stream
 through ``ops.sbf_modulate.sbf_modulate``, which sums its rows by center
 edge itself (``out_groups``: the batch's ``t2_ji_off``/``t1_ji_off``), so
 the folded path runs no kernel A sum over the triplets.  The layers hand
@@ -97,11 +99,14 @@ class GlobalMP(nn.Module):
         i_key, j_key = (("eg_dst", "eg_src") if flow == "source_to_target"
                         else ("eg_src", "eg_dst"))
         i_idx, j_idx = getattr(g, i_key), getattr(g, j_key)
-        m = _edge_message(self.mlp_m, x, edge_attr, i_idx, j_idx,
-                          self.W_edge_attr(edge_attr), g.eg_mask, plain,
-                          g.groups(i_key), g.groups(j_key))
-        x = x + aggregate(m, getattr(g, i_key + "_off"), i_idx, g.eg_mask, x.shape[0],
-                          total=g.valid["eg"], plain=plain)
+        args = (self.mlp_m, x, edge_attr, i_idx, j_idx, self.W_edge_attr(edge_attr),
+                g.eg_mask, plain, g.groups(i_key), g.groups(j_key))
+        if getattr(g, i_key + "_off") is not None:
+            # Rows sorted by i: the message summed by node in one kernel.
+            x = x + _edge_message(*args, out_groups=g.groups(i_key))
+        else:
+            x = x + aggregate(_edge_message(*args), None, i_idx, g.eg_mask, x.shape[0],
+                              plain=plain)
         x = self.mlp_x2(x)
         x = self.res1(x) + res_x
         x = self.res3(self.res2(x))
@@ -111,20 +116,21 @@ class GlobalMP(nn.Module):
 
 def _edge_message(mlp_m: nn.Sequential, x, e, i, j, gate=None, mask=None,
                   plain: bool = False, i_groups: Groups | None = None,
-                  j_groups: Groups | None = None):
+                  j_groups: Groups | None = None, out_groups: Groups | None = None):
     """silu(W @ concat(x_i, x_j, e) + b) * gate * mask with the x-projections
     hoisted to node level (reference: local_message_passing.py:40-46 and
     the message of global_message_passing.py); the kernel gathers the
     projected rows by ``i``/``j`` itself, and its backward sums over
-    ``i_groups``/``j_groups``, the CSRs of ``i``/``j``."""
+    ``i_groups``/``j_groups``, the CSRs of ``i``/``j``.  With ``out_groups``,
+    the sorted CSR of ``i``, the (N, D) sums of the messages by ``i``."""
     dim = x.shape[1]
     lin = mlp_m[0][0]
     w = lin.weight  # (dim, 3*dim) = [x_i | x_j | e]
     args = (x @ w[:, :dim].T, x @ w[:, dim:2 * dim].T, i, j,
             F.linear(e, w[:, 2 * dim:], lin.bias), gate, mask)
     if plain:
-        return edge_message_plain(*args)
-    return edge_message(*args, i_groups=i_groups, j_groups=j_groups)
+        return edge_message_plain(*args, None if out_groups is None else out_groups.off)
+    return edge_message(*args, i_groups=i_groups, j_groups=j_groups, out_groups=out_groups)
 
 
 class LocalMP(nn.Module):

@@ -4,8 +4,9 @@ At first use, every ``csrc/*.cu`` source of the package is compiled by
 ``nvcc`` for ``sm_90a`` (one process per source, all started together) and
 linked into one shared library with a plain C interface under
 ``build/torch_ext/`` at the repository root, named by a hash of the sources
-so an edited source is rebuilt.  The library is loaded with ``ctypes``;
-nothing here includes PyTorch's headers, so the build takes seconds.
+and the headers they include (``csrc/*.cuh``) so an edited one is rebuilt.
+The library is loaded with ``ctypes``; nothing here includes PyTorch's
+headers, so the build takes seconds.
 """
 
 from __future__ import annotations
@@ -28,13 +29,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signature of each exported function: (argtypes, restype).
 _SIGNATURES = {
-    "pamnet_triplet_aggregate": ([_P] * 6 + [_I, _I, _P], _I),
+    "pamnet_triplet_aggregate": ([_P] * 6 + [_I] * 4 + [_P], _I),
     "pamnet_sbf_modulate": ([_P] * 12 + [_I] * 5 + [_P], _I),
     "pamnet_sbf_modulate_backward": ([_P] * 17 + [_I] * 5 + [_P], _I),
     "pamnet_row_gather": ([_P, _P, _P, _I, _I, _I, _P], _I),
     "pamnet_edge_message": ([_P] * 8 + [_I, _I, _P], _I),
+    "pamnet_edge_message_sum": ([_P] * 8 + [_I] * 4 + [_P], _I),
     "pamnet_gather_product": ([_P] * 5 + [_I, _I, _I, _P], _I),
-    "pamnet_edge_message_backward": ([_P] * 10 + [_I, _I, _P], _I),
+    "pamnet_edge_message_backward": ([_P] * 10 + [_I] * 4 + [_P], _I),
     "pamnet_group_sum_split": ([_P] * 4 + [_I, _I, _I, _P], _I),
     "pamnet_cuda_error_string": ([_I], ctypes.c_char_p),
 }
@@ -59,7 +61,7 @@ def _sources() -> list[Path]:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in _sources():
+    for src in sorted(_sources() + list(CSRC.glob("*.cuh"))):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())

@@ -86,6 +86,36 @@ def triplet_aggregate_plain(a: torch.Tensor, off: torch.Tensor,
     return out.index_add_(0, seg, vals)
 
 
+# Rows whose loads one slot of the walk issues together (``kWalkUnroll`` of
+# ``csrc/csr_walk.cuh``), the most threads of a team (its block), and the
+# threads a walk aims to fill: two waves of an H100 (132 SMs x 2,048).
+WALK_UNROLL = 4
+WALK_MAX_TEAM = 256
+WALK_THREADS = 2 * 132 * 2048
+
+
+def walk_shape(d: int, num_out: int, total: int | None) -> tuple[int, int]:
+    """``(lanes, slots)`` of the team of threads that walks one output row
+    of a CSR sum (``csrc/csr_walk.cuh``), from what the host knows: ``lanes``
+    covers the ``d / 4`` float4 columns, rounded up to a power of two (D=12
+    leaves a lane idle) and at most 32 (wider rows loop over their columns);
+    ``slots`` is the power of two that gives each slot about ``WALK_UNROLL``
+    rows of a group of the mean length ``total / num_out``, but no more
+    than keeps all teams within ``WALK_THREADS`` threads, nor a team beyond
+    ``WALK_MAX_TEAM``.  (Timed on the H100, ``chip_smoke.py``
+    ``walk_shape_trials``: past two waves more slots only add per-thread
+    work; within them a long group gains from more.)  Where ``total`` is
+    unknown the shape is one slot, right for any CSR.  A function of its
+    arguments alone, so a fixed input keeps one summation order."""
+    vecs = max(1, -(-d // 4))
+    lanes = min(32, 1 << (vecs - 1).bit_length())
+    if total is None or num_out <= 0:
+        return lanes, 1
+    want = 1 << (max(1, -(-total // (num_out * WALK_UNROLL))) - 1).bit_length()
+    fill = 1 << (max(1, WALK_THREADS // (num_out * lanes)).bit_length() - 1)
+    return lanes, min(want, fill, WALK_MAX_TEAM // lanes)
+
+
 def _kernel_a(what: str, a, off, idx, b, bidx, total, split: bool = False,
               longest: int | None = None):
     """Check the operands and launch kernel A on the current stream, or with
@@ -120,9 +150,10 @@ def _kernel_a(what: str, a, off, idx, b, bidx, total, split: bool = False,
                                               out.data_ptr(), num_out, d,
                                               -1 if longest is None else longest, stream)
         else:
+            lanes, slots = walk_shape(d, num_out, total)
             code = lib.pamnet_triplet_aggregate(ptr(a), ptr(b), ptr(idx), ptr(bidx),
                                                 off.data_ptr(), out.data_ptr(), num_out,
-                                                d, stream)
+                                                d, lanes, slots, stream)
     _build.check(code, what)
     return out
 
@@ -249,7 +280,7 @@ SPLIT_ABOVE = 128
 
 def group_sum_route(groups: Groups) -> str:
     """The kernel ``group_sum`` launches for ``groups``: "walk" (kernel A, a
-    thread per group and 4 columns walking the group in order) when the
+    team of threads per group, ``walk_shape``) when the
     longest group is known on the host and at most ``SPLIT_ABOVE`` rows,
     else "split" (``group_sum_split``), which is right for every CSR."""
     if groups.longest is not None and groups.longest <= SPLIT_ABOVE:

@@ -9,13 +9,17 @@ Each entry of ``--order`` runs ``python3 chip_smoke.py`` in the parent's
 in ``+``; the runs go one after another, never side by side, and each one's
 output is kept whole under ``--out`` (``<i>_<p|c>.out``).  Printed, one JSON
 line per run: every kernel case of the group sums and the row gathers (by
-the case's name, whichever kernel list holds it), under ``<phase>_sbf`` the
+the case's name, whichever kernel list holds it), of kernel A (its sums,
+role swaps and walks on the batches' own CSRs) and of the edge message (rows,
+summed by node with the rows + sum of the same arrays beside it, and their
+backward), under ``<phase>_walk_shapes`` the walk's team-shape trials,
+under ``<phase>_sbf`` the
 cases of kernel B forward and backward and of kernel A's sums over the
 triplets, the launches per scored batch and per RNA step, the training
 steps' times, and with ``--profile`` the scoring forward's device time and
-each launch of the group sums, of kernel B, kernel A and the row gathers
-inside a QM9 and an RNA training step and the scoring forward.  It exits
-non-zero if a run failed.
+each launch of the group sums, of kernel B, kernel A, the edge message and
+the row gathers inside a QM9 and an RNA training step and the scoring
+forward.  It exits non-zero if a run failed.
 """
 
 from __future__ import annotations
@@ -27,24 +31,30 @@ import subprocess
 import sys
 
 _CASE_KEYS = ("ms", "enqueue_ms", "device_ms", "bound_ms", "plain_ms", "library_ms",
-              "library_device_ms", "max_abs_err", "route")
+              "library_device_ms", "max_abs_err", "route", "walk_shape", "rows_sum_ms",
+              "rows_sum_device_ms")
+# Kernel lists whose every case is printed: kernel A and the edge message.
+_WALK_LISTS = ("triplet_aggregate", "triplet_aggregate_grad_a", "edge_message",
+               "edge_message_sum", "edge_message_backward")
 _STEP_KEYS = ("ms_per_step", "enqueue_ms_per_step", "device_ms_per_step",
               "device_idle_share", "peak_mem_gb", "main_path_launches",
               "launches_per_step_forward", "launches_per_step_backward")
-_KERNEL_PHASES = ("kernels", "train_kernels", "rna_train_kernels")
+_KERNEL_PHASES = ("kernels", "walk_kernels", "train_kernels", "rna_train_kernels")
 _SBF_KEYS = ("ms", "enqueue_ms", "device_ms", "bound_ms", "plain_ms", "max_abs_err",
              "worst_err_over_tolerance", "valid")
 
 
 def _cases(phase: dict) -> list[dict]:
-    """The group-sum and row-gather cases of a kernel phase's line."""
+    """The group-sum, row-gather, kernel A and edge message cases of a
+    kernel phase's line."""
     out = []
-    for value in phase.values():
-        if not isinstance(value, list):
+    for key, value in phase.items():
+        if not isinstance(value, list) or key == "walk_shape_trials":
             continue
         for case in value:
             name = case.get("case", "") if isinstance(case, dict) else ""
-            if name.startswith(("sum by", "rows by", "radial table", "atom-type")):
+            if key in _WALK_LISTS or name.startswith(("sum by", "rows by", "radial table",
+                                                      "atom-type")):
                 out.append({"case": name, "d": case.get("d"),
                             **{k: case[k] for k in _CASE_KEYS if k in case}})
     return out
@@ -65,19 +75,30 @@ def _sbf_cases(phase: dict) -> list[dict]:
     return out
 
 
+def _launches(phase: dict) -> list[dict]:
+    """A profiled phase's launches of the port's kernels, named without
+    their namespace (older checkouts print it on non-template kernels)."""
+    return [{**ev, "name": ev["name"].replace("(anonymous namespace)::", "")}
+            for ev in phase.get("port_kernel_launches", [])]
+
+
 def _sbf_launches(phase: dict) -> list[dict]:
     """The launches of kernel B (forward, backward and its reduce), kernel A
-    and the row gathers in a profiled forward or step."""
-    return [ev for ev in phase.get("port_kernel_launches", [])
-            if ev["name"].startswith(("sbf_", "triplet_aggregate_kernel", "row_gather"))]
+    (the walk), the edge message and the row gathers in a profiled forward
+    or step."""
+    return [ev for ev in _launches(phase)
+            if ev["name"].startswith(("sbf_", "triplet_aggregate_kernel", "row_gather",
+                                      "csr_walk", "edge_message"))]
 
 
 def _in_step(phase: dict) -> list[dict]:
     """The launches of the sums by group of a profiled step: kernel A's
     no-modulation launches and the split kernel's."""
-    return [ev for ev in phase.get("port_kernel_launches", [])
+    return [ev for ev in _launches(phase)
             if ev["name"].startswith(("group_sum", "triplet_aggregate_kernel<true, false, false>",
-                                      "triplet_aggregate_kernel<false, false, false>"))]
+                                      "triplet_aggregate_kernel<false, false, false>",
+                                      "csr_walk_kernel<SumRow<true, false, false>",
+                                      "csr_walk_kernel<SumRow<false, false, false>"))]
 
 
 def summarize(lines: list[str]) -> dict:
@@ -93,6 +114,8 @@ def summarize(lines: list[str]) -> dict:
         elif phase in _KERNEL_PHASES or phase == "sbf_kernels":
             if phase in _KERNEL_PHASES:
                 res[phase] = _cases(obj)
+                if "walk_shape_trials" in obj:
+                    res[phase + "_walk_shapes"] = obj["walk_shape_trials"]
             res[phase + "_sbf"] = _sbf_cases(obj)
         elif phase in ("train", "rna_train"):
             res[phase] = {k: obj.get(k) for k in _STEP_KEYS}

@@ -11,15 +11,18 @@ from pamnet_tpu_torch.data.batch import build_perm_np
 from pamnet_tpu_torch.data.loader import GraphLoader
 from pamnet_tpu_torch.data.synthetic import synthetic_qm9_dataset, synthetic_rna_dataset
 from pamnet_tpu_torch.models.pamnet import PAMNet
+from pamnet_tpu_torch.ops import gather as gather_ops
+from pamnet_tpu_torch.ops import triplet as triplet_ops
 from pamnet_tpu_torch.ops.gather import (edge_message, edge_message_backward,
                                          edge_message_backward_plain, edge_message_plain,
-                                         row_gather, row_gather_plain)
+                                         edge_message_sum, row_gather, row_gather_plain)
 from pamnet_tpu_torch.ops.sbf_modulate import (sbf_modulate, sbf_modulate_backward,
                                                sbf_modulate_plain)
 from pamnet_tpu_torch.ops.triplet import (Groups, gather_product, gather_product_plain,
                                           group_sum, group_sum_plain, group_sum_split,
                                           triplet_aggregate, triplet_aggregate_grad_a,
-                                          triplet_aggregate_grad_a_plain, triplet_aggregate_plain)
+                                          group_sum_route, triplet_aggregate_grad_a_plain,
+                                          triplet_aggregate_plain, walk_shape)
 from pamnet_tpu_torch.train.loop import batch_loss
 
 pytestmark = pytest.mark.gpu
@@ -509,3 +512,145 @@ def test_sbf_modulate_summed_function_on_the_card(cuda):
     with pytest.raises(ValueError, match="sorted CSR"):
         sbf_modulate(*leaves, groups=groups, out_groups=out_groups._replace(total=2000),
                      out_ids=ids)
+
+
+# Group sizes the walk meets: empty, one row, a center edge's ~5 triplets, a
+# node's ~49 (RNA eg_src) and ~95 (eg_dst, longest) global edges, 128.
+_WALK_SIZES = (0, 1, 5, 49, 95, 128)
+_WALK_ROUTES = ("sum", "gather", "modulate", "gather+modulate", "role swap", "group sum",
+                "message", "message (gate, mask)")
+
+
+def _walk_case(cuda, route, d, seed):
+    """(kernel call, plain call, off) of one walk route at D=d on 36 groups
+    that cycle through ``_WALK_SIZES``, with a padded tail past off[-1]."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    sizes = [_WALK_SIZES[k % len(_WALK_SIZES)] for k in range(36)]
+    num_out, valid = len(sizes), sum(sizes)
+    rows = valid + 29
+    off = torch.tensor(np.concatenate([[0], np.cumsum(sizes)]), dtype=torch.int32, device=cuda)
+    r = lambda *s: torch.randn(*s, device=cuda, generator=g)  # noqa: E731
+    ri = lambda n, hi: torch.randint(0, hi, (n,), device=cuda,  # noqa: E731
+                                     generator=g).to(torch.int32)
+    if route in ("sum", "gather", "modulate", "gather+modulate"):
+        gather, modulate = "gather" in route, "modulate" in route
+        a = r(53 if gather else rows, d)
+        idx = ri(rows, 53) if gather else None
+        b = r(rows, d) if modulate else None
+        return (lambda: triplet_aggregate(a, off, idx, b, total=valid),
+                lambda: triplet_aggregate_plain(a, off, idx, b), off)
+    if route == "role swap":
+        perm = torch.cat([torch.randperm(valid, device=cuda, generator=g),
+                          torch.arange(valid, rows, device=cuda)]).to(torch.int32)
+        by_idx = Groups(off, perm, valid, max(sizes))
+        grad, seg_by_idx, b = r(41, d), ri(rows, 41), r(rows, d)
+        return (lambda: triplet_aggregate_grad_a(grad, by_idx, seg_by_idx, b),
+                lambda: triplet_aggregate_grad_a_plain(grad, by_idx, seg_by_idx, b), off)
+    if route == "group sum":
+        perm = torch.cat([torch.randperm(valid, device=cuda, generator=g),
+                          torch.arange(valid, rows, device=cuda)]).to(torch.int32)
+        groups = Groups(off, perm, valid, max(sizes))
+        assert group_sum_route(groups) == "walk"
+        x = r(rows, d)
+        return lambda: group_sum(x, groups), lambda: group_sum_plain(x, groups), off
+    gated = route == "message (gate, mask)"
+    i_idx = torch.cat([torch.repeat_interleave(
+        torch.arange(num_out, device=cuda), torch.tensor(sizes, device=cuda)),
+        torch.zeros(rows - valid, dtype=torch.long, device=cuda)]).to(torch.int32)
+    args = (r(num_out, d), r(num_out, d), i_idx, ri(rows, num_out), r(rows, d),
+            r(rows, d) if gated else None,
+            (torch.arange(rows, device=cuda) < valid).float() if gated else None)
+    out_groups = Groups(off, None, valid, max(sizes))
+    return (lambda: edge_message_sum(*args, out_groups),
+            lambda: edge_message_plain(*args, out_off=off), off)
+
+
+@pytest.mark.parametrize("d", [4, 8, 12, 16, 64, 128])
+@pytest.mark.parametrize("route", _WALK_ROUTES)
+def test_walk_every_route_and_team_shape(cuda, monkeypatch, route, d):
+    """The CSR walk on every route it serves (kernel A's flags, the role
+    swap, the walk route of group_sum, the summed edge message) at groups of
+    0-128 rows, for the shape the host picks and for every team shape up to
+    a block (teams of one or several warps): against the plain version,
+    empty groups exact zeros, two calls bitwise equal."""
+    lanes = walk_shape(d, 1, None)[0]
+    picked = walk_shape(d, 36, sum(_WALK_SIZES) * 6)
+    for shape in [picked] + [(lanes, s) for s in (1, 2, 4, 8, 16, 32, 64) if lanes * s <= 256]:
+        monkeypatch.setattr(triplet_ops, "walk_shape", lambda *a, _s=shape: _s)
+        monkeypatch.setattr(gather_ops, "walk_shape", lambda *a, _s=shape: _s)
+        fn, plain_fn, off = _walk_case(cuda, route, d, seed=d + len(route))
+        got = fn()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, plain_fn(), rtol=1e-5, atol=1e-4,
+                                   msg=lambda m, _s=shape: f"shape {_s}: {m}")
+        assert torch.all(got[off[1:] == off[:-1]] == 0.0)
+        assert torch.equal(got, fn()), shape
+
+
+@pytest.mark.parametrize("d", [16, 128])
+def test_edge_message_sum_identity_groups_give_the_rows(cuda, d):
+    """A group per row: the summed message writes the rows kernel's rows
+    bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(d)
+    rows = 3001
+    r = lambda *s: torch.randn(*s, device=cuda, generator=g)  # noqa: E731
+    i_idx = torch.arange(rows, device=cuda, dtype=torch.int32)
+    args = (r(rows, d), r(rows, d), i_idx,
+            torch.randint(0, rows, (rows,), device=cuda, generator=g).to(torch.int32),
+            r(rows, d), r(rows, d), (torch.arange(rows, device=cuda) % 7 > 0).float())
+    identity = Groups(torch.arange(rows + 1, dtype=torch.int32, device=cuda), None, rows)
+    assert torch.equal(edge_message(*args, out_groups=identity), edge_message(*args))
+
+
+@pytest.mark.parametrize("gated", [True, False])
+@pytest.mark.parametrize("d", [16, 128])
+def test_edge_message_summed_function_on_the_card(cuda, gated, d):
+    """The summed message end to end: one summed forward launch, one
+    backward kernel launch with the node gradient read at i and two group
+    sums, no row gather; outputs and gradients against PyTorch's autograd of
+    the plain version; the backward bitwise repeatable."""
+    g = torch.Generator(device=cuda).manual_seed(7 + d + gated)
+    nodes, rows = 257, 9000
+    valid = rows - 333
+    r = lambda *s: torch.randn(*s, device=cuda, generator=g)  # noqa: E731
+    i_sorted = torch.sort(torch.randint(0, nodes, (valid,), device=cuda, generator=g))[0]
+    off = torch.searchsorted(i_sorted, torch.arange(nodes + 1, device=cuda)).to(torch.int32)
+    i_idx = torch.cat([i_sorted, torch.zeros(rows - valid, dtype=torch.long,
+                                             device=cuda)]).to(torch.int32)
+    j_idx = torch.randint(0, nodes, (rows,), device=cuda, generator=g).to(torch.int32)
+    j_idx[valid:] = 0
+    perm, poff = build_perm_np(j_idx.cpu().numpy(), valid, nodes, rows)
+    j_groups = Groups(torch.from_numpy(poff).to(cuda), torch.from_numpy(perm).to(cuda), valid,
+                      int(np.diff(poff).max()))
+    out_groups = Groups(off, None, valid, int((off[1:] - off[:-1]).max()))
+    mask = (torch.arange(rows, device=cuda) < valid).float()
+    leaves = [r(nodes, d), r(nodes, d), r(rows, d), r(rows, d) if gated else None]
+    cot = r(nodes, d)
+
+    def run(fn_plain):
+        xs = [None if t is None else t.clone().requires_grad_() for t in leaves]
+        if fn_plain:
+            out = edge_message_plain(xs[0], xs[1], i_idx, j_idx, xs[2], xs[3], mask,
+                                     out_off=off)
+        else:
+            out = edge_message(xs[0], xs[1], i_idx, j_idx, xs[2], xs[3], mask,
+                               j_groups=j_groups, out_groups=out_groups)
+        (out * cot).sum().backward()
+        return out.detach(), [None if t is None else t.grad for t in xs]
+
+    counts = lambda: (edge_message.launches, edge_message_sum.launches,  # noqa: E731
+                      edge_message_backward.launches, group_sum.launches, row_gather.launches)
+    before = counts()
+    out, grads = run(False)
+    torch.cuda.synchronize()
+    assert np.subtract(counts(), before).tolist() == [1, 1, 1, 2, 0]
+    want, want_grads = run(True)
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-4)
+    for got_g, want_g in zip(grads, want_grads):
+        if want_g is not None:
+            err = float((got_g - want_g).abs().max())
+            assert err <= 1e-4 * float(want_g.abs().max()) + 1e-6
+    assert all(t is None or torch.equal(t[valid:], torch.zeros_like(t[valid:]))
+               for t in grads[2:])
+    again = run(False)
+    assert all(a is None or torch.equal(a, b) for a, b in zip(grads, again[1]))

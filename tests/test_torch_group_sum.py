@@ -134,28 +134,47 @@ def test_row_gather_plain_radial_table_matches_take(kind, key, valid):
 
 def test_smoke_compare_reads_the_compared_cases():
     """The two-checkout comparison keeps the group-sum and row-gather cases of
-    every kernel phase, the steps' times and the in-step group-sum launches."""
+    every kernel phase, kernel A's and the edge message's cases by name
+    (the walks on the scoring batch's own CSRs, the summed global message
+    with the rows + sum of the same arrays beside it), the steps' times and
+    the in-step launches of the group sums and of the walk."""
     import json
 
     from pamnet_tpu_torch.smoke_compare import summarize
 
     case = {"case": "sum by z (permuted CSR)", "d": 16, "ms": 0.05, "device_ms": 0.002,
             "route": "split", "rows": 9}
+    walk = {"case": "eg_src global sum, scoring batch", "d": 16, "device_ms": 0.03,
+            "walk_shape": [4, 8], "rows": 5}
+    summed = {"case": "global message summed, scoring batch", "d": 16, "device_ms": 0.09,
+              "rows_sum_device_ms": 0.15, "bound_ms": 0.07}
+    role = {"case": "d_a by role swap over the t2_kj CSR", "d": 128, "device_ms": 0.003}
+    launches = [{"name": "group_sum_cluster_kernel<true>(", "device_us": 7.7},
+                {"name": "sbf_modulate_kernel<7, 16>(", "device_us": 76.0},
+                {"name": "csr_walk_kernel<SumRow<false, false, false> >(", "device_us": 3.0},
+                {"name": "csr_walk_kernel<MessageRow<true, true> >(", "device_us": 60.0}]
     lines = [
         "not json",
         json.dumps({"phase": "device", "nvidia_smi": "card, 700.00 W"}),
+        json.dumps({"phase": "walk_kernels", "triplet_aggregate": [walk],
+                    "edge_message_sum": [summed]}),
+        json.dumps({"phase": "train_kernels", "triplet_aggregate_grad_a": [role]}),
         json.dumps({"phase": "rna_train_kernels", "pads": {"n": 1},
                     "group_sum_split": [case], "sbf_modulate": [{"case": "t2 fused"}]}),
         json.dumps({"phase": "rna_train", "ms_per_step": 20.0, "device_ms_per_step": 4.6}),
         json.dumps({"phase": "profile_rna_train", "device_ms_per_step_total": 4.7,
-                    "port_kernel_launches": [{"name": "group_sum_cluster_kernel<true>(", "device_us": 7.7},
-                                             {"name": "sbf_modulate_kernel<7, 16>(", "device_us": 76.0}]}),
+                    "port_kernel_launches": launches}),
         json.dumps({"ok": True, "device": {}}),
     ]
     got = summarize(lines)
     assert got["nvidia_smi"] == "card, 700.00 W" and got["ok"] is True
     assert got["rna_train_kernels"] == [{"case": case["case"], "d": 16, "ms": 0.05,
                                          "device_ms": 0.002, "route": "split"}]
+    assert got["walk_kernels"] == [
+        {"case": walk["case"], "d": 16, "device_ms": 0.03, "walk_shape": [4, 8]},
+        {"case": summed["case"], "d": 16, "device_ms": 0.09, "bound_ms": 0.07,
+         "rows_sum_device_ms": 0.15}]
+    assert got["train_kernels"] == [{"case": role["case"], "d": 128, "device_ms": 0.003}]
     assert got["rna_train"]["device_ms_per_step"] == 4.6
-    assert got["profile_rna_train"]["group_sum_launches"] == [
-        {"name": "group_sum_cluster_kernel<true>(", "device_us": 7.7}]
+    assert got["profile_rna_train"]["group_sum_launches"] == [launches[0], launches[2]]
+    assert got["profile_rna_train"]["sbf_launches"] == launches[1:]
