@@ -29,12 +29,17 @@ Phases, each printing one JSON line:
   5. train_kernels: each backward kernel against its plain version at the
      QM9 batch-32 pads (D=128), on the CSR arrays of a real training batch,
      and the unfolded path's gather of the radial table (D=42) at its pads;
+     the fused role swap (d_a and d_b in one walk) bitwise equal to the
+     role swap and gather_product of the same arrays and timed beside
+     them, and the gated el_dst sum's backward beside the row gather and
+     three multiplies it replaces;
   6. train: QM9 training at the recipe (dim 128, 6 layers, batch 32, f32,
      L1, Adam + clip 1000 + EMA 0.999, warmup-exponential at lr 1e-4) on
      synthetic molecules: the first step's gradients through the kernels
      against the plain route, a repeated step bitwise, launches per step of
      every forward and backward kernel (kernel A 3 a layer, the summed
-     global message 1, 1 row gather in the backward), an epoch (the training main path;
+     global message 1; in the backward the fused role swap 2 a layer, the
+     gated backward 1, no row gather and no gather_product), an epoch (the training main path;
      every kernel of the path must launch), ms per step and molecules/s on a
      resident batch, host enqueue time and peak memory; then
      ``python -m pamnet_tpu_torch.main_qm9`` in-process for one epoch;
@@ -46,16 +51,17 @@ Phases, each printing one JSON line:
      backward on the batch's own arrays; then every other wrapper
      an RNA training step launches, against its plain version at that
      batch's shapes (D=16): kernels A and B and the edge messages forward,
-     the row gathers with a valid count, the edge messages' backward and
-     the group sums on the batch's own index arrays;
+     the row gathers with a valid count, the edge messages' backward, the
+     gated el_dst sum's backward and the group sums on the batch's own
+     index arrays;
   8. rna_train: RNA training at the published recipe (dim 16, 1 layer, batch
      8, lr 1e-4 constant, SmoothL1, Adam, no clip, no EMA, f32) on synthetic
      structures written to and read from a TU directory: the first step's
      gradients through the kernels against the plain route and against the
      unfolded path, a repeated step bitwise, launches per step (kernel B 2
-     forward + 2 backward; kernel A 1 forward, the el_dst sum, and 1 row
-     gather in the backward, its backward; the global message summed by
-     node 1), an epoch (the RNA
+     forward + 2 backward; kernel A 1 forward, the el_dst sum, and its
+     gated backward 1, no row gather in the backward; the global message
+     summed by node 1), an epoch (the RNA
      training main path), ms per
      step, structures/s, device time per step, peak memory; then
      ``python -m pamnet_tpu_torch.main_rna_puzzles`` in-process: three epochs
@@ -65,7 +71,9 @@ Phases, each printing one JSON line:
      The group sums of both training phases are bitwise equal across two
      calls; the embedding's (the sum by ``z``) takes the split kernel
      (``group_sum_split``) on both training paths;
-  9. kernels: one line listing every kernel with its numbers.
+  9. kernels: one line listing every kernel with its numbers (the role
+     swap alone and gather_product are off the main paths since the fused
+     role swap: 0 launches, asserted).
 With ``--profile`` each phase also lists its device time by kernel and, for
 the scoring forward and a QM9 and an RNA training step, each launch of the
 port's kernels with its device time (``port_kernel_launches``).
@@ -196,8 +204,47 @@ def _device_us(ev) -> float:
 
 def _is_kernel(ev) -> bool:
     """A record of work on the card (not a host op or an autograd node that
-    the card's time is also attributed to)."""
-    return str(getattr(ev, "device_type", "")).endswith("CUDA") and _device_us(ev) > 0
+    the card's time is also attributed to, nor a user annotation such as
+    the optimizer's ``Optimizer.step#Adam.step``, whose span on the card
+    covers the kernels inside it)."""
+    return (str(getattr(ev, "device_type", "")).endswith("CUDA") and _device_us(ev) > 0
+            and not getattr(ev, "is_user_annotation", False))
+
+
+def cold_device_ms(fn, iters: int = 10, flush_bytes: int = 128 << 20,
+                   tries: int = 3) -> float | None:
+    """Mean device time of the kernels one call of ``fn`` launches with the
+    L2 cache flushed before each call (``flush_bytes`` read between calls,
+    so the cache holds clean lines that a miss evicts without a write-back):
+    what a caller whose operands were evicted since they were written sees.
+    Only the kernels of ``fn`` count, named from a profile of ``fn`` alone
+    (the profiler can drop every record of a short run, so a profile that
+    recorded none is taken again).  None ("not measured") after ``tries``
+    such profiles."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    buf = torch.ones(flush_bytes // 4, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        names = {ev.key for ev in prof.key_averages() if _is_kernel(ev)}
+        if not names:
+            continue
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                buf.sum()
+                fn()
+            torch.cuda.synchronize()
+        us = sum(_device_us(ev) / ev.count * max(1, round(ev.count / iters))
+                 for ev in prof.key_averages() if _is_kernel(ev) and ev.key in names)
+        if us > 0:
+            return us / 1e3
+    return None
 
 
 def compare(name: str, got, want, atol: float, rtol: float) -> dict:
@@ -491,6 +538,97 @@ def gather_product_case(gb, kind: str, d: int, gen) -> dict:
         f"d_b at {kind}", lambda: gather_product(*args), lambda: gather_product_plain(*args),
         None, gather_product(*args), gather_product_plain(*args), 0.0, 0.0, nbytes,
         valid * d, rows=idx.shape[0], valid=valid, d=d)
+
+
+def fused_role_swap_case(gb, kind: str, d: int, gen) -> dict:
+    """Kernel A's role swap with the gathered triplet sum's d_b in one walk
+    (``triplet_aggregate_grad_ab``) over the training batch's CSR of t2_kj /
+    t1_jj, b zero on the padded rows as the model masks it: d_a bitwise
+    the role swap alone's and d_b bitwise ``gather_product``'s on the same
+    arrays, against the plain version.  Timed alike beside it: the role
+    swap alone (``alone_*``) and the role swap + ``gather_product``
+    (``pair_*``), what the backward launched before the fusion.  No one
+    PyTorch call computes it."""
+    import torch
+
+    from pamnet_tpu_torch.ops.triplet import (gather_product, triplet_aggregate_grad_a,
+                                              triplet_aggregate_grad_ab,
+                                              triplet_aggregate_grad_ab_plain)
+
+    key = "t2_kj" if kind == "t2" else "t1_jj"
+    by_idx, idx, seg = gb.groups(key), getattr(gb, key), getattr(gb, kind + "_ji")
+    seg_by_idx = gb.perms["t2_ji_by_kj" if kind == "t2" else "t1_ji_by_jj"]
+    valid, e, rows = gb.valid[kind], gb.el_src.shape[0], idx.shape[0]
+    r = lambda *s: torch.randn(*s, device="cuda", generator=gen)  # noqa: E731
+    g, a, b = r(e, d), r(e, d), r(rows, d) * getattr(gb, kind + "_mask")[:, None]
+    args = (g, by_idx, seg_by_idx, b, a)
+    fn = lambda: triplet_aggregate_grad_ab(*args)  # noqa: E731
+    alone = lambda: triplet_aggregate_grad_a(*args[:4])  # noqa: E731
+    pair = lambda: (alone(), gather_product(a, idx, g, seg, valid))  # noqa: E731
+    got, want = fn(), pair()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError(f"fused role swap at {kind}: not the bits of the role swap "
+                             f"and gather_product")
+    if not torch.equal(got[1][valid:], torch.zeros_like(got[1][valid:])):
+        raise AssertionError(f"fused role swap at {kind}: padded d_b rows not zero")
+    # The role swap's bytes (the used g rows, b's valid rows, the two keys a
+    # row, the offsets, d_a), the non-empty groups' a rows, every d_b row
+    # and the tail's perm entries.
+    nbytes = (_unique(seg, valid) * d * 4 + valid * d * 4 + valid * 8 + (e + 1) * 4
+              + e * d * 4 + _unique(idx, valid) * d * 4 + rows * d * 4 + (rows - valid) * 4)
+    res = _timed_case(
+        f"d_a and d_b by the fused role swap over the {key} CSR", fn,
+        lambda: triplet_aggregate_grad_ab_plain(*args), None, got,
+        triplet_aggregate_grad_ab_plain(*args), 1e-4, 1e-5, nbytes, 3 * valid * d,
+        rows=rows, valid=valid, d=d, bitwise_vs_pair=True)
+    res.update(alone_ms=time_ms(alone), alone_device_ms=device_ms(alone),
+               pair_ms=time_ms(pair), pair_device_ms=device_ms(pair))
+    return res
+
+
+def gated_backward_case(gb, d: int, gen) -> dict:
+    """The backward of the local layer's gated el_dst sum,
+    ``gated_sum_backward``, on batch ``gb``'s own el_dst index and valid
+    count with random rows: both gradients in one launch against the plain
+    version within 1e-4 * max|g_plain| + 1e-6, rows past the valid count
+    zero.  Timed alike beside it (``rows_mul_*``): what the backward
+    launched before, on the same arrays: the node gradient gathered by
+    el_dst (``row_gather`` with the valid count), times the edge mask, then
+    times each operand.  Both again with the L2 cache flushed before each
+    call (``cold_device_ms``): at the RNA pads the operands (~25 MB) fit the
+    50 MB L2 and a warm loop reads them from there, faster than the HBM
+    bound, while in a step they were written in the forward and evicted
+    since.  No one PyTorch call computes it."""
+    import torch
+
+    from pamnet_tpu_torch.ops.gather import row_gather
+    from pamnet_tpu_torch.ops.triplet import gated_sum_backward, gated_sum_backward_plain
+
+    seg, valid, mask = gb.el_dst, gb.valid["el"], gb.el_mask
+    rows, nodes = seg.shape[0], gb.z.shape[0]
+    r = lambda *s: torch.randn(*s, device="cuda", generator=gen)  # noqa: E731
+    a, b, g = r(rows, d), r(rows, d), r(nodes, d)
+    fn = lambda: gated_sum_backward(a, b, g, seg, valid)  # noqa: E731
+
+    def rows_mul():
+        gm = row_gather(g, seg, valid=valid) * mask[:, None]
+        return gm * b, gm * a
+
+    got, want = fn(), gated_sum_backward_plain(a, b, g, seg, valid)
+    if any(not torch.equal(t[valid:], torch.zeros_like(t[valid:])) for t in got):
+        raise AssertionError("gated_sum_backward: rows past the valid count not zero")
+    atol = 1e-4 * max(float(w.abs().max()) for w in want) + 1e-6
+    res = _timed_case(
+        "gated el_dst sum backward", fn, lambda: gated_sum_backward_plain(a, b, g, seg, valid),
+        None, got, want, atol, 0.0,
+        2 * valid * d * 4 + valid * 4 + _unique(seg, valid) * d * 4 + 2 * rows * d * 4,
+        2 * valid * d, rows=rows, valid=valid, nodes=nodes, d=d,
+        tolerance_rule="1e-4 * max|g_plain| + 1e-6")
+    res.update(rows_mul_ms=time_ms(rows_mul), rows_mul_device_ms=device_ms(rows_mul),
+               rows_mul_max_abs_err=max(float((x - y).abs().max())
+                                        for x, y in zip(rows_mul(), got)),
+               cold_device_ms=cold_device_ms(fn), rows_mul_cold_device_ms=cold_device_ms(rows_mul))
+    return res
 
 
 def edge_backward_case(gb, which: str, d: int, gen, flow: str = "source_to_target",
@@ -877,8 +1015,10 @@ def main() -> int:
     from pamnet_tpu_torch.ops.gather import (edge_message, edge_message_backward,
                                              edge_message_sum, row_gather)
     from pamnet_tpu_torch.ops.sbf_modulate import sbf_modulate, sbf_modulate_backward
-    from pamnet_tpu_torch.ops.triplet import (gather_product, group_sum, group_sum_split,
-                                              triplet_aggregate, triplet_aggregate_grad_a)
+    from pamnet_tpu_torch.ops.triplet import (gated_sum_backward, gather_product, group_sum,
+                                              group_sum_split, triplet_aggregate,
+                                              triplet_aggregate_grad_a,
+                                              triplet_aggregate_grad_ab)
     from pamnet_tpu_torch.serve import RNAScoringService, make_server
     from pamnet_tpu_torch.weights import init_params
 
@@ -942,7 +1082,9 @@ def main() -> int:
                 "edge_message": edge_message, "edge_message_sum": edge_message_sum,
                 "row_gather": row_gather,
                 "triplet_aggregate_grad_a": triplet_aggregate_grad_a,
-                "gather_product": gather_product, "group_sum": group_sum,
+                "triplet_aggregate_grad_ab": triplet_aggregate_grad_ab,
+                "gather_product": gather_product, "gated_sum_backward": gated_sum_backward,
+                "group_sum": group_sum,
                 "group_sum_split": group_sum_split,
                 "edge_message_backward": edge_message_backward,
                 "sbf_modulate_backward": sbf_modulate_backward}
@@ -1127,10 +1269,11 @@ def main() -> int:
     # node on the scoring batch and the
     # embedding lookup (RNA batch-16 scoring shapes); the t2 role swap and product, the global
     # message's backward, the sum by el_src and the embedding's backward sum
-    # by the split kernel (QM9 training shapes); kernel B's summed backward
+    # by the split kernel, the fused role swap at t2 and the gated el_dst
+    # sum's backward (QM9 training shapes); kernel B's summed backward
     # at t2 and dim 16 (RNA batch-8 training shapes).  "rna_train" holds the same
     # numbers of the kernel's first case at the RNA training shapes (null for
-    # the two kernels that path does not run).  Launches add the serving, the
+    # the kernels that path does not run).  Launches add the serving, the
     # QM9 training and the RNA training main paths; group_sum counts its
     # calls, of either kernel, and group_sum_split the split kernel's.
     table = [
@@ -1147,8 +1290,13 @@ def main() -> int:
         ("triplet_aggregate_grad_a", "triplet_aggregate.cu",
          "pamnet_tpu/ops/pallas_triplet.py:122", bwd_cases["triplet_aggregate_grad_a"],
          bwd_cases["triplet_aggregate_grad_a"][0]),
+        ("triplet_aggregate_grad_ab", "triplet_aggregate.cu",
+         "pamnet_tpu/ops/pallas_triplet.py:122", bwd_cases["triplet_aggregate_grad_ab"],
+         bwd_cases["triplet_aggregate_grad_ab"][0]),
         ("gather_product", "gather_backward.cu", "pamnet_tpu/ops/pallas_triplet.py:129",
          bwd_cases["gather_product"], bwd_cases["gather_product"][0]),
+        ("gated_sum_backward", "gather_backward.cu", "pamnet_tpu/ops/pallas_triplet.py:122",
+         bwd_cases["gated_sum_backward"], bwd_cases["gated_sum_backward"][0]),
         ("edge_message_backward", "gather_backward.cu", "tools/vmem_gather_probe.py:86",
          bwd_cases["edge_message_backward"], bwd_cases["edge_message_backward"][0]),
         ("group_sum", "triplet_aggregate.cu", "tools/vmem_gather_probe.py:42",
@@ -1174,6 +1322,13 @@ def main() -> int:
                        if name in rna_cases else None)}
         for name, src, replaces, cases, rep in table
     ]
+    # The role swap alone and gather_product are routes for one gradient
+    # wanted; every main path wants both, which the fused role swap gives.
+    off_path = {k["name"] for k in kernels if k["launches"] == 0}
+    if off_path != {"triplet_aggregate_grad_a", "gather_product"}:
+        raise AssertionError(f"kernels off the main paths: {sorted(off_path)}")
+    for k in kernels:
+        k["on_main_path"] = k["name"] not in off_path
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
@@ -1235,8 +1390,11 @@ def train_phase(args, gen, reset_counts, read_counts, emit_kernels) -> tuple[dic
     # ---- 5. backward kernels at the QM9 pads ----
     cases = {
         "triplet_aggregate_grad_a": [grad_a_case(gb, "t2", d, gen), grad_a_case(gb, "t1", d, gen)],
+        "triplet_aggregate_grad_ab": [fused_role_swap_case(gb, "t2", d, gen),
+                                      fused_role_swap_case(gb, "t1", d, gen)],
         "gather_product": [gather_product_case(gb, "t2", d, gen),
                            gather_product_case(gb, "t1", d, gen)],
+        "gated_sum_backward": [gated_backward_case(gb, d, gen)],
         "edge_message_backward": [edge_backward_case(gb, w, d, gen)
                                   for w in ("global", "local m_kj", "local m_ji")]
         + [edge_backward_case(gb, "global", d, gen, summed=True)],
@@ -1277,17 +1435,21 @@ def train_phase(args, gen, reset_counts, read_counts, emit_kernels) -> tuple[dic
     torch.cuda.synchronize()
     bwd = read_counts()
     need_fwd = ("triplet_aggregate", "edge_message", "edge_message_sum", "row_gather")
-    need_bwd = ("triplet_aggregate_grad_a", "gather_product", "group_sum",
-                "group_sum_split", "edge_message_backward", "row_gather")
+    need_bwd = ("triplet_aggregate_grad_ab", "gated_sum_backward", "group_sum",
+                "group_sum_split", "edge_message_backward")
     if (min(fwd[k] for k in need_fwd) < 1 or min(bwd[k] for k in need_bwd) < 1
             or bwd["group_sum"] <= bwd["group_sum_split"]):
         raise AssertionError(f"a step skipped a kernel: forward {fwd}, backward {bwd}")
     # The global message sums itself by node: per layer kernel A's forward
-    # launches are the t2/t1 gathered sums and the el_dst sum, and the
-    # backward's row gathers the el_dst sum's alone.
+    # launches are the t2/t1 gathered sums and the el_dst sum.  In the
+    # backward each triplet sum's d_a and d_b are one fused role swap (no
+    # role swap alone, no gather_product) and the el_dst sum's two
+    # gradients one gated backward (no row gather).
     if (fwd["triplet_aggregate"] != 3 * cfg.n_layer or fwd["edge_message_sum"] != cfg.n_layer
-            or bwd["row_gather"] != cfg.n_layer):
-        raise AssertionError(f"kernel A / summed message / row gather launches per step: "
+            or bwd["triplet_aggregate_grad_ab"] != 2 * cfg.n_layer
+            or bwd["gated_sum_backward"] != cfg.n_layer or bwd["row_gather"]
+            or bwd["gather_product"] or bwd["triplet_aggregate_grad_a"]):
+        raise AssertionError(f"kernel A / summed message / backward launches per step: "
                              f"forward {fwd}, backward {bwd}")
 
     # One step from the same state, twice: bitwise equal.
@@ -1482,6 +1644,7 @@ def rna_train_phase(args, mols, gen, reset_counts, read_counts, emit_line) -> tu
             + [edge_backward_case(gb, "global", d, gen, flow, summed=True)],
             "edge_message_sum": [message_sum_case(gb, "global message summed, batch", d, gen,
                                                   flow)],
+            "gated_sum_backward": [gated_backward_case(gb, d, gen)],
             "group_sum": [group_sum_case(gb, k, d, gen)
                           for k in ("el_src", "eg_dst", "el_dst", "eg_src")],
             "group_sum_split": [group_sum_case(gb, "z", d, gen)],
@@ -1529,16 +1692,17 @@ def rna_train_phase(args, mols, gen, reset_counts, read_counts, emit_line) -> tu
         # Kernel B sums the t2/t1 streams by center edge itself and the
         # global message sums itself by node: the forward's kernel A launch
         # is the el_dst sum alone (the unfolded forward adds its two gathered
-        # sums), and the backward's row gather is that sum's backward alone
-        # (none by t2_ji/t1_ji, none by eg_src).
+        # sums), and its two gradients are one gated backward: no row
+        # gather in the backward (none by t2_ji/t1_ji, eg_src or el_dst).
         if not (fwd["triplet_aggregate"] == 1 == fwd_unfolded["triplet_aggregate"] - 2
-                and fwd["edge_message_sum"] == 1 and bwd["row_gather"] == 1):
+                and fwd["edge_message_sum"] == 1 and bwd["gated_sum_backward"] == 1
+                and bwd["row_gather"] == 0):
             raise AssertionError(f"kernel A / row gather launches per step: forward {fwd}, "
                                  f"backward {bwd}, unfolded forward {fwd_unfolded}")
         need_fwd = ("triplet_aggregate", "sbf_modulate", "edge_message", "edge_message_sum",
                     "row_gather")
         need_bwd = ("sbf_modulate_backward", "group_sum", "group_sum_split",
-                    "edge_message_backward", "row_gather")
+                    "edge_message_backward", "gated_sum_backward")
         if (min(fwd[k] for k in need_fwd) < 1 or min(bwd[k] for k in need_bwd) < 1
                 or bwd["group_sum"] <= bwd["group_sum_split"]):
             raise AssertionError(f"a step skipped a kernel: forward {fwd}, backward {bwd}")

@@ -22,9 +22,20 @@
 // of every sum is fixed, so two calls give the same bits.  The host picks
 // the shape (ops/triplet.py::walk_shape) from D and the mean group length;
 // a team is at most a block and divides it.
+//
+// A row functor may also write per-row outputs beside the sum (the role
+// swap's d_b): a row that declares its own Value type gets it back in
+// row.add(), which runs exactly once for each (summed row, column) of a
+// lane that holds the column, after the loads of its batch of rows were
+// issued, and never on an idle lane (D = 12 leaves one).  With TAIL, the
+// grid takes `tail` threads past the last team, and thread k of them calls
+// row.tail(k) once: the rows that no group holds (a CSR's padded rows) are
+// written in the same launch.
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -41,16 +52,34 @@ __device__ __forceinline__ void add_to(float4& acc, const float4& v) {
   acc.w += v.w;
 }
 
+// What a row loads per (summed row, column): a float4 that the walk adds,
+// or the row's own Value, which row.add() adds (and may store from).
+template <class Row, class = void>
+struct WalkValue {
+  using type = float4;
+  static constexpr bool kOwn = false;
+};
+template <class Row>
+struct WalkValue<Row, std::void_t<typename Row::Value>> {
+  using type = typename Row::Value;
+  static constexpr bool kOwn = true;
+};
+
 // Row must provide:
 //   struct Key;    per summed row, loaded before the row's values (indices)
 //   struct Group;  per (output row, column), loaded once (e.g. xi[e])
 //   Group group(long long e, int c, bool ok) const;
 //   Key key(int r, bool ok) const;          ok false: r is past the group
 //   float4 value(const Group&, const Key&, int r, int c) const;
-template <class Row>
+// or, declaring its own Value,
+//   Value value(const Group&, const Key&, int r, int c) const;
+//   void add(float4& acc, const Group&, const Key&, const Value&, int c) const;
+// and, with TAIL,
+//   void tail(long long k) const;           k in [0, tail)
+template <class Row, bool TAIL = false>
 __global__ void __launch_bounds__(kWalkThreads)
 csr_walk_kernel(Row row, const int* __restrict__ off, float4* __restrict__ out,
-                int num_out, int vecs, int lanes_log2, int slots_log2) {
+                int num_out, int vecs, int lanes_log2, int slots_log2, long long tail) {
   // One float4 per thread: each warp's sum, for teams of several warps.
   __shared__ float4 warp_sums[kWalkThreads];
   const int team_log2 = lanes_log2 + slots_log2;
@@ -63,6 +92,13 @@ csr_walk_kernel(Row row, const int* __restrict__ off, float4* __restrict__ out,
   const int lanes = 1 << lanes_log2;
   const int stride = (1 << slots_log2) * kWalkUnroll;
   const bool live = e < num_out;
+  if constexpr (TAIL) {
+    const long long teams_end = static_cast<long long>(num_out) << team_log2;
+    if (t >= teams_end && t - teams_end < tail) row.tail(t - teams_end);
+    // A block of tail threads alone holds no team: it has no shuffle or
+    // barrier to reach.
+    if (static_cast<long long>(blockIdx.x) * kWalkThreads >= teams_end) return;
+  }
   const int start = live ? __ldg(off + e) : 0;
   const int stop = live ? __ldg(off + e + 1) : 0;
   // Every thread of the block runs the same column steps, so each reaches
@@ -79,7 +115,7 @@ csr_walk_kernel(Row row, const int* __restrict__ off, float4* __restrict__ out,
         const int r = r0 + (u << slots_log2);
         key[u] = row.key(r, r < stop);
       }
-      float4 v[kWalkUnroll];
+      typename WalkValue<Row>::type v[kWalkUnroll];
 #pragma unroll
       for (int u = 0; u < kWalkUnroll; ++u) {
         const int r = r0 + (u << slots_log2);
@@ -87,7 +123,13 @@ csr_walk_kernel(Row row, const int* __restrict__ off, float4* __restrict__ out,
       }
 #pragma unroll
       for (int u = 0; u < kWalkUnroll; ++u) {
-        if (col && r0 + (u << slots_log2) < stop) add_to(acc, v[u]);
+        if (col && r0 + (u << slots_log2) < stop) {
+          if constexpr (WalkValue<Row>::kOwn) {
+            row.add(acc, grp, key[u], v[u], c);
+          } else {
+            add_to(acc, v[u]);
+          }
+        }
       }
     }
     for (int o = lanes; o < (1 << warp_team_log2); o <<= 1) {
@@ -117,20 +159,22 @@ int log2_of(int x) {
   return (1 << n) == x ? n : -1;
 }
 
-// Checks the team shape and launches the walk on `stream`; returns the
-// launch's cudaError_t.
-template <class Row>
+// Checks the team shape and launches the walk on `stream`, with `tail`
+// threads of row.tail() past the teams where TAIL; returns the launch's
+// cudaError_t.
+template <class Row, bool TAIL = false>
 int launch_walk(const Row& row, const int* off, float* out, int num_out, int d, int lanes,
-                int slots, cudaStream_t stream) {
+                int slots, cudaStream_t stream, long long tail = 0) {
   const int lanes_log2 = log2_of(lanes), slots_log2 = log2_of(slots);
   if (d <= 0 || d % 4 != 0 || num_out <= 0 || lanes_log2 < 0 || slots_log2 < 0 ||
-      lanes > 32 || lanes * slots > kWalkThreads) {
+      lanes > 32 || lanes * slots > kWalkThreads || tail < 0 || (tail > 0 && !TAIL)) {
     return cudaErrorInvalidValue;
   }
-  const long long threads = static_cast<long long>(num_out) << (lanes_log2 + slots_log2);
+  const long long threads =
+      (static_cast<long long>(num_out) << (lanes_log2 + slots_log2)) + tail;
   const unsigned blocks = static_cast<unsigned>((threads + kWalkThreads - 1) / kWalkThreads);
-  csr_walk_kernel<Row><<<blocks, kWalkThreads, 0, stream>>>(
-      row, off, reinterpret_cast<float4*>(out), num_out, d / 4, lanes_log2, slots_log2);
+  csr_walk_kernel<Row, TAIL><<<blocks, kWalkThreads, 0, stream>>>(
+      row, off, reinterpret_cast<float4*>(out), num_out, d / 4, lanes_log2, slots_log2, tail);
   return static_cast<int>(cudaGetLastError());
 }
 

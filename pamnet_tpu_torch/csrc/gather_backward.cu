@@ -9,6 +9,10 @@
 //                           d_gate[r] = G * mask[r] * silu(pre)
 //                           (r < valid; both 0 for r >= valid)
 //
+//   gated_sum_backward:     d_a[r]    = g[seg[r], :] * b[r, :]       (r < valid)
+//                           d_b[r]    = a[r, :] * g[seg[r], :]
+//                           (both 0 for r >= valid)
+//
 // gate and mask may be null (no factor; then no d_gate).  silu'(p) =
 // s (1 + p (1 - s)) with s = sigmoid(p).  The summed form is the backward of
 // the edge message summed by the node it goes to (edge_message_sum in
@@ -17,12 +21,18 @@
 // rows past the CSR's valid count, which the sum never read, get zeros.
 //
 // gather_product is d_b[t] = a[idx[t]] * g[seg[t]] of kernel A's gather +
-// modulate sum.  The rest of the edge message's backward is
+// modulate sum (the role swap computes it itself where d_a is wanted too,
+// triplet_aggregate.cu).  gated_sum_backward is both gradients of kernel
+// A's modulated sum without a gather, out[e] = sum_{r in group e} a[r] *
+// b[r]: the local layer's el_dst sum with the rbf gate as b, whose output
+// gradient each row reads at its node seg[r] (sorted, so neighbouring
+// threads read the same L2-resident row).  The rest of the edge message's backward is
 // kernel A: d_base = d_pre, and d_xi, d_xj are sums of d_pre by i and by j
 // over the CSR of each endpoint.
 //
 // Replaces: the backward of pamnet_tpu/ops/pallas_triplet.py (the custom
-// VJP's d_b = a[idx] * g[seg] at :129, left to XLA on the TPU) and the
+// VJP's d_b = a[idx] * g[seg] at :129, left to XLA on the TPU, and, with
+// idx the identity, the whole of _bwd :122-130 for gated_sum_backward) and the
 // backward of the row gathers of tools/vmem_gather_probe.py:86
 // (probe_fori_rate, the edge message's gather of node rows).
 //
@@ -42,6 +52,11 @@
 // (E, D) activation.  Rows are independent: no atomics, deterministic.
 // Registers (cuobjdump -res-usage, chip_smoke.py kernel_resources, sm_90a):
 // edge_message_backward 29 without a gate, 32 with one, in both forms.
+// gated_sum_backward reads a, b and the g row of each row's node and writes
+// d_a, d_b: ~25 MB at the RNA batch-8 pads (el 91,136, D=16), 7.3 us at
+// 3.35 TB/s, two multiplies per 32 bytes.  Its outputs, read once by the
+// next kernels, go out with streaming stores (__stcs), so they do not evict
+// the g rows that neighbouring threads share.
 #include <cuda_runtime.h>
 
 namespace {
@@ -74,6 +89,27 @@ __global__ void gather_product_kernel(const float* __restrict__ x,
              __ldg(reinterpret_cast<const float4*>(y) + yr * vecs + c));
   }
   reinterpret_cast<float4*>(out)[tid] = v;
+}
+
+__global__ void gated_sum_backward_kernel(const float4* __restrict__ a,
+                                          const float4* __restrict__ b,
+                                          const float4* __restrict__ g,
+                                          const int* __restrict__ seg,
+                                          float4* __restrict__ d_a, float4* __restrict__ d_b,
+                                          int rows, int valid, int vecs) {
+  const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (tid >= static_cast<long long>(rows) * vecs) return;
+  const int r = static_cast<int>(tid / vecs);
+  const int c = static_cast<int>(tid - static_cast<long long>(r) * vecs);
+  float4 da = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 db = da;
+  if (r < valid) {
+    const float4 gr = __ldg(g + static_cast<long long>(__ldg(seg + r)) * vecs + c);
+    da = mul4(gr, __ldg(b + tid));
+    db = mul4(__ldg(a + tid), gr);
+  }
+  __stcs(d_a + tid, da);
+  __stcs(d_b + tid, db);
 }
 
 // One element: d_pre and (GATE) d_gate.
@@ -170,6 +206,26 @@ extern "C" int pamnet_gather_product(const float* x, const int* xi, const float*
   gather_product_kernel<<<blocks_for(static_cast<long long>(rows) * vecs), kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(x, xi, y, yi, out, rows,
                                                                valid, vecs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// a, b: (rows, d) f32; g: (num_out, d) f32; seg: (rows,) i32, the output
+// row of each row (read for r < valid); d_a, d_b: (rows, d) f32.  d % 4 ==
+// 0, 0 <= valid <= rows, all 16-byte aligned.  Returns the launch's
+// cudaError_t.
+extern "C" int pamnet_gated_sum_backward(const float* a, const float* b, const float* g,
+                                         const int* seg, float* d_a, float* d_b, int rows,
+                                         int valid, int d, void* stream) {
+  if (rows <= 0 || d <= 0 || d % 4 != 0 || valid < 0 || valid > rows || !a || !b || !g ||
+      !seg || !d_a || !d_b) {
+    return cudaErrorInvalidValue;
+  }
+  const int vecs = d / 4;
+  gated_sum_backward_kernel<<<blocks_for(static_cast<long long>(rows) * vecs), kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float4*>(a), reinterpret_cast<const float4*>(b),
+      reinterpret_cast<const float4*>(g), seg, reinterpret_cast<float4*>(d_a),
+      reinterpret_cast<float4*>(d_b), rows, valid, vecs);
   return static_cast<int>(cudaGetLastError());
 }
 

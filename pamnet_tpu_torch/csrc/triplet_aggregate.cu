@@ -12,6 +12,12 @@
 //     d_a[v] = sum_{r: idx[r] = v} g[seg[r]] * b[r]
 //   is this kernel over the CSR of idx (perm, poff) with a := g,
 //   idx := seg[perm] and bidx := perm, so no permuted copy of b is written;
+// * the same role swap with the gathered sum's d_b in one pass
+//   (RoleSwapRow): walking group v of the CSR of idx, the kernel holds
+//   a[v] and writes d_b[perm[r]] = a[v] * g[seg[perm[r]]] for each row r
+//   it sums, so d_b = a[idx] * g[seg] needs no launch of its own; the rows
+//   past the CSR's valid count (parked at the end of perm) get zero rows
+//   from threads past the last team (the walk's tail);
 // * the backward of every row gather, d_src[v] = sum_{r: idx[r] = v} g[r]:
 //   gather only, idx := perm over the CSR of idx, or no gather where the
 //   rows are sorted by idx.
@@ -51,6 +57,13 @@
 // * Registers (cuobjdump -res-usage, chip_smoke.py kernel_resources, sm_90a):
 //   40 (no gather, no modulation) to 60 (gather, b through bidx), no stack;
 //   4 KB of shared memory for the warps' sums of a team of several warps.
+// * The fused role swap (RoleSwapRow) reads its d_a operands exactly as
+//   SumRow<true, true, true> does, in the same team shape, so d_a has the
+//   role swap's bits; d_b is one product per element, gather_product's
+//   bits.  It holds a[v] (a float4 a lane) through the group's walk: the
+//   rows of a group share it, and the t2/t1 role swaps have ~1.3 rows a
+//   group at the QM9 pads, where d_b's own launch cost more than its
+//   bytes.
 #include "csr_walk.cuh"
 
 namespace {
@@ -89,6 +102,72 @@ struct SumRow {
       v.w *= w.w;
     }
     return v;
+  }
+};
+
+// The fused role swap's row: kernel A's role swap (d_a[v] += g[seg[r]] *
+// b[perm[r]], SumRow<true, true, true> with a := g, idx := seg, bidx :=
+// perm, the product taken in value() and added in add() as that row's is)
+// that also stores d_b[perm[r]] = a[v] * g[seg[r]] for each row r it sums,
+// after the batch's loads, and zeros the rows perm[total..rows) in its
+// tail.
+struct RoleSwapRow {
+  const float4* g;
+  const float4* b;
+  const float4* a;
+  const int* seg;
+  const int* perm;
+  float4* d_b;
+  int vecs;
+  int total;
+
+  struct Key {
+    int a, b;
+  };
+  struct Group {
+    float4 a;
+  };
+  // The summed product g * b and the gradient row g it came from.
+  struct Value {
+    float4 prod, g;
+  };
+
+  __device__ __forceinline__ Group group(long long e, int c, bool ok) const {
+    return {ok ? __ldg(a + e * vecs + c) : make_float4(0.f, 0.f, 0.f, 0.f)};
+  }
+
+  __device__ __forceinline__ Key key(int r, bool ok) const {
+    Key k;
+    k.a = ok ? __ldg(seg + r) : 0;
+    k.b = ok ? __ldg(perm + r) : 0;
+    return k;
+  }
+
+  __device__ __forceinline__ Value value(const Group&, const Key& k, int, int c) const {
+    Value out;
+    out.g = __ldg(g + static_cast<long long>(k.a) * vecs + c);
+    float4 v = out.g;
+    const float4 w = __ldg(b + static_cast<long long>(k.b) * vecs + c);
+    v.x *= w.x;
+    v.y *= w.y;
+    v.z *= w.z;
+    v.w *= w.w;
+    out.prod = v;
+    return out;
+  }
+
+  __device__ __forceinline__ void add(float4& acc, const Group& grp, const Key& k,
+                                      const Value& v, int c) const {
+    d_b[static_cast<long long>(k.b) * vecs + c] =
+        make_float4(grp.a.x * v.g.x, grp.a.y * v.g.y, grp.a.z * v.g.z, grp.a.w * v.g.w);
+    add_to(acc, v.prod);
+  }
+
+  // Thread k of the tail: column k % vecs of padded row perm[total + k / vecs].
+  __device__ __forceinline__ void tail(long long k) const {
+    const long long r = total + k / vecs;
+    d_b[static_cast<long long>(__ldg(perm + r)) * vecs + k % vecs] =
+        make_float4(0.f, 0.f, 0.f, 0.f);
   }
 };
 
@@ -131,6 +210,32 @@ extern "C" int pamnet_triplet_aggregate(const float* a, const float* b,
     return launch_modulation<true>(a, b, idx, bidx, off, out, num_out, d, lanes, slots, s);
   }
   return launch_modulation<false>(a, b, idx, bidx, off, out, num_out, d, lanes, slots, s);
+}
+
+// The fused role swap.  g: (rows of g, d) f32, the forward's output
+// gradient; b: (rows, d) f32; a: (num_out, d) f32, the forward's gathered
+// table; seg: (rows,) i32, seg[perm[r]] of the forward's rows in the CSR's
+// order; perm: (rows,) i32, a permutation of the rows grouped by the
+// forward's idx, the padded rows perm[total..rows) after the groups; off:
+// (num_out + 1,) i32 with off[num_out] = total; d_a: (num_out, d) f32;
+// d_b: (rows, d) f32, every row written.  d % 4 == 0, all 16-byte aligned;
+// lanes, slots: the team shape.  Returns the launch's cudaError_t.
+extern "C" int pamnet_triplet_aggregate_grad_ab(const float* g, const float* b,
+                                                const float* a, const int* seg,
+                                                const int* perm, const int* off, float* d_a,
+                                                float* d_b, int num_out, int rows, int total,
+                                                int d, int lanes, int slots, void* stream) {
+  if (d <= 0 || d % 4 != 0 || total < 0 || total > rows || !g || !b || !a || !seg ||
+      !perm || !d_b) {
+    return cudaErrorInvalidValue;
+  }
+  const int vecs = d / 4;
+  const RoleSwapRow row{reinterpret_cast<const float4*>(g), reinterpret_cast<const float4*>(b),
+                        reinterpret_cast<const float4*>(a), seg, perm,
+                        reinterpret_cast<float4*>(d_b), vecs, total};
+  return launch_walk<RoleSwapRow, true>(row, off, d_a, num_out, d, lanes, slots,
+                                        static_cast<cudaStream_t>(stream),
+                                        static_cast<long long>(rows - total) * vecs);
 }
 
 extern "C" const char* pamnet_cuda_error_string(int code) {

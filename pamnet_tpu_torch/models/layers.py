@@ -203,10 +203,21 @@ class LocalMP(nn.Module):
 
     def _tail(self, x, res_x, m, rbf, g, plain):
         """rbf gating, edge->node sum at el_dst, residual update and heads
-        (reference: local_message_passing.py:53-66)."""
-        m = self.lin_rbf_out(rbf) * m * g.el_mask[:, None]
-        x = x + aggregate(m, g.el_dst_off, g.el_dst, g.el_mask, x.shape[0],
-                          total=g.valid["el"], plain=plain)
+        (reference: local_message_passing.py:53-66).  Where the batch's
+        edges are sorted by el_dst, the gate rides in the sum as kernel A's
+        modulation ``b`` and its backward is one kernel
+        (``gated_sum_backward``); the ``el_mask`` product is the CSR's valid
+        count there, since a batch's ``el_mask`` is 1 on exactly the rows
+        ``[0, valid["el"])``.  The plain and the argsort routes multiply,
+        then sum, as the reference does."""
+        gate = self.lin_rbf_out(rbf)
+        if g.el_dst_off is not None and not plain:
+            s = aggregate(m, g.el_dst_off, g.el_dst, g.el_mask, x.shape[0], b=gate,
+                          total=g.valid["el"])
+        else:
+            s = aggregate(gate * m * g.el_mask[:, None], g.el_dst_off, g.el_dst, g.el_mask,
+                          x.shape[0], total=g.valid["el"], plain=plain)
+        x = x + s
         x = self.mlp_x2(x)
         x = self.res1(x) + res_x
         x = self.res3(self.res2(x))

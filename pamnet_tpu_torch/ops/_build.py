@@ -35,7 +35,9 @@ _SIGNATURES = {
     "pamnet_row_gather": ([_P, _P, _P, _I, _I, _I, _P], _I),
     "pamnet_edge_message": ([_P] * 8 + [_I, _I, _P], _I),
     "pamnet_edge_message_sum": ([_P] * 8 + [_I] * 4 + [_P], _I),
+    "pamnet_triplet_aggregate_grad_ab": ([_P] * 8 + [_I] * 6 + [_P], _I),
     "pamnet_gather_product": ([_P] * 5 + [_I, _I, _I, _P], _I),
+    "pamnet_gated_sum_backward": ([_P] * 6 + [_I] * 3 + [_P], _I),
     "pamnet_edge_message_backward": ([_P] * 10 + [_I] * 4 + [_P], _I),
     "pamnet_group_sum_split": ([_P] * 4 + [_I, _I, _I, _P], _I),
     "pamnet_cuda_error_string": ([_I], ctypes.c_char_p),

@@ -5,8 +5,8 @@ backward.
 
 ``idx=None`` sums rows of ``a`` directly (a row per summed row) and
 ``b=None`` skips the modulation, so one operation serves every aggregation
-of the forward (a modulated sum without a gather, which no layer uses, has
-no backward and raises under grad).  The rows must be sorted by their output row; ``off`` is the
+of the forward (the local layer's el_dst sum takes its rbf gate as ``b``
+without a gather).  The rows must be sorted by their output row; ``off`` is the
 (num_out+1,) int32 CSR offset array that batches carry.
 
 ``triplet_aggregate`` is the entry point, a ``torch.autograd.Function``: on
@@ -21,7 +21,13 @@ tensors they launch ``csrc/triplet_aggregate.cu`` and
 where ``seg[r]`` is the output row of row ``r``.  The role swap sums over the
 CSR of ``idx`` (``Groups``: a permutation sorting the rows by ``idx`` and its
 offsets, built on the host per batch), reading ``g`` through ``seg[perm]``
-and ``b`` through ``perm``.  ``group_sum`` sums rows over such a CSR alone,
+and ``b`` through ``perm``.  Where both gradients are wanted, one walk
+computes both (``triplet_aggregate_grad_ab``: the role swap holds ``a[v]``
+while it walks group ``v`` and writes each row's ``d_b``); ``gather_product``
+is the route when ``b`` alone takes a gradient.  Without a gather the
+modulated sum's gradients are ``d_a[r] = g[seg[r]] * b[r]`` and
+``d_b[r] = a[r] * g[seg[r]]``, one launch of ``gated_sum_backward``
+(``csrc/gather_backward.cu``).  ``group_sum`` sums rows over such a CSR alone,
 the backward of every row gather (``ops/gather.py``): kernel A where the
 groups are short, ``csrc/group_sum.cu`` (``group_sum_split``) where one is
 long (``group_sum_route``).
@@ -180,16 +186,22 @@ class _TripletAggregate(torch.autograd.Function):
         a, b, idx = ctx.saved_tensors
         grad, total = ctx.grad, ctx.total
         g = g.contiguous()
+        needs_a, needs_b = ctx.needs_input_grad[:2]
         d_a = d_b = None
-        if ctx.needs_input_grad[0]:
-            if idx is not None:
+        if idx is not None:
+            if needs_a and needs_b:
+                d_a, d_b = triplet_aggregate_grad_ab(g, grad.by_idx, grad.seg_by_idx, b, a)
+            elif needs_a:
                 d_a = triplet_aggregate_grad_a(g, grad.by_idx, grad.seg_by_idx, b)
-            else:
-                from pamnet_tpu_torch.ops.gather import row_gather
+            elif needs_b:
+                d_b = gather_product(a, idx, g, grad.seg, total)
+        elif b is not None:
+            d_a, d_b = gated_sum_backward(a, b, g, grad.seg, total)
+            d_a, d_b = (d_a if needs_a else None), (d_b if needs_b else None)
+        elif needs_a:
+            from pamnet_tpu_torch.ops.gather import row_gather
 
-                d_a = row_gather(g, grad.seg, valid=total)
-        if ctx.needs_input_grad[1]:
-            d_b = gather_product(a, idx, g, grad.seg, total)
+            d_a = row_gather(g, grad.seg, valid=total)
         return d_a, d_b, None, None, None, None
 
 
@@ -200,9 +212,6 @@ def _check_grad_inputs(a, b, idx, total, grad: AggregateGrad | None, needs_a: bo
     if grad is None:
         raise ValueError("triplet_aggregate: an input requires grad, so the "
                          "backward needs grad=AggregateGrad(seg, ...)")
-    if idx is None and b is not None:
-        raise ValueError("triplet_aggregate: a modulated sum without a gather "
-                         "has no backward")
     if total is None:
         raise ValueError("triplet_aggregate: an input requires grad, so the "
                          "backward needs total = off[-1] from the host")
@@ -264,6 +273,69 @@ def triplet_aggregate_grad_a(g: torch.Tensor, by_idx: Groups,
 
 
 triplet_aggregate_grad_a.launches = 0
+
+
+def triplet_aggregate_grad_ab_plain(g, by_idx: Groups, seg_by_idx, b, a):
+    """Reference version of ``triplet_aggregate_grad_ab``: the role swap's
+    plain version, and ``d_b`` through the same CSR (``a`` of each group
+    times ``g`` of each of its rows, zero on the rows no group holds)."""
+    d_a = triplet_aggregate_grad_a_plain(g, by_idx, seg_by_idx, b)
+    total = int(by_idx.off[-1])
+    sizes = (by_idx.off[1:] - by_idx.off[:-1]).long()
+    v = torch.repeat_interleave(torch.arange(a.shape[0], device=a.device), sizes,
+                                output_size=total)
+    d_b = b.new_zeros((by_idx.perm.shape[0], a.shape[1]))
+    d_b[by_idx.perm[:total].long()] = a[v] * g[seg_by_idx[:total].long()]
+    return d_a, d_b
+
+
+def triplet_aggregate_grad_ab(g: torch.Tensor, by_idx: Groups, seg_by_idx: torch.Tensor,
+                              b: torch.Tensor, a: torch.Tensor):
+    """``(d_a, d_b)`` of a gathered, modulated sum in one walk: the role swap
+    of ``triplet_aggregate_grad_a`` (its team shape, so its bits), which
+    holds ``a[v]`` while it walks group ``v`` of ``by_idx`` and writes
+    ``d_b[perm[r]] = a[v] * g[seg_by_idx[r]]`` for each of the group's rows
+    (``gather_product``'s ``a[idx] * g[seg]``, its bits), and zero rows at
+    ``perm[total:]``, the padded rows, from the same launch
+    (``csrc/triplet_aggregate.cu``, ``RoleSwapRow``).  The plain version for
+    CPU tensors.  Counts its kernel launches in
+    ``triplet_aggregate_grad_ab.launches``."""
+    if g.device.type == "cpu":
+        return triplet_aggregate_grad_ab_plain(g, by_idx, seg_by_idx, b, a)
+    what, dev = "triplet_aggregate_grad_ab", g.device
+    d = g.shape[1] if g.dim() == 2 else -1
+    if d % 4 or d <= 0:
+        raise ValueError(f"{what}: g must be (rows, D) with D % 4 == 0, got {tuple(g.shape)}")
+    if by_idx.perm is None or by_idx.total is None:
+        raise ValueError(f"{what}: by_idx must be a permuted CSR with its valid row count")
+    rows, num_out, total = by_idx.perm.shape[0], by_idx.off.shape[0] - 1, by_idx.total
+    f32, i32 = torch.float32, torch.int32
+    operands = {"g": (g, f32, (None, d)), "b": (b, f32, (rows, d)),
+                "a": (a, f32, (num_out, d)), "seg_by_idx": (seg_by_idx, i32, (rows,)),
+                "by_idx.perm": (by_idx.perm, i32, (rows,)),
+                "by_idx.off": (by_idx.off, i32, (num_out + 1,))}
+    for name, (t, dtype, shape) in operands.items():
+        _build.check_operand(what, name, t, dtype, dev, shape)
+    if not 0 <= total <= rows:
+        raise ValueError(f"{what}: off[-1] = {total}, but perm holds {rows} rows")
+    d_a = torch.empty((num_out, d), dtype=f32, device=dev)
+    d_b = torch.empty((rows, d), dtype=f32, device=dev)
+    if num_out == 0 or rows == 0:  # nothing to walk: every group and row is empty
+        return d_a.zero_(), d_b.zero_()
+    lanes, slots = walk_shape(d, num_out, total)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.pamnet_triplet_aggregate_grad_ab(
+            g.data_ptr(), b.data_ptr(), a.data_ptr(), seg_by_idx.data_ptr(),
+            by_idx.perm.data_ptr(), by_idx.off.data_ptr(), d_a.data_ptr(), d_b.data_ptr(),
+            num_out, rows, total, d, lanes, slots, stream)
+    _build.check(code, what)
+    triplet_aggregate_grad_ab.launches += 1
+    return d_a, d_b
+
+
+triplet_aggregate_grad_ab.launches = 0
 
 
 def group_sum_plain(x: torch.Tensor, groups: Groups) -> torch.Tensor:
@@ -370,3 +442,52 @@ def gather_product(x: torch.Tensor, xi: torch.Tensor, y: torch.Tensor,
 
 
 gather_product.launches = 0
+
+
+def gated_sum_backward_plain(a, b, g, seg, valid: int):
+    """Reference version of ``gated_sum_backward``."""
+    gs = g[seg[:valid].long()]
+    d_a, d_b = b.new_zeros(b.shape), a.new_zeros(a.shape)
+    d_a[:valid] = gs * b[:valid]
+    d_b[:valid] = a[:valid] * gs
+    return d_a, d_b
+
+
+def gated_sum_backward(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor, seg: torch.Tensor,
+                       valid: int):
+    """``(d_a, d_b)`` of kernel A's modulated sum without a gather,
+    ``out[e] = sum of a[r] * b[r] over the rows r of group e``, for output
+    gradient ``g``: ``d_a[r] = g[seg[r]] * b[r]`` and ``d_b[r] = a[r] *
+    g[seg[r]]`` for ``r < valid``, zero rows after, in one launch of
+    ``csrc/gather_backward.cu`` for CUDA tensors; the plain version for CPU
+    ones.  Counts its kernel launches in ``gated_sum_backward.launches``."""
+    if a.device.type == "cpu":
+        return gated_sum_backward_plain(a, b, g, seg, valid)
+    what, dev = "gated_sum_backward", a.device
+    rows = a.shape[0]
+    d = a.shape[1] if a.dim() == 2 else -1
+    if d % 4 or d <= 0:
+        raise ValueError(f"{what}: a must be (rows, D) with D % 4 == 0, got {tuple(a.shape)}")
+    f32 = torch.float32
+    operands = {"a": (a, f32, (rows, d)), "b": (b, f32, (rows, d)), "g": (g, f32, (None, d)),
+                "seg": (seg, torch.int32, (rows,))}
+    for name, (t, dtype, shape) in operands.items():
+        _build.check_operand(what, name, t, dtype, dev, shape)
+    if not 0 <= valid <= rows:
+        raise ValueError(f"{what}: valid = {valid} outside [0, {rows}]")
+    d_a = torch.empty((rows, d), dtype=f32, device=dev)
+    d_b = torch.empty_like(d_a)
+    if rows == 0:
+        return d_a, d_b
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.pamnet_gated_sum_backward(a.data_ptr(), b.data_ptr(), g.data_ptr(),
+                                             seg.data_ptr(), d_a.data_ptr(), d_b.data_ptr(),
+                                             rows, valid, d, stream)
+    _build.check(code, what)
+    gated_sum_backward.launches += 1
+    return d_a, d_b
+
+
+gated_sum_backward.launches = 0

@@ -10,7 +10,10 @@ in ``+``; the runs go one after another, never side by side, and each one's
 output is kept whole under ``--out`` (``<i>_<p|c>.out``).  Printed, one JSON
 line per run: every kernel case of the group sums and the row gathers (by
 the case's name, whichever kernel list holds it), of kernel A (its sums,
-role swaps and walks on the batches' own CSRs) and of the edge message (rows,
+role swaps, the fused role swap beside the role swap + ``gather_product``
+of the same arrays, the gated sum's backward beside the row gather and
+multiplies it replaces, and walks on the batches' own CSRs) and of the edge
+message (rows,
 summed by node with the rows + sum of the same arrays beside it, and their
 backward), under ``<phase>_walk_shapes`` the walk's team-shape trials,
 under ``<phase>_sbf`` the
@@ -32,10 +35,13 @@ import sys
 
 _CASE_KEYS = ("ms", "enqueue_ms", "device_ms", "bound_ms", "plain_ms", "library_ms",
               "library_device_ms", "max_abs_err", "route", "walk_shape", "rows_sum_ms",
-              "rows_sum_device_ms")
-# Kernel lists whose every case is printed: kernel A and the edge message.
-_WALK_LISTS = ("triplet_aggregate", "triplet_aggregate_grad_a", "edge_message",
-               "edge_message_sum", "edge_message_backward")
+              "rows_sum_device_ms", "alone_ms", "alone_device_ms", "pair_ms", "pair_device_ms",
+              "rows_mul_ms", "rows_mul_device_ms", "cold_device_ms", "rows_mul_cold_device_ms")
+# Kernel lists whose every case is printed: kernel A, its backward routes
+# and the edge message.
+_WALK_LISTS = ("triplet_aggregate", "triplet_aggregate_grad_a", "triplet_aggregate_grad_ab",
+               "gather_product", "gated_sum_backward", "edge_message", "edge_message_sum",
+               "edge_message_backward")
 _STEP_KEYS = ("ms_per_step", "enqueue_ms_per_step", "device_ms_per_step",
               "device_idle_share", "peak_mem_gb", "main_path_launches",
               "launches_per_step_forward", "launches_per_step_backward")
@@ -84,11 +90,12 @@ def _launches(phase: dict) -> list[dict]:
 
 def _sbf_launches(phase: dict) -> list[dict]:
     """The launches of kernel B (forward, backward and its reduce), kernel A
-    (the walk), the edge message and the row gathers in a profiled forward
-    or step."""
+    (the walk) and its backward's own kernels, the edge message and the row
+    gathers in a profiled forward or step."""
     return [ev for ev in _launches(phase)
             if ev["name"].startswith(("sbf_", "triplet_aggregate_kernel", "row_gather",
-                                      "csr_walk", "edge_message"))]
+                                      "csr_walk", "edge_message", "gather_product",
+                                      "gated_sum"))]
 
 
 def _in_step(phase: dict) -> list[dict]:

@@ -5,7 +5,8 @@ on CPU tensors, where forward and backward run their plain versions, against
 * Kernel A (``triplet_aggregate``) against the custom VJP of
   ``fused_triplet_aggregate``, on its XLA path and on the Pallas kernel in
   interpret mode (T % 256 == 0, D = 128): atol 1e-5 (f32 sums in another
-  order).  Padded rows: the port sums the valid rows only, so its d_b is 0
+  order); the modulated sum without a gather against the same VJP with
+  ``idx`` the identity.  Padded rows: the port sums the valid rows only, so its d_b is 0
   there, while JAX sums every row (b = 0 on padded rows) and gives padded
   rows a d_b the model's mask then zeroes; d_b is compared on valid rows.
 * The edge message and the row gather against ``jax.grad`` of
@@ -55,7 +56,8 @@ def _triplet_case(rng, e, t, d, gather):
 
 
 @pytest.mark.parametrize("use_pallas", [False, True], ids=["xla", "pallas"])
-@pytest.mark.parametrize("gather,modulate", [(True, True), (True, False), (False, False)])
+@pytest.mark.parametrize("gather,modulate", [(True, True), (True, False), (False, True),
+                                             (False, False)])
 def test_triplet_aggregate_grad_matches_custom_vjp(gather, modulate, use_pallas):
     e, t, d = 128, _BT, 128
     rng = np.random.default_rng(17 + 2 * gather + modulate)
@@ -189,7 +191,8 @@ def _f64(x):
     return torch.from_numpy(np.asarray(x, np.float64)).requires_grad_()
 
 
-@pytest.mark.parametrize("gather,modulate", [(True, True), (True, False), (False, False)])
+@pytest.mark.parametrize("gather,modulate", [(True, True), (True, False), (False, True),
+                                             (False, False)])
 def test_triplet_aggregate_gradcheck(gather, modulate):
     rng = np.random.default_rng(5)
     e, t, d = 6, 20, 3
@@ -231,7 +234,9 @@ def test_no_function_drops_a_gradient():
         row_gather(a, idx)
     with pytest.raises(ValueError, match="Groups"):
         edge_message(a, a.detach(), idx, idx, torch.randn(8, 4))
-    with pytest.raises(ValueError, match="without a gather"):
+    # A modulated sum without a gather has a backward (the gated sum's), which
+    # reads the valid count from the host as every other.
+    with pytest.raises(ValueError, match="total"):
         triplet_aggregate(a, off, b=torch.randn(8, 4), grad=AggregateGrad(idx))
     with pytest.raises(ValueError, match="total"):  # the backward reads no offset back
         triplet_aggregate(a, off, grad=AggregateGrad(idx))

@@ -18,10 +18,14 @@ from pamnet_tpu_torch.ops.gather import (edge_message, edge_message_backward,
                                          edge_message_sum, row_gather, row_gather_plain)
 from pamnet_tpu_torch.ops.sbf_modulate import (sbf_modulate, sbf_modulate_backward,
                                                sbf_modulate_plain)
-from pamnet_tpu_torch.ops.triplet import (Groups, gather_product, gather_product_plain,
-                                          group_sum, group_sum_plain, group_sum_split,
-                                          triplet_aggregate, triplet_aggregate_grad_a,
-                                          group_sum_route, triplet_aggregate_grad_a_plain,
+from pamnet_tpu_torch.ops.triplet import (AggregateGrad, Groups, gated_sum_backward,
+                                          gated_sum_backward_plain, gather_product,
+                                          gather_product_plain, group_sum, group_sum_plain,
+                                          group_sum_split, triplet_aggregate,
+                                          triplet_aggregate_grad_a, group_sum_route,
+                                          triplet_aggregate_grad_a_plain,
+                                          triplet_aggregate_grad_ab,
+                                          triplet_aggregate_grad_ab_plain,
                                           triplet_aggregate_plain, walk_shape)
 from pamnet_tpu_torch.train.loop import batch_loss
 
@@ -654,3 +658,128 @@ def test_edge_message_summed_function_on_the_card(cuda, gated, d):
                for t in grads[2:])
     again = run(False)
     assert all(a is None or torch.equal(a, b) for a, b in zip(grads, again[1]))
+
+
+def _poison(cuda, floats: int) -> None:
+    """Leave NaN in the caching allocator's free blocks, so an output row a
+    kernel fails to write shows."""
+    torch.full((floats,), float("nan"), device=cuda)
+    torch.cuda.synchronize()
+
+
+def _role_swap_case(cuda, d, seed):
+    """A gathered, modulated sum's backward operands as a batch lays them
+    out: ragged groups of idx (some empty), rows sorted by seg, a padded
+    tail (idx = seg = 0, b = 0) past ``valid``."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    e, t, valid = 97, 1000, 963
+    idx = torch.randint(0, e, (t,), device=cuda, generator=g).to(torch.int32)
+    seg = torch.sort(torch.randint(0, e, (t,), device=cuda, generator=g))[0].to(torch.int32)
+    idx[valid:] = 0
+    seg[valid:] = 0
+    by_idx = _perm_groups(idx, valid, e, cuda)
+    seg_by_idx = seg[by_idx.perm.long()].contiguous()
+    b = torch.randn(t, d, device=cuda, generator=g)
+    b[valid:] = 0.0
+    return dict(idx=idx, seg=seg, by_idx=by_idx, seg_by_idx=seg_by_idx, b=b, valid=valid,
+                grad=torch.randn(e, d, device=cuda, generator=g),
+                a=torch.randn(e, d, device=cuda, generator=g))
+
+
+@pytest.mark.parametrize("d", [12, 16, 128])
+def test_fused_role_swap_kernel(cuda, monkeypatch, d):
+    """The role swap with d_b in one walk, at the shape the host picks and
+    every team shape up to a block: d_a bitwise the role swap alone's, d_b
+    bitwise ``gather_product``'s, the padded rows zero (written by the
+    walk's tail into poisoned memory), one launch counted on its own
+    counter and none on the other two, two calls bitwise equal; against
+    the plain version."""
+    x = _role_swap_case(cuda, d, seed=31 + d)
+    args = (x["grad"], x["by_idx"], x["seg_by_idx"], x["b"], x["a"])
+    lanes = walk_shape(d, 1, None)[0]
+    shapes = [walk_shape(d, 97, x["valid"])] + [(lanes, s) for s in (1, 2, 4, 8, 16, 32, 64)
+                                                if lanes * s <= 256]
+    for shape in shapes:
+        monkeypatch.setattr(triplet_ops, "walk_shape", lambda *a, _s=shape: _s)
+        counts = lambda: (triplet_aggregate_grad_ab.launches,  # noqa: E731
+                          triplet_aggregate_grad_a.launches, gather_product.launches)
+        _poison(cuda, 4 * 1000 * d)
+        before = counts()
+        d_a, d_b = triplet_aggregate_grad_ab(*args)
+        torch.cuda.synchronize()
+        assert np.subtract(counts(), before).tolist() == [1, 0, 0], shape
+        assert torch.equal(d_a, triplet_aggregate_grad_a(*args[:4])), shape
+        assert torch.equal(d_b, gather_product(x["a"], x["idx"], x["grad"], x["seg"],
+                                               x["valid"])), shape
+        assert torch.all(d_b[x["valid"]:] == 0.0), shape
+        w_a, w_b = triplet_aggregate_grad_ab_plain(*args)
+        torch.testing.assert_close(d_a, w_a, rtol=1e-5, atol=1e-5)
+        assert torch.equal(d_b, w_b)
+        again = triplet_aggregate_grad_ab(*args)
+        assert torch.equal(d_a, again[0]) and torch.equal(d_b, again[1]), shape
+
+
+@pytest.mark.parametrize("d", [12, 16, 128])
+def test_gated_sum_backward_kernel(cuda, d):
+    """The gated sum's backward against its plain version (one product per
+    element: bit for bit, within 1e-4 * max|g| + 1e-6 a fortiori), the rows
+    past ``valid`` zero in poisoned memory, one launch counted."""
+    g = torch.Generator(device=cuda).manual_seed(d)
+    rows, valid, num_out = 5003, 4711, 613
+    r = lambda *s: torch.randn(*s, device=cuda, generator=g)  # noqa: E731
+    seg = torch.sort(torch.randint(0, num_out, (rows,), device=cuda, generator=g))[0]
+    seg = seg.to(torch.int32)
+    seg[valid:] = 0
+    a, b, grad = r(rows, d), r(rows, d), r(num_out, d)
+    _poison(cuda, 2 * rows * d)
+    before = gated_sum_backward.launches
+    got = gated_sum_backward(a, b, grad, seg, valid)
+    torch.cuda.synchronize()
+    assert gated_sum_backward.launches == before + 1
+    for t, w in zip(got, gated_sum_backward_plain(a, b, grad, seg, valid)):
+        assert torch.equal(t, w)
+        assert torch.all(t[valid:] == 0.0)
+
+
+@pytest.mark.parametrize("d", [16, 128])
+def test_gated_sum_function_on_the_card(cuda, d):
+    """The modulated sum without a gather end to end, as the local layer's
+    el_dst sum calls it: one forward launch of kernel A, one launch of the
+    gated backward and no row gather; output and both gradients against
+    PyTorch's autograd of the multiply-then-sum it replaces, the padded
+    rows' gradients zero, the backward bitwise repeatable."""
+    g = torch.Generator(device=cuda).manual_seed(40 + d)
+    nodes, rows = 301, 4099
+    valid = rows - 77
+    ids = torch.sort(torch.randint(0, nodes, (valid,), device=cuda, generator=g))[0]
+    off = torch.searchsorted(ids, torch.arange(nodes + 1, device=cuda)).to(torch.int32)
+    seg = torch.cat([ids, torch.zeros(rows - valid, dtype=torch.long, device=cuda)])
+    seg = seg.to(torch.int32)
+    mask = (torch.arange(rows, device=cuda) < valid).float()
+    leaves = [torch.randn(rows, d, device=cuda, generator=g) for _ in range(2)]
+    cot = torch.randn(nodes, d, device=cuda, generator=g)
+
+    def run(plain):
+        m, gate = (t.clone().requires_grad_() for t in leaves)
+        if plain:
+            out = triplet_aggregate_plain(gate * m * mask[:, None], off)
+        else:
+            out = triplet_aggregate(m, off, b=gate, total=valid, grad=AggregateGrad(seg))
+        (out * cot).sum().backward()
+        return out.detach(), m.grad, gate.grad
+
+    counts = lambda: (triplet_aggregate.launches, gated_sum_backward.launches,  # noqa: E731
+                      row_gather.launches)
+    before = counts()
+    got = run(False)
+    torch.cuda.synchronize()
+    assert np.subtract(counts(), before).tolist() == [1, 1, 0]
+    want = run(True)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-4)
+    for k in (1, 2):
+        err = float((got[k] - want[k]).abs().max())
+        assert err <= 1e-4 * float(want[k].abs().max()) + 1e-6
+        assert torch.all(got[k][valid:] == 0.0)
+    again = run(False)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+

@@ -178,3 +178,47 @@ def test_smoke_compare_reads_the_compared_cases():
     assert got["rna_train"]["device_ms_per_step"] == 4.6
     assert got["profile_rna_train"]["group_sum_launches"] == [launches[0], launches[2]]
     assert got["profile_rna_train"]["sbf_launches"] == launches[1:]
+
+
+def test_smoke_compare_reads_kernel_a_backward_routes():
+    """The comparison prints the fused role swap beside the role swap alone
+    and the pair it replaces, and the gated backward beside the row gather
+    and multiplies it replaces, warm and with the L2 flushed."""
+    import json
+
+    from pamnet_tpu_torch.smoke_compare import summarize
+
+    fused = {"case": "d_a and d_b by the fused role swap over the t2_kj CSR", "d": 128,
+             "device_ms": 0.0037, "alone_device_ms": 0.003, "pair_device_ms": 0.0048,
+             "rows": 3}
+    gated = {"case": "gated el_dst sum backward", "d": 16, "device_ms": 0.005,
+             "cold_device_ms": 0.008, "rows_mul_device_ms": 0.016,
+             "rows_mul_cold_device_ms": 0.03, "valid": 9}
+    lines = [json.dumps({"phase": "train_kernels", "triplet_aggregate_grad_ab": [fused],
+                         "gather_product": [{"case": "d_b at t2", "d": 128}]}),
+             json.dumps({"phase": "rna_train_kernels", "gated_sum_backward": [gated]})]
+    got = summarize(lines)
+    assert got["train_kernels"] == [{k: v for k, v in fused.items() if k != "rows"},
+                                    {"case": "d_b at t2", "d": 128}]
+    assert got["rna_train_kernels"] == [{k: v for k, v in gated.items() if k != "valid"}]
+
+
+def test_step_launches_counts_every_record(monkeypatch):
+    """``step_launches`` counts every record of work that its filter takes,
+    by full name: two kernels whose names share a long prefix both count."""
+    import types
+
+    from pamnet_tpu_torch import step_launches
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    x = torch.randn(64, 64)
+    smoke = types.SimpleNamespace(
+        _is_kernel=lambda ev: ev.key in ("aten::mul", "aten::add"),
+        _device_us=lambda ev: ev.self_cpu_time_total)
+
+    def fn():
+        return x * 2.0 + x, x * 3.0
+
+    got = step_launches._profiled(fn, smoke)
+    assert got["kernel_launches"] == 3.0
+    assert {k: v[0] for k, v in got["by_name"].items()} == {"aten::add": 1.0, "aten::mul": 2.0}

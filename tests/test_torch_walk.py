@@ -300,28 +300,34 @@ def test_walk_shape_follows_the_mean_group():
 
 def _count_calls(monkeypatch):
     """Counts, by wrapper, the calls that launch a kernel on the card: kernel
-    A's forward sums, the summed and the rows edge message, and the row
-    gathers in the backward."""
+    A's forward sums, the summed and the rows edge message, the row gathers
+    and kernel A's backward routes (the fused role swap, the role swap
+    alone, ``gather_product`` and the gated sum's backward)."""
     from pamnet_tpu_torch.ops import triplet
 
     counts = {"triplet_aggregate": 0, "summed": 0, "rows": 0, "row_gather": 0}
-    agg, msg, rg = triplet.triplet_aggregate, gather_ops.edge_message, gather_ops.row_gather
+    msg = gather_ops.edge_message
 
-    def count_agg(*a, **k):
-        counts["triplet_aggregate"] += 1
-        return agg(*a, **k)
+    def counted(module, name, key=None):
+        fn = getattr(module, name)
+
+        def call(*a, **k):
+            counts[key or name] += 1
+            return fn(*a, **k)
+
+        counts.setdefault(key or name, 0)
+        monkeypatch.setattr(module, name, call)
 
     def count_msg(*a, **k):
         counts["summed" if k.get("out_groups") is not None else "rows"] += 1
         return msg(*a, **k)
 
-    def count_rg(*a, **k):
-        counts["row_gather"] += 1
-        return rg(*a, **k)
-
-    monkeypatch.setattr(layers, "triplet_aggregate", count_agg)
     monkeypatch.setattr(layers, "edge_message", count_msg)
-    monkeypatch.setattr(gather_ops, "row_gather", count_rg)
+    counted(layers, "triplet_aggregate")
+    counted(gather_ops, "row_gather")
+    for name in ("triplet_aggregate_grad_ab", "triplet_aggregate_grad_a", "gather_product",
+                 "gated_sum_backward"):
+        counted(triplet, name)
     return counts
 
 
@@ -329,8 +335,10 @@ def _count_calls(monkeypatch):
 def test_training_step_sums_the_global_message_in_the_edge_message(kind, monkeypatch):
     """A training step's calls: the global layer's message summed by node
     once a layer and no kernel A sum at the global edges, so kernel A's
-    forward sums are the el_dst sum (and, unfolded, the two triplet sums)
-    and the backward's row gathers the el_dst sum's alone."""
+    forward sums are the el_dst sum (and, unfolded, the two triplet sums);
+    in the backward no row gather (the el_dst sum's two gradients are one
+    gated backward a layer) and, unfolded, the fused role swap for each
+    triplet sum, never the role swap alone nor ``gather_product``."""
     gb = _batch(kind)
     if kind == "qm9":
         cfg = PAMNetConfig(dataset="QM9", dim=32, n_layer=2, cutoff_l=5.0, cutoff_g=5.0)
@@ -345,9 +353,15 @@ def test_training_step_sums_the_global_message_in_the_edge_message(kind, monkeyp
     loss = batch_loss(model, gb, loss_kind)
     forward = dict(counts)
     loss.backward()
+    backward = {k: counts[k] - forward[k] for k in counts}
     assert forward == {"triplet_aggregate": per_layer * cfg.n_layer, "summed": cfg.n_layer,
-                       "rows": 2 * cfg.n_layer, "row_gather": forward["row_gather"]}
-    assert counts["row_gather"] - forward["row_gather"] == cfg.n_layer
+                       "rows": 2 * cfg.n_layer, "row_gather": forward["row_gather"],
+                       "triplet_aggregate_grad_ab": 0, "triplet_aggregate_grad_a": 0,
+                       "gather_product": 0, "gated_sum_backward": 0}
+    assert backward == {"triplet_aggregate": 0, "summed": 0, "rows": 0, "row_gather": 0,
+                        "triplet_aggregate_grad_ab": (per_layer - 1) * cfg.n_layer,
+                        "triplet_aggregate_grad_a": 0, "gather_product": 0,
+                        "gated_sum_backward": cfg.n_layer}
 
 
 def test_plain_route_sums_the_same_function():
