@@ -75,8 +75,10 @@ Phases, each printing one JSON line:
      swap alone and gather_product are off the main paths since the fused
      role swap: 0 launches, asserted).
 With ``--profile`` each phase also lists its device time by kernel and, for
-the scoring forward and a QM9 and an RNA training step, each launch of the
-port's kernels with its device time (``port_kernel_launches``).
+the scoring forward and a QM9 and an RNA training step, every kernel launch
+in total and by kernel name with its device time (``kernels_by_name``) and
+each launch of the port's kernels with its device time
+(``port_kernel_launches``).
 Then the nvidia-smi line and, last, {"ok": true, "device": {...}}.
 Any mismatch raises and the script exits non-zero.  It exits non-zero with no
 result when CUDA is absent.
@@ -100,6 +102,8 @@ import time
 import urllib.request
 
 import numpy as np
+
+from pamnet_tpu_torch.profiling import device_us, is_kernel, kernel_totals
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, f32 flop/s outside
 # the tensor cores.
@@ -191,24 +195,11 @@ def device_ms(fn, iters: int = 20, tries: int = 3) -> float | None:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        us = sum(_device_us(ev) / ev.count * max(1, round(ev.count / iters))
-                 for ev in prof.key_averages() if _is_kernel(ev))
+        us = sum(device_us(ev) / ev.count * max(1, round(ev.count / iters))
+                 for ev in prof.key_averages() if is_kernel(ev))
         if us > 0:
             return us / 1e3
     return None
-
-
-def _device_us(ev) -> float:
-    return getattr(ev, "self_device_time_total", getattr(ev, "self_cuda_time_total", 0))
-
-
-def _is_kernel(ev) -> bool:
-    """A record of work on the card (not a host op or an autograd node that
-    the card's time is also attributed to, nor a user annotation such as
-    the optimizer's ``Optimizer.step#Adam.step``, whose span on the card
-    covers the kernels inside it)."""
-    return (str(getattr(ev, "device_type", "")).endswith("CUDA") and _device_us(ev) > 0
-            and not getattr(ev, "is_user_annotation", False))
 
 
 def cold_device_ms(fn, iters: int = 10, flush_bytes: int = 128 << 20,
@@ -232,7 +223,7 @@ def cold_device_ms(fn, iters: int = 10, flush_bytes: int = 128 << 20,
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        names = {ev.key for ev in prof.key_averages() if _is_kernel(ev)}
+        names = {ev.key for ev in prof.key_averages() if is_kernel(ev)}
         if not names:
             continue
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -240,8 +231,8 @@ def cold_device_ms(fn, iters: int = 10, flush_bytes: int = 128 << 20,
                 buf.sum()
                 fn()
             torch.cuda.synchronize()
-        us = sum(_device_us(ev) / ev.count * max(1, round(ev.count / iters))
-                 for ev in prof.key_averages() if _is_kernel(ev) and ev.key in names)
+        us = sum(device_us(ev) / ev.count * max(1, round(ev.count / iters))
+                 for ev in prof.key_averages() if is_kernel(ev) and ev.key in names)
         if us > 0:
             return us / 1e3
     return None
@@ -594,11 +585,12 @@ def gated_backward_case(gb, d: int, gen) -> dict:
     zero.  Timed alike beside it (``rows_mul_*``): what the backward
     launched before, on the same arrays: the node gradient gathered by
     el_dst (``row_gather`` with the valid count), times the edge mask, then
-    times each operand.  Both again with the L2 cache flushed before each
-    call (``cold_device_ms``): at the RNA pads the operands (~25 MB) fit the
-    50 MB L2 and a warm loop reads them from there, faster than the HBM
-    bound, while in a step they were written in the forward and evicted
-    since.  No one PyTorch call computes it."""
+    times each operand.  ``device_ms`` and ``rows_mul_device_ms`` are read
+    with the L2 cache flushed before each call (``cold_device_ms``), as the
+    HBM byte bound counts and as a step sees them: at the RNA pads the
+    operands (~25 MB) fit the 50 MB L2, so a warm loop reads them from there,
+    faster than that bound; the warm readings are ``warm_device_ms`` and
+    ``rows_mul_warm_device_ms``.  No one PyTorch call computes it."""
     import torch
 
     from pamnet_tpu_torch.ops.gather import row_gather
@@ -624,10 +616,11 @@ def gated_backward_case(gb, d: int, gen) -> dict:
         2 * valid * d * 4 + valid * 4 + _unique(seg, valid) * d * 4 + 2 * rows * d * 4,
         2 * valid * d, rows=rows, valid=valid, nodes=nodes, d=d,
         tolerance_rule="1e-4 * max|g_plain| + 1e-6")
-    res.update(rows_mul_ms=time_ms(rows_mul), rows_mul_device_ms=device_ms(rows_mul),
+    res.update(warm_device_ms=res["device_ms"], device_ms=cold_device_ms(fn),
+               rows_mul_ms=time_ms(rows_mul), rows_mul_warm_device_ms=device_ms(rows_mul),
+               rows_mul_device_ms=cold_device_ms(rows_mul),
                rows_mul_max_abs_err=max(float((x - y).abs().max())
-                                        for x, y in zip(rows_mul(), got)),
-               cold_device_ms=cold_device_ms(fn), rows_mul_cold_device_ms=cold_device_ms(rows_mul))
+                                        for x, y in zip(rows_mul(), got)))
     return res
 
 
@@ -1213,6 +1206,7 @@ def main() -> int:
         rows, host = profile_rows(prof, 3)
         emit({"phase": "profile", "folded_forward_top": rows[:15],
               "device_ms_per_batch_total": sum(r["device_ms_per_call"] for r in rows),
+              **launch_totals(prof, 3, "batch"),
               "port_kernel_launches": port_kernel_launches(prof, 3),
               "host_top": host})
 
@@ -1340,13 +1334,22 @@ def main() -> int:
 def profile_rows(prof, calls: int) -> tuple[list[dict], list[dict]]:
     """Kernel rows (device ms per call, launches per call) and the top host
     rows of a profile over ``calls`` calls."""
-    rows = [{"name": ev.key[:80], "device_ms_per_call": _device_us(ev) / calls / 1e3,
+    rows = [{"name": ev.key[:80], "device_ms_per_call": device_us(ev) / calls / 1e3,
              "launches_per_call": ev.count / calls}
-            for ev in prof.key_averages() if _is_kernel(ev)]
+            for ev in prof.key_averages() if is_kernel(ev)]
     rows.sort(key=lambda r: -r["device_ms_per_call"])
     host = sorted(prof.key_averages(), key=lambda ev: -ev.self_cpu_time_total)
     return rows, [{"name": ev.key[:80], "host_ms_per_call": ev.self_cpu_time_total / calls / 1e3,
                    "calls_per_call": ev.count / calls} for ev in host[:12]]
+
+
+def launch_totals(prof, calls: int, unit: str) -> dict:
+    """Every kernel launch per ``unit`` (a batch, a step) of a profile over
+    ``calls`` calls, in total and by kernel name with its device ms: the
+    launches one commit drops show by name."""
+    totals = kernel_totals(prof.key_averages(), calls)
+    return {f"kernel_launches_per_{unit}": totals["kernel_launches"],
+            "kernels_by_name": totals["by_name"]}
 
 
 def port_kernel_launches(prof, calls: int) -> list[dict]:
@@ -1528,6 +1531,7 @@ def train_phase(args, gen, reset_counts, read_counts, emit_kernels) -> tuple[dic
         py_rows = sorted(st.stats.items(), key=lambda kv: -kv[1][2])[:20]
         emit_kernels({"phase": "profile_train", "train_step_top": rows[:25],
                       "device_ms_per_step_total": device_ms,
+                      **launch_totals(prof, 3, "step"),
                       "device_idle_share_vs_event_ms": 1.0 - device_ms / step_ms,
                       "port_kernel_launches": port_kernel_launches(prof, 3),
                       "host_top": host,
@@ -1770,7 +1774,7 @@ def rna_train_phase(args, mols, gen, reset_counts, read_counts, emit_line) -> tu
             rows, host = profile_rows(prof, 3)
             emit_line({"phase": "profile_rna_train", "train_step_top": rows[:25],
                        "device_ms_per_step_total": sum(r["device_ms_per_call"] for r in rows),
-                       "kernel_launches_per_step": sum(r["launches_per_call"] for r in rows),
+                       **launch_totals(prof, 3, "step"),
                        "port_kernel_launches": port_kernel_launches(prof, 3),
                        "host_top": host})
 

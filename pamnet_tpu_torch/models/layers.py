@@ -209,7 +209,10 @@ class LocalMP(nn.Module):
         (``gated_sum_backward``); the ``el_mask`` product is the CSR's valid
         count there, since a batch's ``el_mask`` is 1 on exactly the rows
         ``[0, valid["el"])``.  The plain and the argsort routes multiply,
-        then sum, as the reference does."""
+        then sum, as the reference does: ``aggregate(..., b=gate)`` would
+        give the same sums there, but the branch keeps the plain route a
+        transcription of the reference that does not rest on that
+        invariant, so it can check the kernel route that does."""
         gate = self.lin_rbf_out(rbf)
         if g.el_dst_off is not None and not plain:
             s = aggregate(m, g.el_dst_off, g.el_dst, g.el_mask, x.shape[0], b=gate,

@@ -13,16 +13,15 @@ the case's name, whichever kernel list holds it), of kernel A (its sums,
 role swaps, the fused role swap beside the role swap + ``gather_product``
 of the same arrays, the gated sum's backward beside the row gather and
 multiplies it replaces, and walks on the batches' own CSRs) and of the edge
-message (rows,
-summed by node with the rows + sum of the same arrays beside it, and their
-backward), under ``<phase>_walk_shapes`` the walk's team-shape trials,
-under ``<phase>_sbf`` the
-cases of kernel B forward and backward and of kernel A's sums over the
-triplets, the launches per scored batch and per RNA step, the training
-steps' times, and with ``--profile`` the scoring forward's device time and
-each launch of the group sums, of kernel B, kernel A, the edge message and
-the row gathers inside a QM9 and an RNA training step and the scoring
-forward.  It exits non-zero if a run failed.
+message (rows, summed by node with the rows + sum of the same arrays beside
+it, and their backward), under ``<phase>_walk_shapes`` the walk's team-shape
+trials, under ``<phase>_sbf`` the cases of kernel B forward and backward and
+of kernel A's sums over the triplets, the launches per scored batch and per
+RNA step, the training steps' times, and with ``--profile``, for the scoring
+forward and a QM9 and an RNA training step, the device time, every kernel
+launch in total and by kernel name (where the checkout's ``chip_smoke.py``
+prints them), and each launch of the group sums, of kernel B, kernel A, the
+edge message and the row gathers.  It exits non-zero if a run failed.
 """
 
 from __future__ import annotations
@@ -36,7 +35,7 @@ import sys
 _CASE_KEYS = ("ms", "enqueue_ms", "device_ms", "bound_ms", "plain_ms", "library_ms",
               "library_device_ms", "max_abs_err", "route", "walk_shape", "rows_sum_ms",
               "rows_sum_device_ms", "alone_ms", "alone_device_ms", "pair_ms", "pair_device_ms",
-              "rows_mul_ms", "rows_mul_device_ms", "cold_device_ms", "rows_mul_cold_device_ms")
+              "rows_mul_ms", "rows_mul_device_ms", "warm_device_ms", "rows_mul_warm_device_ms")
 # Kernel lists whose every case is printed: kernel A, its backward routes
 # and the edge message.
 _WALK_LISTS = ("triplet_aggregate", "triplet_aggregate_grad_a", "triplet_aggregate_grad_ab",
@@ -108,6 +107,16 @@ def _in_step(phase: dict) -> list[dict]:
                                       "csr_walk_kernel<SumRow<false, false, false>"))]
 
 
+def _totals(phase: dict, unit: str) -> dict:
+    """A profiled forward's or step's device ms, and its kernel launches in
+    total and by kernel name where the checkout prints them."""
+    out = {f"device_ms_per_{unit}_total": phase.get(f"device_ms_per_{unit}_total")}
+    for key in (f"kernel_launches_per_{unit}", "kernels_by_name"):
+        if key in phase:
+            out[key] = phase[key]
+    return out
+
+
 def summarize(lines: list[str]) -> dict:
     """The compared numbers of one run's output lines."""
     res: dict = {}
@@ -131,11 +140,9 @@ def summarize(lines: list[str]) -> dict:
                 "folded_ms_per_batch", "unfolded_ms_per_batch", "launches_per_batch",
                 "launches_per_batch_unfolded")}
         elif phase == "profile":
-            res["profile"] = {"device_ms_per_batch_total": obj.get("device_ms_per_batch_total"),
-                              "sbf_launches": _sbf_launches(obj)}
+            res["profile"] = {**_totals(obj, "batch"), "sbf_launches": _sbf_launches(obj)}
         elif phase in ("profile_train", "profile_rna_train"):
-            res[phase] = {"device_ms_per_step_total": obj.get("device_ms_per_step_total"),
-                          "group_sum_launches": _in_step(obj),
+            res[phase] = {**_totals(obj, "step"), "group_sum_launches": _in_step(obj),
                           "sbf_launches": _sbf_launches(obj)}
         elif "ok" in obj:
             res["ok"] = obj["ok"]

@@ -183,7 +183,7 @@ def test_smoke_compare_reads_the_compared_cases():
 def test_smoke_compare_reads_kernel_a_backward_routes():
     """The comparison prints the fused role swap beside the role swap alone
     and the pair it replaces, and the gated backward beside the row gather
-    and multiplies it replaces, warm and with the L2 flushed."""
+    and multiplies it replaces, with the L2 flushed and warm."""
     import json
 
     from pamnet_tpu_torch.smoke_compare import summarize
@@ -191,9 +191,9 @@ def test_smoke_compare_reads_kernel_a_backward_routes():
     fused = {"case": "d_a and d_b by the fused role swap over the t2_kj CSR", "d": 128,
              "device_ms": 0.0037, "alone_device_ms": 0.003, "pair_device_ms": 0.0048,
              "rows": 3}
-    gated = {"case": "gated el_dst sum backward", "d": 16, "device_ms": 0.005,
-             "cold_device_ms": 0.008, "rows_mul_device_ms": 0.016,
-             "rows_mul_cold_device_ms": 0.03, "valid": 9}
+    gated = {"case": "gated el_dst sum backward", "d": 16, "device_ms": 0.008,
+             "warm_device_ms": 0.005, "rows_mul_device_ms": 0.018,
+             "rows_mul_warm_device_ms": 0.016, "valid": 9}
     lines = [json.dumps({"phase": "train_kernels", "triplet_aggregate_grad_ab": [fused],
                          "gather_product": [{"case": "d_b at t2", "d": 128}]}),
              json.dumps({"phase": "rna_train_kernels", "gated_sum_backward": [gated]})]
@@ -203,22 +203,46 @@ def test_smoke_compare_reads_kernel_a_backward_routes():
     assert got["rna_train_kernels"] == [{k: v for k, v in gated.items() if k != "valid"}]
 
 
-def test_step_launches_counts_every_record(monkeypatch):
-    """``step_launches`` counts every record of work that its filter takes,
-    by full name: two kernels whose names share a long prefix both count."""
+def test_kernel_totals_counts_every_record():
+    """The profiles' launch totals count every record of work on the card
+    once, by kernel name: two kernels whose names share a long prefix are
+    added together, host records and records with no card time are left
+    out, and a user annotation on the card counts, as it always has."""
     import types
 
-    from pamnet_tpu_torch import step_launches
+    from pamnet_tpu_torch.profiling import NAME_CHARS, is_kernel, kernel_totals
 
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
-    x = torch.randn(64, 64)
-    smoke = types.SimpleNamespace(
-        _is_kernel=lambda ev: ev.key in ("aten::mul", "aten::add"),
-        _device_us=lambda ev: ev.self_cpu_time_total)
+    def ev(key, count, us, device="DeviceType.CUDA"):
+        return types.SimpleNamespace(key=key, count=count, device_type=device,
+                                     self_device_time_total=us)
 
-    def fn():
-        return x * 2.0 + x, x * 3.0
+    long = "k" * NAME_CHARS
+    events = [ev(long + "<1>", 6, 30.0), ev(long + "<2>", 3, 15.0), ev("aten::mul", 9, 0.0),
+              ev("aten::add", 3, 12.0, "DeviceType.CPU"), ev("mul_kernel", 12, 24.0),
+              ev("Optimizer.step#Adam.step", 3, 60.0)]
+    assert [is_kernel(e) for e in events] == [True, True, False, False, True, True]
+    got = kernel_totals(events, 3)
+    assert got["kernel_launches"] == 8.0
+    assert got["device_ms"] == pytest.approx(0.043)
+    assert got["by_name"] == {long: [3.0, pytest.approx(0.015)],
+                              "Optimizer.step#Adam.step": [1.0, pytest.approx(0.02)],
+                              "mul_kernel": [4.0, pytest.approx(0.008)]}
 
-    got = step_launches._profiled(fn, smoke)
-    assert got["kernel_launches"] == 3.0
-    assert {k: v[0] for k, v in got["by_name"].items()} == {"aten::add": 1.0, "aten::mul": 2.0}
+
+def test_smoke_compare_reads_profile_totals():
+    """The comparison prints a profiled step's and forward's kernel launches
+    in total and by name where the checkout prints them, and the device
+    time alone where it does not (a parent from before the totals)."""
+    import json
+
+    from pamnet_tpu_torch.smoke_compare import summarize
+
+    by_name = {"gated_sum_backward_kernel": [6.0, 0.016], "mul_kernel": [35.0, 0.099]}
+    lines = [json.dumps({"phase": "profile_train", "device_ms_per_step_total": 10.9,
+                         "kernel_launches_per_step": 2391.0, "kernels_by_name": by_name}),
+             json.dumps({"phase": "profile", "device_ms_per_batch_total": 1.93})]
+    got = summarize(lines)
+    assert got["profile_train"]["kernel_launches_per_step"] == 2391.0
+    assert got["profile_train"]["kernels_by_name"] == by_name
+    assert got["profile_train"]["device_ms_per_step_total"] == 10.9
+    assert got["profile"] == {"device_ms_per_batch_total": 1.93, "sbf_launches": []}
