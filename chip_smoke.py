@@ -2,7 +2,8 @@
 """GPU smoke run of the PyTorch/CUDA port (pamnet_tpu_torch) on one card.
 
     python3 chip_smoke.py [--seed 0] [--structures 16] [--atoms 2100]
-                          [--qm9_molecules 512] [--rna_structures 32] [--profile]
+                          [--qm9_molecules 512] [--rna_structures 32]
+                          [--pdbbind_complexes 64] [--profile]
 
 Phases, each printing one JSON line:
   1. device: the card's name and power limit (nvidia-smi) and the kernel
@@ -35,13 +36,14 @@ Phases, each printing one JSON line:
      three multiplies it replaces;
   6. train: QM9 training at the recipe (dim 128, 6 layers, batch 32, f32,
      L1, Adam + clip 1000 + EMA 0.999, warmup-exponential at lr 1e-4) on
-     synthetic molecules: the first step's gradients through the kernels
-     against the plain route, a repeated step bitwise, launches per step of
+     synthetic molecules: the first step's gradients and loss through the
+     kernels against the plain route, a repeated step bitwise, launches per step of
      every forward and backward kernel (kernel A 3 a layer, the summed
      global message 1; in the backward the fused role swap 2 a layer, the
      gated backward 1, no row gather and no gather_product), an epoch (the training main path;
-     every kernel of the path must launch), ms per step and molecules/s on a
-     resident batch, host enqueue time and peak memory; then
+     every kernel of the path must launch), ms per step, molecules/s and
+     device ms per step on a resident batch, host enqueue time and peak
+     memory; then
      ``python -m pamnet_tpu_torch.main_qm9`` in-process for one epoch;
   7. rna_train_kernels: kernel B's backward, summed by center edge and not,
      against PyTorch's autograd of its plain version at the pads of an RNA
@@ -71,11 +73,32 @@ Phases, each printing one JSON line:
      The group sums of both training phases are bitwise equal across two
      calls; the embedding's (the sum by ``z``) takes the split kernel
      (``group_sum_split``) on both training paths;
-  9. kernels: one line listing every kernel with its numbers (the role
+  9. pdbbind_kernels: every wrapper a PDBbind training step launches, on
+     the arrays of a batch of 32 realistic synthetic complexes (D=128; n
+     ~10.7k, eg ~334k, up to 80 rows a global group) against its plain
+     version and timed against its bound: kernel A's unfolded t2/t1 sums and
+     gated el_dst sum, the local messages, the global message summed by
+     node, the radial table's gathers, the fused role swap, the gated
+     backward, the messages' backward and the group sums, with the walk's
+     team shapes timed at those CSRs;
+ 10. pdbbind_train: PDBbind training at the README recipe (full PAMNet, dim
+     128, 3 layers, batch 32, lr 1e-3, MSE, Adam, the multistep schedule, no
+     EMA, f32) on those complexes at the loader's worst-case pads: the
+     step's loss and gradients through the kernels against the plain route
+     (every tensor within 1e-4 * max|g| + 1e-6, as on the other paths), a
+     repeated step bitwise, launches per step (no embedding gather, no
+     split group sum, no kernel B), an epoch, ms per step, device ms;
+     then ``python -m pamnet_tpu_torch.main_pdbbind --synthetic 48`` at its
+     defaults in-process for one epoch;
+ 11. qm9_s_train: PAMNet_s at the QM9 recipe, the same checks, no t2
+     launch (kernel A 2 a layer, the fused role swap 1), then ``main_qm9
+     --model PAMNet_s`` in-process for one epoch;
+ 12. kernels: one line listing every kernel with its numbers (the role
      swap alone and gather_product are off the main paths since the fused
      role swap: 0 launches, asserted).
 With ``--profile`` each phase also lists its device time by kernel and, for
-the scoring forward and a QM9 and an RNA training step, every kernel launch
+the scoring forward and a QM9, an RNA, a PDBbind and a PAMNet_s training
+step, every kernel launch
 in total and by kernel name with its device time (``kernels_by_name``) and
 each launch of the port's kernels with its device time
 (``port_kernel_launches``).
@@ -103,7 +126,7 @@ import urllib.request
 
 import numpy as np
 
-from pamnet_tpu_torch.profiling import device_us, is_kernel, kernel_totals
+from pamnet_tpu_torch.profiling import device_ms, device_us, is_kernel, kernel_totals, time_ms
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, f32 flop/s outside
 # the tensor cores.
@@ -144,23 +167,6 @@ def kernel_resources(library: str) -> dict[str, dict[str, int]]:
             for name, reg, stack, shared, local in found}
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of one call, by CUDA events around ``iters`` calls."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def enqueue_ms(fn, iters: int = 50) -> float:
     """Host time to issue one call (no synchronize inside the loop): where it
     exceeds the device time, a run of calls is bound by the host."""
@@ -174,32 +180,6 @@ def enqueue_ms(fn, iters: int = 50) -> float:
     dt = time.perf_counter() - t0
     torch.cuda.synchronize()
     return dt / iters * 1e3
-
-
-def device_ms(fn, iters: int = 20, tries: int = 3) -> float | None:
-    """Mean device time of the kernels one call launches, from the profiler's
-    kernel records over ``iters`` calls: the card's own time, where an
-    event-timed run of small calls measures the host's issue rate.  The
-    profiler can drop records of a run, so each kernel counts its mean
-    record times its launches per call (records over calls, rounded, at
-    least one), not its total over ``iters``.  A profile that recorded no
-    kernel is taken again; None ("not measured") after ``tries`` such
-    profiles."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(device_us(ev) / ev.count * max(1, round(ev.count / iters))
-                 for ev in prof.key_averages() if is_kernel(ev))
-        if us > 0:
-            return us / 1e3
-    return None
 
 
 def cold_device_ms(fn, iters: int = 10, flush_bytes: int = 128 << 20,
@@ -691,6 +671,68 @@ def batch_sum_case(gb, key: str, name: str, d: int, gen) -> dict:
         walk_shape=walk_shape(d, num, valid), bitwise_repeat=True)
 
 
+def batch_gathered_sum_case(gb, kind: str, d: int, gen) -> dict:
+    """Kernel A as a training step's forward calls it on batch ``gb``'s own
+    arrays, random rows: the unfolded triplet sum of ``kind`` ("t2" or
+    "t1"; its center edges' CSR, the neighbour edge ``idx`` gathered, ``b``
+    the masked modulation) or the gated el_dst sum ("el_dst": the edges'
+    CSR by el_dst, ``b`` the rbf gate, no gather); against its plain
+    version; ``library_ms`` times index_add_ of the product computed
+    beforehand."""
+    import torch
+
+    from pamnet_tpu_torch.ops.triplet import (triplet_aggregate, triplet_aggregate_plain,
+                                              walk_shape)
+
+    r = lambda *s: torch.randn(*s, device="cuda", generator=gen)  # noqa: E731
+    if kind == "el_dst":
+        groups, ids, idx = gb.groups("el_dst"), gb.el_dst, None
+        a = r(ids.shape[0], d)
+        b = r(ids.shape[0], d)
+        name = "gated el_dst edge->node sum"
+    else:
+        groups, ids = gb.groups(kind + "_ji"), getattr(gb, kind + "_ji")
+        idx = gb.t2_kj if kind == "t2" else gb.t1_jj
+        a = r(gb.el_src.shape[0], d)
+        b = r(ids.shape[0], d) * getattr(gb, kind + "_mask")[:, None]
+        name = f"{kind} gathered and modulated sum (unfolded path)"
+    off, valid, num = groups.off, groups.total, groups.off.shape[0] - 1
+    fn = lambda: triplet_aggregate(a, off, idx, b, total=valid)  # noqa: E731
+    if not torch.equal(fn(), fn()):
+        raise AssertionError(f"kernel A's {name} is not bitwise repeatable")
+    vals = (a[idx[:valid].long()] if idx is not None else a[:valid]) * b[:valid]
+    ids_long, acc = ids[:valid].long(), torch.zeros(num, d, device="cuda")
+    a_read = _unique(idx, valid) if idx is not None else valid
+    nbytes = (a_read * d * 4 + valid * d * 4 + (valid * 4 if idx is not None else 0)
+              + (num + 1) * 4 + num * d * 4)
+    return _timed_case(
+        name, fn, lambda: triplet_aggregate_plain(a, off, idx, b),
+        lambda: acc.index_add_(0, ids_long, vals), fn(),
+        triplet_aggregate_plain(a, off, idx, b), 1e-4, 1e-5, nbytes, 2 * valid * d,
+        num_out=num, rows=ids.shape[0], valid=valid, longest_group=groups.longest, d=d,
+        walk_shape=walk_shape(d, num, valid), bitwise_repeat=True)
+
+
+def batch_edge_message_case(gb, which: str, d: int, gen) -> dict:
+    """A local edge message (rows, no sum) on batch ``gb``'s own el_dst /
+    el_src arrays with random node projections, base and (``m_kj``) gate,
+    against its plain version; no one PyTorch call computes it."""
+    import torch
+
+    from pamnet_tpu_torch.ops.gather import edge_message, edge_message_plain
+
+    r = lambda *s: torch.randn(*s, device="cuda", generator=gen)  # noqa: E731
+    i, j, nodes = gb.el_dst, gb.el_src, gb.z.shape[0]
+    rows, gated = i.shape[0], which == "local m_kj"
+    args = (r(nodes, d), r(nodes, d), i, j, r(rows, d), r(rows, d) if gated else None, None)
+    nbytes = ((_unique(i, rows) + _unique(j, rows)) * d * 4 + rows * 8
+              + rows * d * 4 * (3 if gated else 2))
+    return _timed_case(
+        f"{which}, batch", lambda: edge_message(*args), lambda: edge_message_plain(*args),
+        None, edge_message(*args), edge_message_plain(*args), 1e-6, 1e-5, nbytes,
+        rows * d * (6 + int(gated)), nodes=nodes, rows=rows, d=d, gated=gated)
+
+
 def walk_shape_trial(name: str, fn, d: int, num_out: int, total: int) -> dict:
     """Design trial of the CSR walk's team shape: the device time of one
     call of ``fn`` (a walk route at D=``d`` over ``num_out`` groups of
@@ -989,6 +1031,8 @@ def main() -> int:
     parser.add_argument("--rna_structures", type=int, default=32,
                         help="synthetic structures of the RNA training phase "
                              "(the last quarter validates)")
+    parser.add_argument("--pdbbind_complexes", type=int, default=64,
+                        help="synthetic realistic complexes of the PDBbind training phase")
     parser.add_argument("--profile", action="store_true",
                         help="also print the device-time breakdown of one forward "
                              "and of three training steps")
@@ -1256,7 +1300,13 @@ def main() -> int:
     rna_cases, rna_launches = rna_train_phase(
         args, rna_mols[:args.rna_structures], gen, reset_counts, read_counts, emit)
 
-    # ---- 9. every kernel of the paths, with its numbers ----
+    # ---- 9-10. PDBbind training: the kernels at its shapes and its training path ----
+    pdb_cases, pdb_launches = pdbbind_phase(args, gen, reset_counts, read_counts, emit)
+
+    # ---- 11. PAMNet_s training at the QM9 recipe ----
+    _, s_launches = train_phase(args, gen, reset_counts, read_counts, emit, variant="s")
+
+    # ---- 12. every kernel of the paths, with its numbers ----
     # Each kernel's top-level numbers are those of one main-path case: the
     # folded t2 triplet sum (kernel A's, on random data), kernel B's t2 sum
     # by center edge on the scoring batch, the global message, its sum by
@@ -1267,9 +1317,10 @@ def main() -> int:
     # sum's backward (QM9 training shapes); kernel B's summed backward
     # at t2 and dim 16 (RNA batch-8 training shapes).  "rna_train" holds the same
     # numbers of the kernel's first case at the RNA training shapes (null for
-    # the kernels that path does not run).  Launches add the serving, the
-    # QM9 training and the RNA training main paths; group_sum counts its
-    # calls, of either kernel, and group_sum_split the split kernel's.
+    # the kernels that path does not run), "pdbbind" those at the PDBbind
+    # training shapes.  Launches add the serving, the QM9, RNA, PDBbind and
+    # PAMNet_s training main paths; group_sum counts its calls, of either
+    # kernel, and group_sum_split the split kernel's.
     table = [
         ("triplet_aggregate", "triplet_aggregate.cu", "pamnet_tpu/ops/pallas_triplet.py:47",
          a_cases + walk_batch, a_cases[0]),
@@ -1302,18 +1353,25 @@ def main() -> int:
     ]
     numbers = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
                "library_device_ms", "enqueue_ms")
+    by_path = {"serve": launches, "train": train_launches, "rna_train": rna_launches,
+               "pdbbind_train": pdb_launches, "qm9_s_train": s_launches}
+
+    def first_case(path_cases, name):
+        if name not in path_cases:
+            return None
+        return {"timed_case": path_cases[name][0]["case"],
+                **{k: path_cases[name][0][k] for k in numbers}}
+
     kernels = [
         {"name": name, "route": "cuda", "source": f"pamnet_tpu_torch/csrc/{src}",
          "replaces": replaces,
-         "launches": launches[name] + train_launches[name] + rna_launches[name],
-         "launches_by_path": {"serve": launches[name], "train": train_launches[name],
-                              "rna_train": rna_launches[name]},
+         "launches": sum(counts[name] for counts in by_path.values()),
+         "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
          "max_abs_err": max(c["max_abs_err"] for c in
-                            cases + bwd_cases.get(name, []) + rna_cases.get(name, [])),
+                            cases + bwd_cases.get(name, []) + rna_cases.get(name, [])
+                            + pdb_cases.get(name, [])),
          **{k: rep[k] for k in numbers}, "timed_case": rep["case"],
-         "rna_train": ({"timed_case": rna_cases[name][0]["case"],
-                        **{k: rna_cases[name][0][k] for k in numbers}}
-                       if name in rna_cases else None)}
+         "rna_train": first_case(rna_cases, name), "pdbbind": first_case(pdb_cases, name)}
         for name, src, replaces, cases, rep in table
     ]
     # The role swap alone and gather_product are routes for one gradient
@@ -1366,9 +1424,14 @@ def port_kernel_launches(prof, calls: int) -> list[dict]:
              "device_us": ev.time_range.end - ev.time_range.start} for ev in evs]
 
 
-def train_phase(args, gen, reset_counts, read_counts, emit_kernels) -> tuple[dict, dict]:
-    """Phases 5 and 6: backward kernel cases and QM9 training at the recipe.
-    Returns (kernel cases by kernel, launches of the training main path)."""
+def train_phase(args, gen, reset_counts, read_counts, emit_line,
+                variant: str = "full") -> tuple[dict, dict]:
+    """QM9 training at the recipe (dim 128, 6 layers, batch 32, L1, Adam +
+    clip 1000 + EMA 0.999, warmup-exponential).  ``variant="full"``: phases 5
+    and 6, the backward kernel cases at the QM9 pads and PAMNet's training;
+    ``variant="s"``: phase 11, PAMNet_s's training, the one-hop stream alone.
+    Returns (kernel cases by kernel, none for PAMNet_s; launches of the
+    training main path)."""
     import torch
 
     from pamnet_tpu_torch import main_qm9
@@ -1377,183 +1440,109 @@ def train_phase(args, gen, reset_counts, read_counts, emit_kernels) -> tuple[dic
     from pamnet_tpu_torch.data.synthetic import synthetic_qm9_dataset
     from pamnet_tpu_torch.models.pamnet import PAMNet
     from pamnet_tpu_torch.train.ema import ema_init
-    from pamnet_tpu_torch.train.loop import Optimizer, batch_loss, run_epoch, train_step
+    from pamnet_tpu_torch.train.loop import Optimizer, train_step
     from pamnet_tpu_torch.train.schedules import warmup_exponential
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    bs, d = 32, 128
+    bs, d, n_layer, kind = 32, 128, 6, "l1"
     t0 = time.perf_counter()
     qmols = synthetic_qm9_dataset(args.qm9_molecules, seed=args.seed)
     loader = GraphLoader(qmols, "qm9", 5.0, 5.0, bs, shuffle=True, seed=args.seed,
-                         drop_last=True, build_perms=True)
+                         drop_last=True, build_perms=True, variant=variant)
     host_build_s = time.perf_counter() - t0
     gb = loader.collate(list(range(bs))).to("cuda")  # a resident batch at the pads
 
-    # ---- 5. backward kernels at the QM9 pads ----
-    cases = {
-        "triplet_aggregate_grad_a": [grad_a_case(gb, "t2", d, gen), grad_a_case(gb, "t1", d, gen)],
-        "triplet_aggregate_grad_ab": [fused_role_swap_case(gb, "t2", d, gen),
-                                      fused_role_swap_case(gb, "t1", d, gen)],
-        "gather_product": [gather_product_case(gb, "t2", d, gen),
-                           gather_product_case(gb, "t1", d, gen)],
-        "gated_sum_backward": [gated_backward_case(gb, d, gen)],
-        "edge_message_backward": [edge_backward_case(gb, w, d, gen)
-                                  for w in ("global", "local m_kj", "local m_ji")]
-        + [edge_backward_case(gb, "global", d, gen, summed=True)],
-        "edge_message_sum": [message_sum_case(gb, "global message summed, batch", d, gen,
-                                              "source_to_target")],
-        "group_sum": [group_sum_case(gb, k, d, gen)
-                      for k in ("el_src", "eg_src", "el_dst", "eg_dst")],
-        "group_sum_split": [group_sum_case(gb, "z", d, gen)],
-        "row_gather": [radial_gather_case(gb, k) for k in ("t2", "t1")],
-    }
-    emit_kernels({"phase": "train_kernels", "pads": dataclasses.asdict(loader.pads),
-                  "valid": gb.valid, **cases,
-                  "walk_shape_trials": walk_trials(gb, d, gen, ("eg_dst", "eg_src", "el_src"),
-                                                   "source_to_target")})
+    cases: dict = {}
+    if variant == "full":
+        # ---- 5. backward kernels at the QM9 pads ----
+        cases = {
+            "triplet_aggregate_grad_a": [grad_a_case(gb, "t2", d, gen),
+                                         grad_a_case(gb, "t1", d, gen)],
+            "triplet_aggregate_grad_ab": [fused_role_swap_case(gb, "t2", d, gen),
+                                          fused_role_swap_case(gb, "t1", d, gen)],
+            "gather_product": [gather_product_case(gb, "t2", d, gen),
+                               gather_product_case(gb, "t1", d, gen)],
+            "gated_sum_backward": [gated_backward_case(gb, d, gen)],
+            "edge_message_backward": [edge_backward_case(gb, w, d, gen)
+                                      for w in ("global", "local m_kj", "local m_ji")]
+            + [edge_backward_case(gb, "global", d, gen, summed=True)],
+            "edge_message_sum": [message_sum_case(gb, "global message summed, batch", d, gen,
+                                                  "source_to_target")],
+            "group_sum": [group_sum_case(gb, k, d, gen)
+                          for k in ("el_src", "eg_src", "el_dst", "eg_dst")],
+            "group_sum_split": [group_sum_case(gb, "z", d, gen)],
+            "row_gather": [radial_gather_case(gb, k) for k in ("t2", "t1")],
+        }
+        emit_line({"phase": "train_kernels", "pads": dataclasses.asdict(loader.pads),
+                   "valid": gb.valid, **cases,
+                   "walk_shape_trials": walk_trials(gb, d, gen, ("eg_dst", "eg_src", "el_src"),
+                                                    "source_to_target")})
 
-    # ---- 6. training at the recipe ----
-    cfg = PAMNetConfig(dataset="QM9", dim=d, n_layer=6, cutoff_l=5.0, cutoff_g=5.0)
+    # ---- 6 / 11. training at the recipe ----
+    cfg = PAMNetConfig(dataset="QM9", dim=d, n_layer=n_layer, cutoff_l=5.0, cutoff_g=5.0,
+                       variant=variant)
     model = PAMNet(cfg, torch.Generator().manual_seed(args.seed)).to("cuda")
     opt = Optimizer(model.parameters(),
                     warmup_exponential(1e-4, len(loader), frac_steps_per_epoch=len(qmols) / bs),
                     clip_norm=1000.0)
     ema = ema_init(model.state_dict())
-
-    # The first step's gradients: kernels against PyTorch's autograd of the
-    # plain versions, per tensor within 1e-4 * max|g| + 1e-6.
-    grad_check = _worst_gradient(
-        _parameter_grads(model, lambda: batch_loss(model, gb, "l1")),
-        _parameter_grads(model, lambda: batch_loss(model, gb, "l1", plain=True)),
-        "kernel gradients off the plain route")
-
-    # Launches of one step, forward and backward apart.
-    opt.zero_grad()
-    reset_counts()
-    loss = batch_loss(model, gb, "l1")
-    fwd = read_counts()
-    reset_counts()
-    loss.backward()
-    torch.cuda.synchronize()
-    bwd = read_counts()
-    need_fwd = ("triplet_aggregate", "edge_message", "edge_message_sum", "row_gather")
-    need_bwd = ("triplet_aggregate_grad_ab", "gated_sum_backward", "group_sum",
-                "group_sum_split", "edge_message_backward")
-    if (min(fwd[k] for k in need_fwd) < 1 or min(bwd[k] for k in need_bwd) < 1
-            or bwd["group_sum"] <= bwd["group_sum_split"]):
-        raise AssertionError(f"a step skipped a kernel: forward {fwd}, backward {bwd}")
-    # The global message sums itself by node: per layer kernel A's forward
-    # launches are the t2/t1 gathered sums and the el_dst sum.  In the
-    # backward each triplet sum's d_a and d_b are one fused role swap (no
-    # role swap alone, no gather_product) and the el_dst sum's two
-    # gradients one gated backward (no row gather).
-    if (fwd["triplet_aggregate"] != 3 * cfg.n_layer or fwd["edge_message_sum"] != cfg.n_layer
-            or bwd["triplet_aggregate_grad_ab"] != 2 * cfg.n_layer
-            or bwd["gated_sum_backward"] != cfg.n_layer or bwd["row_gather"]
-            or bwd["gather_product"] or bwd["triplet_aggregate_grad_a"]):
-        raise AssertionError(f"kernel A / summed message / backward launches per step: "
-                             f"forward {fwd}, backward {bwd}")
-
-    # One step from the same state, twice: bitwise equal.
-    params = list(model.parameters())
-    snap = ([p.detach().clone() for p in params], opt.state_dict(),
-            {k: v.clone() for k, v in ema.items()})
-    runs = []
-    for _ in range(2):
-        with torch.no_grad():
-            torch._foreach_copy_(params, snap[0])
-        opt.load_state_dict(snap[1])
-        torch._foreach_copy_(list(ema.values()), list(snap[2].values()))
-        loss = train_step(model, opt, ema, gb, "l1")
-        runs.append([loss] + [p.detach().clone() for p in params]
-                    + [v.clone() for v in ema.values()])
-    if not all(torch.equal(a, b) for a, b in zip(*runs)):
-        raise AssertionError("a repeated step is not bitwise equal")
-
-    # The training main path: one epoch of shuffled batches.
-    reset_counts()
-    t0 = time.perf_counter()
-    loss_sum, ng, losses = run_epoch(model, opt, ema, loader, "cuda", "l1")
-    torch.cuda.synchronize()
-    epoch_s = time.perf_counter() - t0
-    launches = read_counts()
-    if (min(launches[k] for k in set(need_fwd + need_bwd)) < 1
-            or launches["group_sum"] <= launches["group_sum_split"]):
-        raise AssertionError(f"the training path skipped a kernel: {launches}")
-    step_losses = [float(v) for v in torch.stack(losses).cpu()]
-    if not all(math.isfinite(v) for v in step_losses):
-        raise AssertionError(f"non-finite loss: {step_losses}")
-
-    # Steps on the resident batch.
-    torch.cuda.reset_peak_memory_stats()
-    step = lambda: train_step(model, opt, ema, gb, "l1")  # noqa: E731
-    step_ms = time_ms(step, iters=10, warmup=2)
-    step_enqueue_ms = enqueue_ms(step, iters=10)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    last = float(step())
-    if not math.isfinite(last):
-        raise AssertionError(f"non-finite loss after the timed steps: {last}")
-    res = {"phase": "train", "molecules": len(qmols), "batch_size": bs, "dim": d,
-           "n_layer": cfg.n_layer, "host_build_s": host_build_s,
-           "pads": dataclasses.asdict(loader.pads), "resident_batch_valid": gb.valid,
-           "gradient_check": grad_check,
+    checks = _step_checks(model, opt, ema, gb, kind)
+    # Launches per step (None: at least one).  The global message sums
+    # itself by node.  PAMNet: per layer kernel A's forward launches are the
+    # t2/t1 gathered sums and the el_dst sum; in the backward each triplet
+    # sum's d_a and d_b are one fused role swap (no role swap alone, no
+    # gather_product) and the el_dst sum's two gradients one gated backward
+    # (no row gather).  PAMNet_s has no two-hop stream: kernel A's t1 sum and
+    # the el_dst sum a layer, one fused role swap, the radial table gathered
+    # at t1 alone beside the embedding, and the embedding's backward by the
+    # split kernel.
+    if variant == "full":
+        want_fwd = {"triplet_aggregate": 3 * n_layer, "edge_message_sum": n_layer,
+                    "edge_message": None, "row_gather": None}
+        want_bwd = {"triplet_aggregate_grad_ab": 2 * n_layer, "gated_sum_backward": n_layer,
+                    "row_gather": 0, "gather_product": 0, "triplet_aggregate_grad_a": 0,
+                    "group_sum": None, "group_sum_split": None, "edge_message_backward": None}
+    else:
+        want_fwd = {"triplet_aggregate": 2 * n_layer, "edge_message_sum": n_layer,
+                    "edge_message": 3 * n_layer, "row_gather": 2, "sbf_modulate": 0}
+        want_bwd = {"triplet_aggregate_grad_ab": n_layer, "gated_sum_backward": n_layer,
+                    "row_gather": 0, "group_sum_split": 1, "gather_product": 0,
+                    "triplet_aggregate_grad_a": 0, "group_sum": None,
+                    "edge_message_backward": None}
+    what = "QM9" if variant == "full" else "PAMNet_s"
+    fwd, bwd = _step_launches(model, gb, kind, reset_counts, read_counts, want_fwd, want_bwd,
+                              what)
+    launches, epoch = _epoch(model, opt, ema, loader, kind, reset_counts, read_counts,
+                             want_fwd, want_bwd, what)
+    step = lambda: train_step(model, opt, ema, gb, kind)  # noqa: E731
+    res = {"phase": "train" if variant == "full" else "qm9_s_train",
+           "molecules": len(qmols), "batch_size": bs, "dim": d, "n_layer": n_layer,
+           "host_build_s": host_build_s, "pads": dataclasses.asdict(loader.pads),
+           "resident_batch_valid": gb.valid, "gradient_check": checks,
            "bitwise_repeat": True, "launches_per_step_forward": fwd,
-           "launches_per_step_backward": bwd, "epoch_steps": len(losses),
-           "epoch_s": epoch_s, "epoch_mol_per_s": ng / epoch_s,
-           "epoch_train_mae": loss_sum / ng, "step_losses": step_losses,
-           "main_path_launches": launches, "ms_per_step": step_ms,
-           "mol_per_s": gb.num_graphs / step_ms * 1e3,
-           "enqueue_ms_per_step": step_enqueue_ms, "peak_mem_gb": peak_gb,
-           "loss_after": last}
-    emit_kernels(res)
-
+           "launches_per_step_backward": bwd, **epoch, "main_path_launches": launches,
+           **_step_numbers(step, gb.num_graphs)}
+    emit_line(res)
     if args.profile:
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                step()
-            torch.cuda.synchronize()
-        rows, host = profile_rows(prof, 3)
-        device_ms = sum(r["device_ms_per_call"] for r in rows)
-        # Python's own profile of the host side of three steps.
-        import cProfile
-        import pstats
-
-        pr = cProfile.Profile()
-        pr.enable()
-        for _ in range(3):
-            step()
-        torch.cuda.synchronize()
-        pr.disable()
-        st = pstats.Stats(pr)
-        py_rows = sorted(st.stats.items(), key=lambda kv: -kv[1][2])[:20]
-        emit_kernels({"phase": "profile_train", "train_step_top": rows[:25],
-                      "device_ms_per_step_total": device_ms,
-                      **launch_totals(prof, 3, "step"),
-                      "device_idle_share_vs_event_ms": 1.0 - device_ms / step_ms,
-                      "port_kernel_launches": port_kernel_launches(prof, 3),
-                      "host_top": host,
-                      "python_self_top": [
-                          {"function": f"{os.path.basename(k[0])}:{k[1]}:{k[2]}",
-                           "self_ms_per_step": v[2] / 3 * 1e3, "calls_per_step": v[1] / 3}
-                          for k, v in py_rows]})
+        _profile_step(step, "profile_train" if variant == "full" else "profile_qm9_s_train",
+                      res["ms_per_step"], emit_line)
 
     # main_qm9, in-process, one epoch at the recipe.
+    model_flag = [] if variant == "full" else ["--model", "PAMNet_s"]
     out = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out), tempfile.TemporaryDirectory() as tmp:
-        main_qm9.main(["--synthetic", "--limit", "320", "--epochs", "1",
+        main_qm9.main(["--synthetic", "--limit", "320", "--epochs", "1", *model_flag,
                        "--seed", str(args.seed), "--device", "cuda", "--save_dir", tmp])
     main_s = time.perf_counter() - t0
     text = out.getvalue()
     maes = re.findall(r"(Train|Val|Test) MAE: (\S+?),? ", text)
     maes += re.findall(r"(Best Validation|Testing) MAE: (\S+)", text)
     if len(maes) != 5 or not all(math.isfinite(float(v)) for _, v in maes):
-        raise AssertionError(f"main_qm9 output: {text}")
-    emit_kernels({"phase": "main_qm9", "seconds": main_s,
-                  "lines": [ln for ln in text.splitlines() if "MAE" in ln]})
+        raise AssertionError(f"main_qm9 {' '.join(model_flag)} output: {text}")
+    emit_line({"phase": "main_qm9" if variant == "full" else "main_qm9_pamnet_s",
+               "seconds": main_s, "lines": [ln for ln in text.splitlines() if "MAE" in ln]})
     return cases, launches
 
 
@@ -1576,6 +1565,7 @@ def _worst_gradient(got: dict, want: dict, what: str) -> dict:
     if not ratios[worst] <= 1.0:
         raise AssertionError(f"{what}: {worst} at {ratios[worst]} of the tolerance")
     return {"tensors": len(ratios), "worst": worst, "worst_err_over_tolerance": ratios[worst],
+            "worst_five": dict(sorted(ratios.items(), key=lambda kv: -kv[1])[:5]),
             "tolerance": "1e-4 * max|g| + 1e-6 per tensor"}
 
 
@@ -1591,7 +1581,7 @@ def rna_train_phase(args, mols, gen, reset_counts, read_counts, emit_line) -> tu
     from pamnet_tpu_torch.data.tu import TUDataset, write_tu_split
     from pamnet_tpu_torch.models.pamnet import PAMNet
     from pamnet_tpu_torch.serve import RNAScoringService
-    from pamnet_tpu_torch.train.loop import Optimizer, batch_loss, predict, run_epoch, train_step
+    from pamnet_tpu_torch.train.loop import Optimizer, batch_loss, predict, train_step
     from pamnet_tpu_torch.train.schedules import constant
     from pamnet_tpu_torch.weights import load_reference_checkpoint
 
@@ -1668,115 +1658,48 @@ def rna_train_phase(args, mols, gen, reset_counts, read_counts, emit_line) -> tu
         unfolded.load_state_dict(model.state_dict())
         opt = Optimizer(model.parameters(), constant(lr))
 
-        # The first step's gradients: kernels against PyTorch's autograd of
-        # the plain versions, and the folded against the unfolded path.
-        g_kernel = _parameter_grads(model, lambda: batch_loss(model, gb, kind))
-        g_plain = _parameter_grads(model, lambda: batch_loss(model, gb, kind, plain=True))
-        g_unfolded = _parameter_grads(unfolded, lambda: batch_loss(unfolded, gb, kind))
-        grad_checks = {
-            "kernels_vs_plain": _worst_gradient(g_kernel, g_plain, "kernel vs plain gradients"),
-            "folded_vs_unfolded": _worst_gradient(g_kernel, g_unfolded,
-                                                  "folded vs unfolded gradients")}
+        # The first step's gradients: the folded against the unfolded path,
+        # then (with its loss and a repeated step bitwise) the kernels
+        # against PyTorch's autograd of the plain versions.
+        folded_vs_unfolded = _worst_gradient(
+            _parameter_grads(model, lambda: batch_loss(model, gb, kind)),
+            _parameter_grads(unfolded, lambda: batch_loss(unfolded, gb, kind)),
+            "folded vs unfolded gradients")
+        grad_checks = {"kernels_vs_plain": _step_checks(model, opt, None, gb, kind),
+                       "folded_vs_unfolded": folded_vs_unfolded}
 
-        # Launches of one step, forward and backward apart.
-        opt.zero_grad()
-        reset_counts()
-        loss = batch_loss(model, gb, kind)
-        fwd = read_counts()
-        reset_counts()
-        loss.backward()
-        torch.cuda.synchronize()
-        bwd = read_counts()
+        # Launches per step (None: at least one).  Kernel B sums the t2/t1
+        # streams by center edge itself and the global message sums itself
+        # by node: the forward's kernel A launch is the el_dst sum alone (the
+        # unfolded forward adds its two gathered sums), and its two gradients
+        # are one gated backward: no row gather in the backward (none by
+        # t2_ji/t1_ji, eg_src or el_dst).
+        want_fwd = {"sbf_modulate": 2, "triplet_aggregate": 1, "edge_message_sum": 1,
+                    "edge_message": None, "row_gather": None}
+        want_bwd = {"sbf_modulate_backward": 2, "gated_sum_backward": 1, "row_gather": 0,
+                    "group_sum": None, "group_sum_split": None, "edge_message_backward": None}
+        fwd, bwd = _step_launches(model, gb, kind, reset_counts, read_counts, want_fwd,
+                                  want_bwd, "RNA")
         reset_counts()
         with torch.no_grad():
             batch_loss(unfolded, gb, kind)
         fwd_unfolded = read_counts()
-        if fwd["sbf_modulate"] != 2 or bwd["sbf_modulate_backward"] != 2:
-            raise AssertionError(f"kernel B launches per step: forward {fwd}, backward {bwd}")
-        # Kernel B sums the t2/t1 streams by center edge itself and the
-        # global message sums itself by node: the forward's kernel A launch
-        # is the el_dst sum alone (the unfolded forward adds its two gathered
-        # sums), and its two gradients are one gated backward: no row
-        # gather in the backward (none by t2_ji/t1_ji, eg_src or el_dst).
-        if not (fwd["triplet_aggregate"] == 1 == fwd_unfolded["triplet_aggregate"] - 2
-                and fwd["edge_message_sum"] == 1 and bwd["gated_sum_backward"] == 1
-                and bwd["row_gather"] == 0):
-            raise AssertionError(f"kernel A / row gather launches per step: forward {fwd}, "
-                                 f"backward {bwd}, unfolded forward {fwd_unfolded}")
-        need_fwd = ("triplet_aggregate", "sbf_modulate", "edge_message", "edge_message_sum",
-                    "row_gather")
-        need_bwd = ("sbf_modulate_backward", "group_sum", "group_sum_split",
-                    "edge_message_backward", "gated_sum_backward")
-        if (min(fwd[k] for k in need_fwd) < 1 or min(bwd[k] for k in need_bwd) < 1
-                or bwd["group_sum"] <= bwd["group_sum_split"]):
-            raise AssertionError(f"a step skipped a kernel: forward {fwd}, backward {bwd}")
-
-        # One step from the same state, twice: bitwise equal.
-        params = list(model.parameters())
-        snap = ([p.detach().clone() for p in params], opt.state_dict())
-        runs = []
-        for _ in range(2):
-            with torch.no_grad():
-                torch._foreach_copy_(params, snap[0])
-            opt.load_state_dict(snap[1])
-            loss = train_step(model, opt, None, gb, kind)
-            runs.append([loss] + [p.detach().clone() for p in params])
-        if not all(torch.equal(a, b) for a, b in zip(*runs)):
-            raise AssertionError("a repeated RNA step is not bitwise equal")
-
-        # The RNA training main path: one epoch of shuffled batches.
-        reset_counts()
-        t0 = time.perf_counter()
-        loss_sum, ng, losses = run_epoch(model, opt, None, loader, "cuda", kind)
-        torch.cuda.synchronize()
-        epoch_s = time.perf_counter() - t0
-        launches = read_counts()
-        if (min(launches[k] for k in set(need_fwd + need_bwd)) < 1
-                or launches["group_sum"] <= launches["group_sum_split"]):
-            raise AssertionError(f"the RNA training path skipped a kernel: {launches}")
-        step_losses = [float(v) for v in torch.stack(losses).cpu()]
-        if not all(math.isfinite(v) for v in step_losses):
-            raise AssertionError(f"non-finite loss: {step_losses}")
-
-        # Steps on the resident batch.
-        torch.cuda.reset_peak_memory_stats()
+        if fwd_unfolded["triplet_aggregate"] != 3:
+            raise AssertionError(f"kernel A launches of the unfolded forward: {fwd_unfolded}")
+        launches, epoch = _epoch(model, opt, None, loader, kind, reset_counts, read_counts,
+                                 want_fwd, want_bwd, "RNA")
         step = lambda: train_step(model, opt, None, gb, kind)  # noqa: E731
-        step_ms = time_ms(step, iters=10, warmup=2)
-        step_enqueue_ms = enqueue_ms(step, iters=10)
-        step_device_ms = device_ms(step, iters=5)
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        last = float(step())
-        if not math.isfinite(last):
-            raise AssertionError(f"non-finite loss after the timed steps: {last}")
-        emit_line({
+        res = {
             "phase": "rna_train", "structures": len(train_mols), "val_structures": len(val_mols),
             "atoms": args.atoms, "batch_size": bs, "dim": d, "n_layer": 1, "lr": lr,
             "host_build_s": host_build_s, "pads": dataclasses.asdict(loader.pads),
             "resident_batch_valid": gb.valid, "gradient_checks": grad_checks,
             "bitwise_repeat": True, "launches_per_step_forward": fwd,
             "launches_per_step_backward": bwd, "launches_unfolded_forward": fwd_unfolded,
-            "epoch_steps": len(losses), "epoch_s": epoch_s,
-            "epoch_structures_per_s": ng / epoch_s, "epoch_train_loss": loss_sum / ng,
-            "step_losses": step_losses, "main_path_launches": launches,
-            "ms_per_step": step_ms, "structures_per_s": gb.num_graphs / step_ms * 1e3,
-            "enqueue_ms_per_step": step_enqueue_ms, "device_ms_per_step": step_device_ms,
-            "device_idle_share": (None if step_device_ms is None
-                                  else 1.0 - step_device_ms / step_ms),
-            "peak_mem_gb": peak_gb, "loss_after": last})
-
+            **epoch, "main_path_launches": launches, **_step_numbers(step, gb.num_graphs)}
+        emit_line(res)
         if args.profile:
-            from torch.profiler import ProfilerActivity, profile
-
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                for _ in range(3):
-                    step()
-                torch.cuda.synchronize()
-            rows, host = profile_rows(prof, 3)
-            emit_line({"phase": "profile_rna_train", "train_step_top": rows[:25],
-                       "device_ms_per_step_total": sum(r["device_ms_per_call"] for r in rows),
-                       **launch_totals(prof, 3, "step"),
-                       "port_kernel_launches": port_kernel_launches(prof, 3),
-                       "host_top": host})
+            _profile_step(step, "profile_rna_train", res["ms_per_step"], emit_line)
 
         # main_rna_puzzles, in-process: three epochs straight, then two
         # epochs and a resume for the third, which must repeat it bit for bit.
@@ -1821,6 +1744,251 @@ def rna_train_phase(args, mols, gen, reset_counts, read_counts, emit_line) -> tu
                    "served_structures": len(val_mols),
                    "served_scores_head": [float(v) for v in scores[:4]],
                    "served_vs_predict": served})
+    return cases, launches
+
+
+def _step_checks(model, opt, ema, gb, kind: str) -> dict:
+    """The first step's gradients through the kernels against PyTorch's
+    autograd of the plain versions, per tensor within 1e-4 * max|g| + 1e-6,
+    and its loss; then one step from the same state twice, bitwise equal."""
+    import torch
+
+    from pamnet_tpu_torch.train.loop import batch_loss, train_step
+
+    check = _worst_gradient(
+        _parameter_grads(model, lambda: batch_loss(model, gb, kind)),
+        _parameter_grads(model, lambda: batch_loss(model, gb, kind, plain=True)),
+        "kernel gradients off the plain route")
+    with torch.no_grad():
+        losses = [float(batch_loss(model, gb, kind, plain=p)) for p in (False, True)]
+    check["loss"], check["plain_loss"] = losses
+    compare("step loss vs plain", torch.tensor(losses[:1]), torch.tensor(losses[1:]),
+            atol=1e-5, rtol=1e-4)
+    params = list(model.parameters())
+    snap = ([p.detach().clone() for p in params], opt.state_dict(),
+            None if ema is None else {k: v.clone() for k, v in ema.items()})
+    runs = []
+    for _ in range(2):
+        with torch.no_grad():
+            torch._foreach_copy_(params, snap[0])
+        opt.load_state_dict(snap[1])
+        if ema is not None:
+            torch._foreach_copy_(list(ema.values()), list(snap[2].values()))
+        loss = train_step(model, opt, ema, gb, kind)
+        runs.append([loss] + [p.detach().clone() for p in params]
+                    + ([] if ema is None else [v.clone() for v in ema.values()]))
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        raise AssertionError("a repeated step is not bitwise equal")
+    return check
+
+
+def _held(counts: dict, want: dict) -> bool:
+    """Each count that ``want`` names is exact, or at least one where it
+    names None; and not every group sum went by the split kernel."""
+    return (all(counts[k] >= 1 if v is None else counts[k] == v for k, v in want.items())
+            and ("group_sum" not in want or counts["group_sum"] > counts["group_sum_split"]))
+
+
+def _step_launches(model, gb, kind: str, reset_counts, read_counts, want_fwd: dict,
+                   want_bwd: dict, what: str) -> tuple[dict, dict]:
+    """The launches of each wrapper in one step's forward and backward, held
+    to ``want_fwd`` and ``want_bwd``."""
+    import torch
+
+    from pamnet_tpu_torch.train.loop import batch_loss
+
+    model.zero_grad()
+    reset_counts()
+    loss = batch_loss(model, gb, kind)
+    fwd = read_counts()
+    reset_counts()
+    loss.backward()
+    torch.cuda.synchronize()
+    bwd = read_counts()
+    if not (_held(fwd, want_fwd) and _held(bwd, want_bwd)):
+        raise AssertionError(f"{what} step launches: forward {fwd}, backward {bwd}")
+    return fwd, bwd
+
+
+def _epoch(model, opt, ema, loader, kind: str, reset_counts, read_counts, want_fwd: dict,
+           want_bwd: dict, what: str) -> tuple[dict, dict]:
+    """The training main path: one epoch of shuffled batches.  Every kernel
+    that a step launches (``want_fwd``, ``want_bwd``) launched, and none that
+    a step does not.  Returns (its launches, its numbers)."""
+    import torch
+
+    from pamnet_tpu_torch.train.loop import run_epoch
+
+    want = {k: None for k in {**want_fwd, **want_bwd}
+            if want_fwd.get(k, 0) != 0 or want_bwd.get(k, 0) != 0}
+    want.update({k: 0 for k in {**want_fwd, **want_bwd} if k not in want})
+    reset_counts()
+    t0 = time.perf_counter()
+    loss_sum, ng, losses = run_epoch(model, opt, ema, loader, "cuda", kind)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    launches = read_counts()
+    if not _held(launches, want):
+        raise AssertionError(f"the {what} training path skipped a kernel: {launches}")
+    step_losses = [float(v) for v in torch.stack(losses).cpu()]
+    if not all(math.isfinite(v) for v in step_losses):
+        raise AssertionError(f"non-finite loss: {step_losses}")
+    return launches, {"epoch_steps": len(losses), "epoch_s": epoch_s,
+                      "epoch_graphs_per_s": ng / epoch_s, "epoch_train_loss": loss_sum / ng,
+                      "step_losses": step_losses}
+
+
+def _step_numbers(step, num_graphs: int) -> dict:
+    """ms per step event-timed on a resident batch, the host's enqueue time,
+    the profiler's device time, the card's idle share and peak memory."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(step, iters=10, warmup=2)
+    dev = device_ms(step, iters=5)
+    last = float(step())
+    if not math.isfinite(last):
+        raise AssertionError(f"non-finite loss after the timed steps: {last}")
+    return {"ms_per_step": ms, "graphs_per_s": num_graphs / ms * 1e3,
+            "enqueue_ms_per_step": enqueue_ms(step, iters=10), "device_ms_per_step": dev,
+            "device_idle_share": None if dev is None else 1.0 - dev / ms,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "loss_after": last}
+
+
+def _profile_step(step, name: str, step_ms: float, emit_line) -> None:
+    """``--profile``: device time by kernel of three steps, every launch by
+    name, the port's launches in order, the host's top rows and Python's own
+    profile of the host side of three more steps."""
+    import cProfile
+    import pstats
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+    rows, host = profile_rows(prof, 3)
+    dev = sum(r["device_ms_per_call"] for r in rows)
+    pr = cProfile.Profile()
+    pr.enable()
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    pr.disable()
+    py_rows = sorted(pstats.Stats(pr).stats.items(), key=lambda kv: -kv[1][2])[:20]
+    emit_line({"phase": name, "train_step_top": rows[:25], "device_ms_per_step_total": dev,
+               **launch_totals(prof, 3, "step"),
+               "device_idle_share_vs_event_ms": 1.0 - dev / step_ms,
+               "port_kernel_launches": port_kernel_launches(prof, 3), "host_top": host,
+               "python_self_top": [
+                   {"function": f"{os.path.basename(k[0])}:{k[1]}:{k[2]}",
+                    "self_ms_per_step": v[2] / 3 * 1e3, "calls_per_step": v[1] / 3}
+                   for k, v in py_rows]})
+
+
+def pdbbind_phase(args, gen, reset_counts, read_counts, emit_line) -> tuple[dict, dict]:
+    """Phases 9 and 10: every wrapper a PDBbind training step launches, on a
+    batch of 32 realistic complexes (D=128), and PDBbind training at the
+    README recipe.  Returns (kernel cases by kernel, launches of the PDBbind
+    training main path)."""
+    import torch
+
+    from pamnet_tpu_torch import main_pdbbind
+    from pamnet_tpu_torch.config import PAMNetConfig
+    from pamnet_tpu_torch.data.loader import GraphLoader
+    from pamnet_tpu_torch.data.synthetic import (pdbbind_molecule,
+                                                 synthetic_pdbbind_complex_dataset)
+    from pamnet_tpu_torch.models.pamnet import PAMNet
+    from pamnet_tpu_torch.train.loop import Optimizer, train_step
+    from pamnet_tpu_torch.train.schedules import multistep
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bs, d, n_layer, kind = 32, 128, 3, "mse"
+    t0 = time.perf_counter()
+    mols = [pdbbind_molecule(g)
+            for g in synthetic_pdbbind_complex_dataset(args.pdbbind_complexes, seed=805)]
+    loader = GraphLoader(mols, "pdbbind", 2.0, 6.0, bs, shuffle=True, seed=args.seed,
+                         build_perms=True)
+    host_build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gb = loader.collate(list(range(bs)))
+    collate_s = time.perf_counter() - t0
+    gb = gb.to("cuda")
+
+    # ---- 9. every wrapper of the step on the batch's own arrays ----
+    pd = loader.pads
+    cases = {
+        "triplet_aggregate": [batch_gathered_sum_case(gb, k, d, gen)
+                              for k in ("t2", "t1", "el_dst")],
+        "edge_message": [batch_edge_message_case(gb, w, d, gen)
+                         for w in ("local m_kj", "local m_ji")],
+        "edge_message_sum": [message_sum_case(gb, "global message summed, PDBbind batch", d,
+                                              gen, "source_to_target")],
+        "row_gather": [radial_gather_case(gb, k) for k in ("t2", "t1")],
+        "triplet_aggregate_grad_ab": [fused_role_swap_case(gb, k, d, gen) for k in ("t2", "t1")],
+        "gated_sum_backward": [gated_backward_case(gb, d, gen)],
+        "edge_message_backward": [edge_backward_case(gb, "global", d, gen, summed=True)]
+        + [edge_backward_case(gb, w, d, gen) for w in ("local m_kj", "local m_ji")],
+        "group_sum": [group_sum_case(gb, k, d, gen)
+                      for k in ("eg_src", "eg_dst", "el_src", "el_dst")],
+    }
+    emit_line({"phase": "pdbbind_kernels", "pads": dataclasses.asdict(pd), "valid": gb.valid,
+               "longest": gb.longest, **cases,
+               "walk_shape_trials": walk_trials(gb, d, gen, ("eg_dst", "eg_src", "el_src"),
+                                                "source_to_target")})
+
+    # ---- 10. training at the README recipe ----
+    cfg = PAMNetConfig(dataset="PDBbind", dim=d, n_layer=n_layer, cutoff_l=2.0, cutoff_g=6.0)
+    model = PAMNet(cfg, torch.Generator().manual_seed(args.seed)).to("cuda")
+    opt = Optimizer(model.parameters(), multistep(1e-3, steps_per_epoch=len(loader)))
+    checks = _step_checks(model, opt, None, gb, kind)
+    # Unfolded at dim 128: per layer kernel A's t2 and t1 sums and the gated
+    # el_dst sum, the global message summed by node, the two local messages
+    # (``edge_message`` counts the summed call too);
+    # the radial table gathered at t2 and t1 once; no embedding gather (the
+    # features go through init_linear), no kernel B.  Backward: the fused
+    # role swap 2 a layer, the gated backward 1, no row gather, and no split
+    # group sum (no CSR of z; the global CSR's longest group is short).
+    want_fwd = {"triplet_aggregate": 3 * n_layer, "edge_message_sum": n_layer,
+                "edge_message": 3 * n_layer, "row_gather": 2, "sbf_modulate": 0}
+    want_bwd = {"triplet_aggregate_grad_ab": 2 * n_layer, "gated_sum_backward": n_layer,
+                "row_gather": 0, "group_sum_split": 0, "gather_product": 0,
+                "triplet_aggregate_grad_a": 0, "sbf_modulate_backward": 0,
+                "group_sum": None, "edge_message_backward": None}
+    fwd, bwd = _step_launches(model, gb, kind, reset_counts, read_counts, want_fwd, want_bwd,
+                              "PDBbind")
+    launches, epoch = _epoch(model, opt, None, loader, kind, reset_counts, read_counts,
+                             want_fwd, want_bwd, "PDBbind")
+    step = lambda: train_step(model, opt, None, gb, kind)  # noqa: E731
+    res = {"phase": "pdbbind_train", "complexes": len(mols), "batch_size": bs, "dim": d,
+           "n_layer": n_layer, "lr": 1e-3, "host_build_s": host_build_s,
+           "collate_s": collate_s, "pads": dataclasses.asdict(pd),
+           "resident_batch_valid": gb.valid, "longest": gb.longest,
+           "gradient_check": checks, "bitwise_repeat": True,
+           "launches_per_step_forward": fwd, "launches_per_step_backward": bwd,
+           **epoch, "main_path_launches": launches, **_step_numbers(step, gb.num_graphs)}
+    emit_line(res)
+    if args.profile:
+        _profile_step(step, "profile_pdbbind_train", res["ms_per_step"], emit_line)
+
+    # main_pdbbind, in-process, one epoch at its own defaults.
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), tempfile.TemporaryDirectory() as tmp:
+        res = main_pdbbind.main(["--synthetic", "48", "--epochs", "1", "--device", "cuda",
+                                 "--save_dir", tmp])
+    text = out.getvalue()
+    quads = re.findall(r"(Train|Test) (RMSE|MAE|SD|P): (\S+?),? ", text)
+    finals = re.findall(r"Testing (RMSE|MAE|SD|P): (\S+)", text)
+    if (len(quads) != 8 or len(finals) != 4
+            or not all(math.isfinite(float(v)) for *_, v in quads + finals)):
+        raise AssertionError(f"main_pdbbind output: {text}")
+    emit_line({"phase": "main_pdbbind", "seconds": time.perf_counter() - t0,
+               "lines": [ln for ln in text.splitlines() if "RMSE" in ln or "Testing" in ln
+                         or "Data loaded" in ln], "test": list(res["test"])})
     return cases, launches
 
 

@@ -70,8 +70,16 @@ class PAMNetConfig:
 
 def atom_type_count(dataset_kind: str) -> int:
     """Rows of the atom-type embedding: RNA C/N/O only (reference:
-    models.py:32), otherwise H/C/N/O/F."""
+    models.py:32), otherwise H/C/N/O/F.  PDBbind holds the parameter too
+    (reference: models.py:58-60) but reads features through ``init_linear``
+    and never the embedding (``embeds_atom_types``)."""
     return 3 if dataset_kind == "rna" else 5
+
+
+def embeds_atom_types(dataset_kind: str) -> bool:
+    """Whether the forward gathers the atom-type embedding by ``z``, so a
+    training batch needs the CSR of ``z``: every branch but PDBbind."""
+    return dataset_kind != "pdbbind"
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:

@@ -2,7 +2,8 @@
 
 Builds the same batches as ``pamnet_tpu.data.batch.collate_structures(...,
 build_tables=False)`` on its numpy path: per-structure graph structure and
-host float64 geometry, concatenated with node/edge offsets and padded to a
+host float64 geometry (QM9, PDBbind with its (N, 18) ``feat``, RNA; PAMNet_s
+without triplets), concatenated with node/edge offsets and padded to a
 bucket.  Every aggregation of the model reads the CSR offsets carried here
 (``eg_src_off``/``eg_dst_off``, ``el_dst_off``, ``t2_ji_off``,
 ``t1_ji_off``), so rows must stay sorted by their aggregation key.
@@ -13,7 +14,8 @@ by it: a permutation that stable-sorts the valid rows by the index, padded
 rows parked at its end (``<key>_perm``), and its offsets (``<key>_poff``,
 last entry = valid rows).  ``el_src``, ``t2_kj`` and ``t1_jj`` are the
 arrays of JAX's ``collate_structures(build_perms=True)``, bit for bit; the
-port adds the unsorted global endpoint, ``z`` (the embedding's backward) and
+port adds the unsorted global endpoint, ``z`` (the embedding's backward;
+none for PDBbind, which embeds no atom type) and
 ``t2_ji_by_kj`` = ``t2_ji[t2_kj_perm]`` / ``t1_ji_by_jj``, the rows the
 triplet sums' backward reads through the permutation.
 """
@@ -42,7 +44,8 @@ class GraphBatch:
     CSR offsets over rows sorted by that key, or None when the rows are not
     sorted by it.  ``num_graphs`` counts the real (unpadded) graphs and
     ``valid`` the real rows of each padded dimension ("n", "eg", "el", "t2",
-    "t1"), host ints that the kernels' wrappers check against.  ``perms``
+    "t1"), host ints that the kernels' wrappers check against.  ``feat``
+    holds the atom features, (N, 18) on PDBbind and (N, 0) otherwise.  ``perms``
     holds the backward's CSR arrays (module docstring), empty unless the
     batch was built with ``build_perms=True``.  ``longest`` holds the most
     rows of a group of each CSR the batch carries, by its key ("z",
@@ -50,6 +53,7 @@ class GraphBatch:
 
     z: torch.Tensor
     pos: torch.Tensor
+    feat: torch.Tensor
     node_mask: torch.Tensor
     node_graph: torch.Tensor
     eg_src: torch.Tensor
@@ -154,44 +158,62 @@ class PadSizes:
 
 
 def precompute_structure(mol: dict, dataset_kind: str, cutoff_l: float,
-                         cutoff_g: float) -> dict:
-    """One structure's graph for the full PAMNet (reference:
-    models.py:104-162), two-hop triplets and one-hop pairs on the local
-    edges:
+                         cutoff_g: float, variant: str = "full") -> dict:
+    """One structure's graph (reference: models.py:104-162, 263-301), the
+    one-hop pairs, and for the full PAMNet the two-hop triplets, on the
+    local edges:
       * qm9: local = the bond graph without self-loops; global =
-        radius(``cutoff_g``, max 1000 neighbours) without self-loops;
+        radius(``cutoff_g``, max 1000 neighbours; 500 for PAMNet_s) without
+        self-loops;
+      * pdbbind: global = radius(``cutoff_g``, max 1000) without
+        self-loops; local = the global edges within ``cutoff_l``; ``feat``
+        the (n, 18) atom features, ``z`` zeros;
       * rna: knn(50) superset; global within ``cutoff_g``, local within
         ``cutoff_l``.
     Global edges are sorted by the endpoint the global layer aggregates at:
-    dst-major on QM9 (``source_to_target``), src-major on RNA; local edges
-    dst-major."""
+    dst-major on QM9 and PDBbind (``source_to_target``), src-major on RNA;
+    local edges dst-major.  ``variant="s"`` (PAMNet_s) leaves the triplets
+    empty."""
     pos = np.asarray(mol["pos"], np.float32)
     n = pos.shape[0]
     if dataset_kind == "qm9":
         el = graphbuild.remove_self_loops_np(
             np.asarray(mol["edge_index"], np.int64).astype(np.int32))
+        eg = graphbuild.remove_self_loops_np(graphbuild.radius_graph_np(
+            pos, cutoff_g, None, 500 if variant == "s" else 1000))
+    elif dataset_kind == "pdbbind":
         eg = graphbuild.remove_self_loops_np(
             graphbuild.radius_graph_np(pos, cutoff_g, None, 1000))
-        eg = eg[:, np.lexsort((eg[0], eg[1]))]
+        el = eg[:, graphbuild.edge_distances_np(eg, pos) <= cutoff_l]
     elif dataset_kind == "rna":
         eknn = graphbuild.remove_self_loops_np(graphbuild.knn_graph_np(pos, 50))
         dist_knn = graphbuild.edge_distances_np(eknn, pos)
         eg = eknn[:, dist_knn <= cutoff_g]
         el = eknn[:, dist_knn <= cutoff_l]
+    else:
+        raise ValueError(f"unknown dataset kind: {dataset_kind}")
+    if dataset_kind == "rna":
         eg = eg[:, np.lexsort((eg[1], eg[0]))]
     else:
-        raise NotImplementedError(
-            f"dataset kind {dataset_kind!r}: the port builds QM9 and RNA graphs"
-        )
+        eg = eg[:, np.lexsort((eg[0], eg[1]))]
     el = el[:, np.lexsort((el[0], el[1]))]
+    if variant == "full":
+        t2 = graphbuild.triplets_np(el, n)
+    else:
+        t2 = {k: np.zeros(0, np.int32) for k in ("idx_i", "idx_j", "idx_k", "idx_kj", "idx_ji")}
     p64 = pos.astype(np.float64)
+    if dataset_kind == "pdbbind":
+        feat, z = np.asarray(mol["feat"], np.float32), np.zeros(n, np.int32)
+    else:
+        feat, z = np.zeros((n, 0), np.float32), np.asarray(mol["z"], np.int32)
     return {
         "pos": pos,
-        "z": np.asarray(mol["z"], np.int32),
+        "z": z,
+        "feat": feat,
         "y": np.float32(mol["y"]),
         "eg": np.ascontiguousarray(eg, np.int32),
         "el": np.ascontiguousarray(el, np.int32),
-        "t2": graphbuild.triplets_np(el, n),
+        "t2": t2,
         "t1": graphbuild.pairs_np(el, n),
         "dist_g": np.sqrt(((p64[eg[1]] - p64[eg[0]]) ** 2).sum(-1)).astype(np.float32),
         "dist_l": np.sqrt(((p64[el[1]] - p64[el[0]]) ** 2).sum(-1)).astype(np.float32),
@@ -221,6 +243,7 @@ def attach_basis(s: dict, cutoff_l: float, num_spherical: int = 7,
                 l, np.maximum(t["zeros"][l, n] * x, 1e-12)
             )
     rad *= env[:, None, None]
+    # Explicit width: a structure with no local edges is legal.
     s["sbf_radial"] = rad.reshape(
         len(dist), num_spherical * num_radial
     ).astype(np.float32)
@@ -318,18 +341,22 @@ _INT_FIELDS = (
     ("t1_jj", ("t1", "idx_jj"), "edge", "t1"),
     ("t1_ji", ("t1", "idx_ji"), "edge", "t1"),
 )
-_F32_FIELDS = (("pos", "n"), ("dist_g", "eg"), ("dist_l", "el"),
+_F32_FIELDS = (("pos", "n"), ("feat", "n"), ("dist_g", "eg"), ("dist_l", "el"),
                ("sbf_radial", "el"), ("cbf2", "t2"), ("cbf1", "t1"))
 
 
 def collate_structures(structs: list[dict], pads: PadSizes | None = None,
                        align: int = 128, build_perms: bool = False,
-                       num_atom_types: int | None = None) -> GraphBatch:
+                       num_atom_types: int | None = None,
+                       variant: str = "full") -> GraphBatch:
     """Concatenate structures (with ``attach_basis`` applied) into one padded
     batch, offsetting node ids by node counts and edge ids by local-edge
     counts; pads default to the geometric bucket of the batch's counts.
     ``build_perms`` adds the backward's CSR arrays (module docstring); the
-    CSR of ``z`` has ``num_atom_types`` groups."""
+    CSR of ``z`` has ``num_atom_types`` groups, and None (PDBbind, which
+    embeds no atom type) builds none.  ``variant="s"`` (PAMNet_s, no
+    triplets) carries the padded t2 fields as JAX does but no CSR of
+    them, so no kernel is handed the empty stream."""
     nb = len(structs)
     n_per = np.array([s["pos"].shape[0] for s in structs], np.int64)
     el_per = np.array([s["el"].shape[1] for s in structs], np.int64)
@@ -365,12 +392,16 @@ def collate_structures(structs: list[dict], pads: PadSizes | None = None,
     eg_dst_off = _offsets(f["eg_dst"], n_eg, pads.n)
     eg_src_off = None if eg_dst_off is not None else _offsets(f["eg_src"], n_eg, pads.n)
     el_dst_off = _offsets(f["el_dst"], n_el, pads.n)
+    two_hop = variant == "full"
+    if not two_hop and n_t2:
+        raise ValueError("PAMNet_s structures carry no triplets")
     perms: dict[str, np.ndarray] = {}
     if build_perms:
-        if num_atom_types is None:
-            raise ValueError("build_perms needs num_atom_types (the CSR of z)")
-        keyed = [("el_src", n_el, pads.n, pads.el), ("t2_kj", n_t2, pads.el, pads.t2),
-                 ("t1_jj", n_t1, pads.el, pads.t1), ("z", num_nodes, num_atom_types, pads.n)]
+        keyed = [("el_src", n_el, pads.n, pads.el), ("t1_jj", n_t1, pads.el, pads.t1)]
+        if two_hop:
+            keyed.append(("t2_kj", n_t2, pads.el, pads.t2))
+        if num_atom_types is not None:
+            keyed.append(("z", num_nodes, num_atom_types, pads.n))
         for key, off in (("eg_src", eg_src_off), ("eg_dst", eg_dst_off),
                          ("el_dst", el_dst_off)):
             if off is None:
@@ -379,10 +410,11 @@ def collate_structures(structs: list[dict], pads: PadSizes | None = None,
         for key, n_valid, groups, rows in keyed:
             perms[key + "_perm"], perms[key + "_poff"] = build_perm_np(
                 f[key], n_valid, groups, rows)
-        perms["t2_ji_by_kj"] = f["t2_ji"][perms["t2_kj_perm"]]
+        if two_hop:
+            perms["t2_ji_by_kj"] = f["t2_ji"][perms["t2_kj_perm"]]
         perms["t1_ji_by_jj"] = f["t1_ji"][perms["t1_jj_perm"]]
     sorted_off = {"eg_src": eg_src_off, "eg_dst": eg_dst_off, "el_dst": el_dst_off,
-                  "t2_ji": _offsets(f["t2_ji"], n_t2, pads.el),
+                  "t2_ji": _offsets(f["t2_ji"], n_t2, pads.el) if two_hop else None,
                   "t1_ji": _offsets(f["t1_ji"], n_t1, pads.el)}
     longest = {k: _longest(v) for k, v in sorted_off.items() if v is not None}
     longest.update({k[:-5]: _longest(v) for k, v in perms.items() if k.endswith("_poff")})

@@ -8,7 +8,7 @@ import dataclasses
 
 import numpy as np
 
-from pamnet_tpu_torch.config import atom_type_count
+from pamnet_tpu_torch.config import atom_type_count, embeds_atom_types
 from pamnet_tpu_torch.data.batch import (
     PadSizes,
     attach_basis,
@@ -23,7 +23,9 @@ class GraphLoader:
 
     Args:
       mols: molecule dicts with ``z``, ``pos`` and ``y`` (QM9: also the bond
-        ``edge_index``).
+        ``edge_index``; PDBbind: ``feat`` in place of ``z``).
+      dataset_kind: "qm9", "pdbbind" or "rna"; ``variant``: "full", or "s"
+        (PAMNet_s: no triplets).
       pads: a minimum bucket (the caller's high-water pads); any dimension
         this set of molecules exceeds is widened.  None = the worst case of
         this set (sum of the ``batch_size`` largest counts per dimension).
@@ -41,7 +43,8 @@ class GraphLoader:
                  ladder_pads: bool = False, align: int = 128,
                  num_spherical: int = 7, num_radial: int = 6,
                  envelope_exponent: int = 5, shuffle: bool = False, seed: int = 0,
-                 drop_last: bool = False, build_perms: bool = False):
+                 drop_last: bool = False, build_perms: bool = False,
+                 variant: str = "full"):
         if not mols:
             raise ValueError("GraphLoader needs at least one molecule")
         self.batch_size = batch_size
@@ -49,12 +52,14 @@ class GraphLoader:
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.build_perms = build_perms
-        self._num_atom_types = atom_type_count(dataset_kind)
+        self.variant = variant
+        self._num_atom_types = (atom_type_count(dataset_kind)
+                                if embeds_atom_types(dataset_kind) else None)
         self._rng = np.random.default_rng(seed)
         self._align = align
         self.structs = [
             attach_basis(
-                precompute_structure(m, dataset_kind, cutoff_l, cutoff_g),
+                precompute_structure(m, dataset_kind, cutoff_l, cutoff_g, variant),
                 cutoff_l, num_spherical, num_radial, envelope_exponent,
             )
             for m in mols
@@ -114,7 +119,8 @@ class GraphLoader:
         build_perms = self.build_perms if build_perms is None else build_perms
         return collate_structures([self.structs[i] for i in idxs], pads,
                                   build_perms=build_perms,
-                                  num_atom_types=self._num_atom_types)
+                                  num_atom_types=self._num_atom_types,
+                                  variant=self.variant)
 
     def in_order(self):
         """Every molecule once, in order, the last batch partial, without the

@@ -5,7 +5,7 @@ pipeline (reference: datasets/tu_dataset.py:104-163; the port's copy of
 Files per dataset ``<root>/<name>/raw/<name>_*.txt``:
   * ``graph_indicator``: 1-based graph id per node,
   * ``node_attributes``: float columns (positions [+ features]),
-  * ``node_labels``: int per node,
+  * ``node_labels``: int per node (RNA) or float feature rows (PDBbind),
   * ``graph_labels``: float per graph,
   * ``graph_names``: (RNA only) source file name per graph.
 
@@ -96,16 +96,25 @@ class TUDataset:
 
 
 def write_tu_split(root: str, name: str, mols: list[dict]) -> None:
-    """Write molecule dicts (``pos`` (n,3), ``z`` (n,) int, ``y``) as the TU
-    files of split ``name``, coordinates and labels to three decimals as the
-    reference's preprocessor writes them (preprocess_rna_puzzles.py:87-107)."""
+    """Write molecule dicts (``pos`` (n,3), ``y``, and ``z`` (n,) int or, for
+    PDBbind, ``feat`` (n,F) float) as the TU files of split ``name``, as the
+    JAX package's ``tu_writer.write_tu_dataset`` writes them: coordinates
+    and graph labels to three decimals (preprocess_rna_puzzles.py:87-107),
+    feature rows as the node labels to four (preprocess_pdbbind.py:141-158),
+    so the reader gives ``feat`` = [pos | features][:, 3:] back."""
     os.makedirs(os.path.join(root, name, "raw"), exist_ok=True)
-    indicator = np.concatenate([np.full(len(m["z"]), i + 1) for i, m in enumerate(mols)])
+    sizes = [len(m["pos"]) for m in mols]
+    indicator = np.concatenate([np.full(k, i + 1) for i, k in enumerate(sizes)])
     np.savetxt(_path(root, name, "graph_indicator"), indicator, fmt="%d")
     np.savetxt(_path(root, name, "node_attributes"),
                np.concatenate([np.asarray(m["pos"], np.float64) for m in mols]),
                fmt="%.3f", delimiter=", ")
-    np.savetxt(_path(root, name, "node_labels"),
-               np.concatenate([np.asarray(m["z"]) for m in mols]), fmt="%d")
+    if all("feat" in m for m in mols):
+        np.savetxt(_path(root, name, "node_labels"),
+                   np.concatenate([np.asarray(m["feat"], np.float64) for m in mols]),
+                   fmt="%.4f", delimiter=", ")
+    else:
+        np.savetxt(_path(root, name, "node_labels"),
+                   np.concatenate([np.asarray(m["z"]) for m in mols]), fmt="%d")
     np.savetxt(_path(root, name, "graph_labels"),
                np.asarray([float(m["y"]) for m in mols]), fmt="%.3f")

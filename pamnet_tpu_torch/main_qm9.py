@@ -6,7 +6,8 @@ repository's ``main_qm9.py``; reference: main_qm9.py).
 The reference's flags and recipe (README.md:95 of the reference: PAMNet,
 target 7, dim 128, 6 layers, batch 32, lr 1e-4; L1 loss, Adam with global
 norm clip 1000, EMA 0.999, the warmup-exponential schedule) in float32 with
-TF32 off.  ``--synthetic`` trains on generated molecules when the QM9 raw
+TF32 off; ``--model PAMNet_s`` trains the one-hop variant at the same
+recipe.  ``--synthetic`` trains on generated molecules when the QM9 raw
 files are not staged under ``./data/<dataset>/raw``; ``--limit`` keeps the
 first N molecules.  ``--device`` defaults to ``cuda`` and raises without a
 card.  Batches carry host-computed geometry (distances and the spherical
@@ -85,8 +86,6 @@ def load_molecules(args) -> tuple[list[dict], int, int]:
 def main(argv=None) -> dict:
     """Train and evaluate; returns the final metrics."""
     args = build_parser().parse_args(argv)
-    if args.model != "PAMNet":
-        raise NotImplementedError("the port trains the full PAMNet only")
     device = resolve_device(args.device)
     if device.type == "cuda":
         # f32 products throughout, as main_qm9.py of the JAX package at
@@ -104,14 +103,15 @@ def main(argv=None) -> dict:
 
     mols, n_train, n_val = load_molecules(args)
     cfg = PAMNetConfig(dataset="QM9", dim=args.dim, n_layer=args.n_layer,
-                       cutoff_l=args.cutoff_l, cutoff_g=args.cutoff_g)
+                       cutoff_l=args.cutoff_l, cutoff_g=args.cutoff_g,
+                       variant="s" if args.model == "PAMNet_s" else "full")
     train_mols = mols[:n_train]
     val_mols = mols[n_train:n_train + n_val]
     test_mols = mols[n_train + n_val:]
 
     t_load = time.time()
     common = dict(dataset_kind="qm9", cutoff_l=cfg.cutoff_l, cutoff_g=cfg.cutoff_g,
-                  batch_size=args.batch_size)
+                  batch_size=args.batch_size, variant=cfg.variant)
     train_loader = GraphLoader(train_mols, shuffle=True, seed=args.seed, drop_last=True,
                                build_perms=True, **common)
     # Evaluation composition is free: the metric is a mean over molecules.

@@ -134,14 +134,20 @@ def _edge_message(mlp_m: nn.Sequential, x, e, i, j, gate=None, mask=None,
 
 
 class LocalMP(nn.Module):
-    """One full local-plex layer with the two-hop and one-hop triplet
-    streams (reference: local_message_passing.py:36-66)."""
+    """One local-plex layer: with ``variant="full"`` the two-hop and one-hop
+    triplet streams (reference: local_message_passing.py:36-66), with
+    ``variant="s"`` (PAMNet_s) the one-hop stream alone, its neighbour
+    message named ``mlp_m_jj`` (reference: local_message_passing.py:69-123;
+    JAX ``local_mp_s``).  Both share the tail."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, variant: str = "full"):
         super().__init__()
         self.mlp_x1 = mlp([dim, dim])
         self.mlp_m_ji = mlp([3 * dim, dim])
-        self.mlp_m_kj = mlp([3 * dim, dim])
+        self.two_hop = variant == "full"
+        # Same shape, the reference's name for each variant.
+        self.neighbor_name = "mlp_m_kj" if self.two_hop else "mlp_m_jj"
+        setattr(self, self.neighbor_name, mlp([3 * dim, dim]))
         self.mlp_sbf = mlp([dim, dim, dim])
         self.lin_rbf = Linear(dim, dim, bias=False)
         self.res1 = Res(dim)
@@ -173,33 +179,37 @@ class LocalMP(nn.Module):
 
     def forward(self, x, rbf, sbf2, sbf1, g, plain: bool = False):
         """``sbf2``/``sbf1``: (T, dim) outputs of the model-level sbf MLPs,
-        or ``FoldedSBF`` inputs of the fused folded path; ``g`` the batch."""
+        or ``FoldedSBF`` inputs of the fused folded path (``sbf2`` None for
+        PAMNet_s); ``g`` the batch."""
         j, i = g.el_src, g.el_dst
-        num_edges = rbf.shape[0]
         res_x = x
         x = self.mlp_x1(x)
         i_groups, j_groups = g.groups("el_dst"), g.groups("el_src")
         m_ji = _edge_message(self.mlp_m_ji, x, rbf, i, j, plain=plain,
                              i_groups=i_groups, j_groups=j_groups)
-        m_neighbor = _edge_message(self.mlp_m_kj, x, rbf, i, j, self.lin_rbf(rbf),
-                                   plain=plain, i_groups=i_groups, j_groups=j_groups)
-
-        if isinstance(sbf2, FoldedSBF):
-            m_other = (self._modulate(m_neighbor, sbf2, g, "t2", plain)
-                       + self._modulate(m_neighbor, sbf1, g, "t1", plain))
+        m_neighbor = _edge_message(getattr(self, self.neighbor_name), x, rbf, i, j,
+                                   self.lin_rbf(rbf), plain=plain, i_groups=i_groups,
+                                   j_groups=j_groups)
+        if self.two_hop:
+            m_other = (self._stream(m_neighbor, sbf2, g, "t2", plain)
+                       + self._stream(m_neighbor, sbf1, g, "t1", plain))
         else:
-            # The gradient reaches mlp_sbf through b (kernel A's d_b).
-            b2 = self.mlp_sbf(sbf2) * g.t2_mask[:, None]
-            b1 = self.mlp_sbf(sbf1) * g.t1_mask[:, None]
-            m_other = (
-                aggregate(m_neighbor, g.t2_ji_off, g.t2_ji, g.t2_mask, num_edges,
-                          idx=g.t2_kj, b=b2, total=g.valid["t2"], plain=plain,
-                          grad=g.triplet_grad("t2"))
-                + aggregate(m_neighbor, g.t1_ji_off, g.t1_ji, g.t1_mask, num_edges,
-                            idx=g.t1_jj, b=b1, total=g.valid["t1"], plain=plain,
-                            grad=g.triplet_grad("t1"))
-            )
+            m_other = self._stream(m_neighbor, sbf1, g, "t1", plain)
         return self._tail(x, res_x, m_ji + m_other, rbf, g, plain)
+
+    def _stream(self, m_neighbor, sbf, g, kind: str, plain):
+        """Triplet stream ``kind`` ("t2" or "t1") summed by center edge:
+        kernel B folded, else kernel A gathering ``m_neighbor`` and
+        modulating it by ``mlp_sbf(sbf)`` (the gradient reaches mlp_sbf
+        through b, kernel A's d_b)."""
+        if isinstance(sbf, FoldedSBF):
+            return self._modulate(m_neighbor, sbf, g, kind, plain)
+        mask = getattr(g, kind + "_mask")
+        return aggregate(m_neighbor, getattr(g, kind + "_ji_off"), getattr(g, kind + "_ji"),
+                         mask, m_neighbor.shape[0],
+                         idx=g.t2_kj if kind == "t2" else g.t1_jj,
+                         b=self.mlp_sbf(sbf) * mask[:, None], total=g.valid[kind],
+                         plain=plain, grad=g.triplet_grad(kind))
 
     def _tail(self, x, res_x, m, rbf, g, plain):
         """rbf gating, edge->node sum at el_dst, residual update and heads

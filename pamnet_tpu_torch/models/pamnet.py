@@ -1,5 +1,5 @@
-"""PAMNet, full variant, RNA and QM9 branches (reference: models.py:21-224;
-JAX counterpart ``pamnet_tpu/models/pamnet.py:116-397``).
+"""PAMNet and PAMNet_s on the RNA, QM9 and PDBbind branches (reference:
+models.py:21-353; JAX counterpart ``pamnet_tpu/models/pamnet.py:116-397``).
 
 The batch carries host-f64 distances and spherical-basis tables
 (``data/batch.py``); the trainable Bessel basis is evaluated here.  Where
@@ -9,7 +9,11 @@ and in training: the radial table is projected once per edge and the folded
 stage runs in that kernel, forward and backward; otherwise (QM9 at dim 128)
 the triplet basis is expanded and passed through the MLP per triplet, and
 kernel A gathers and modulates.  The QM9 branch
-embeds 5 atom types and pools by sum; RNA pools by mean.
+embeds 5 atom types and pools by sum; RNA pools by mean; PDBbind projects
+its 18 atom features through ``init_linear`` and pools the signed sum
+E(complex) - E(pocket) - E(ligand), the sign -1 where x > 40 A.
+``variant="s"`` (PAMNet_s) runs the one-hop triplet stream alone, through
+one model-level sbf MLP (``mlp_sbf``) and ``mlp_m_jj`` local layers.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from pamnet_tpu_torch.config import PAMNetConfig
+from pamnet_tpu_torch.config import PAMNetConfig, embeds_atom_types
 from pamnet_tpu_torch.data.batch import GraphBatch
 from pamnet_tpu_torch.models.layers import FoldedSBF, GlobalMP, LocalMP
 from pamnet_tpu_torch.nn import Linear, init_, mlp
@@ -36,11 +40,10 @@ class PAMNet(nn.Module):
 
     def __init__(self, cfg: PAMNetConfig, generator: torch.Generator | None = None):
         super().__init__()
-        if cfg.dataset_kind not in ("rna", "qm9") or cfg.variant != "full":
-            raise NotImplementedError(
-                "the port implements the full PAMNet on the RNA and QM9 "
-                f"branches only (dataset {cfg.dataset!r}, variant {cfg.variant!r})"
-            )
+        full = cfg.variant == "full"
+        if cfg.dataset_kind == "pdbbind" and not full:
+            raise ValueError("PAMNet_s has no PDBbind branch: init_pamnet gives "
+                             "init_linear to the full model only")
         self.cfg = cfg
         dim = cfg.dim
         sbf_dim = cfg.num_spherical * cfg.num_radial
@@ -49,14 +52,19 @@ class PAMNet(nn.Module):
         self.rbf_l = BesselRBF(cfg.num_rbf)
         self.mlp_rbf_g = mlp([cfg.num_rbf, dim])
         self.mlp_rbf_l = mlp([cfg.num_rbf, dim])
-        if cfg.dataset_kind != "rna":
-            # Created as in the reference and init_pamnet; the QM9 forward
-            # embeds atom types and never reads it, so its gradient is 0.
+        if cfg.dataset_kind != "rna" and full:
+            # Created as in the reference and init_pamnet.  PDBbind reads it
+            # (and not the embedding); the QM9 forward embeds atom types and
+            # never reads it, so its gradient is 0.
             self.init_linear = Linear(cfg.num_node_features, dim, bias=False)
-        self.mlp_sbf1 = mlp([sbf_dim, dim])
-        self.mlp_sbf2 = mlp([sbf_dim, dim])
+        if full:
+            self.mlp_sbf1 = mlp([sbf_dim, dim])
+            self.mlp_sbf2 = mlp([sbf_dim, dim])
+        else:
+            self.mlp_sbf = mlp([sbf_dim, dim])
         self.global_layer = nn.ModuleList(GlobalMP(dim) for _ in range(cfg.n_layer))
-        self.local_layer = nn.ModuleList(LocalMP(dim) for _ in range(cfg.n_layer))
+        self.local_layer = nn.ModuleList(LocalMP(dim, cfg.variant)
+                                         for _ in range(cfg.n_layer))
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         init_(self, generator)
@@ -74,8 +82,13 @@ class PAMNet(nn.Module):
 
     def _triplet_basis(self, g: GraphBatch, plain: bool):
         """(edge_attr_sbf2, edge_attr_sbf1): (T, dim) tensors, or
-        ``FoldedSBF`` inputs of the fused folded stage."""
+        ``FoldedSBF`` inputs of the fused folded stage; PAMNet_s has no
+        two-hop stream (None) and one sbf MLP."""
         ns, nr = self.cfg.num_spherical, self.cfg.num_radial
+        if self.cfg.variant == "s":
+            mlp_sbf2, mlp_sbf1 = None, self.mlp_sbf
+        else:
+            mlp_sbf2, mlp_sbf1 = self.mlp_sbf2, self.mlp_sbf1
         if not self.fold_sbf():
             # Geometry only: the radial table's gather has no backward.
             gather = row_gather_plain if plain else row_gather
@@ -84,8 +97,8 @@ class PAMNet(nn.Module):
                 sbf = gather(g.sbf_radial, idx) * torch.repeat_interleave(cbf, nr, dim=1)
                 return mlp_sbf(sbf)
 
-            return (expand(self.mlp_sbf2, g.t2_kj, g.cbf2),
-                    expand(self.mlp_sbf1, g.t1_jj, g.cbf1))
+            return (None if mlp_sbf2 is None else expand(mlp_sbf2, g.t2_kj, g.cbf2),
+                    expand(mlp_sbf1, g.t1_jj, g.cbf1))
 
         def folded(mlp_sbf, cbf):
             lin = mlp_sbf[0][0]
@@ -96,13 +109,17 @@ class PAMNet(nn.Module):
             )  # (El, ns*dim)
             return FoldedSBF(proj, cbf, lin.bias)
 
-        return folded(self.mlp_sbf2, g.cbf2), folded(self.mlp_sbf1, g.cbf1)
+        return (None if mlp_sbf2 is None else folded(mlp_sbf2, g.cbf2),
+                folded(mlp_sbf1, g.cbf1))
 
     def forward(self, g: GraphBatch, plain: bool = False) -> torch.Tensor:
         """(G,) per-graph predictions, 0 for padded graphs.  ``plain=True``
         runs the plain versions of the kernels, on any device."""
         cfg = self.cfg
-        if plain:
+        kind = cfg.dataset_kind
+        if not embeds_atom_types(kind):
+            x = self.init_linear(g.feat)
+        elif plain:
             x = row_gather_plain(self.embeddings, g.z)
         else:
             x = row_gather(self.embeddings, g.z, g.groups("z"))
@@ -125,8 +142,14 @@ class PAMNet(nn.Module):
         node_out = (torch.stack(outs) * att).sum(-1).sum(0)  # (N,)
         node_out = node_out * g.node_mask
         num_graphs = g.y.shape[0]
-        if cfg.dataset_kind == "qm9":  # sum pool (reference: models.py:215-216)
+        if kind == "qm9":  # sum pool (reference: models.py:215-216)
             pooled = segment_sum(node_out, g.node_graph, num_graphs)
+        elif kind == "pdbbind":
+            # E(complex) - E(pocket) - E(ligand): the pocket and ligand copies
+            # sit at x + 100 and x + 200 A (reference: models.py:122-125,
+            # 217-219; preprocess_pdbbind.py:33-43).
+            sign = torch.where(g.pos[:, 0] > 40.0, -1.0, 1.0)
+            pooled = segment_sum(node_out * sign, g.node_graph, num_graphs)
         else:  # RNA mean pool (reference: models.py:220-221)
             pooled = segment_mean(node_out[:, None], g.node_graph, num_graphs,
                                   mask=g.node_mask)[:, 0]

@@ -1,10 +1,63 @@
-"""Reading ``torch.profiler`` records: which are work on the card, their
-device time, and a profiled run's kernel launches and device time by
-kernel name.  ``chip_smoke.py`` reads its profiles through these."""
+"""Timing calls on the card and reading ``torch.profiler`` records: the
+event-timed mean of a call, the card's own time of the kernels it launches,
+which records are work on the card, and a profiled run's kernel launches
+and device time by kernel name.  ``chip_smoke.py`` and ``bench.py`` time
+and read their profiles through these."""
 
 from __future__ import annotations
 
+import time
+
+import torch
+
 NAME_CHARS = 120
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3, cuda: bool = True) -> float:
+    """Mean time of one call over ``iters`` calls in a row, after ``warmup``
+    calls: by CUDA events around the calls on the card, by the host's clock
+    where ``cuda`` is false (the CPU)."""
+    for _ in range(warmup):
+        fn()
+    if not cuda:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20, tries: int = 3) -> float | None:
+    """Mean device time of the kernels one call launches, from the profiler's
+    kernel records over ``iters`` calls: the card's own time, where an
+    event-timed run of small calls measures the host's issue rate.  The
+    profiler can drop records of a run, so each kernel counts its mean
+    record times its launches per call (records over calls, rounded, at
+    least one), not its total over ``iters``.  A profile that recorded no
+    kernel is taken again; None ("not measured") after ``tries`` such
+    profiles."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(device_us(ev) / ev.count * max(1, round(ev.count / iters))
+                 for ev in prof.key_averages() if is_kernel(ev))
+        if us > 0:
+            return us / 1e3
+    return None
 
 
 def device_us(ev) -> float:

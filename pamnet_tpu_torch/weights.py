@@ -18,7 +18,7 @@ from pamnet_tpu_torch.config import PAMNetConfig
 # Sequential-of-Sequential MLPs and bare Linear modules, by attribute name.
 _MLP_NAMES = {
     "mlp_rbf_g", "mlp_rbf_l", "mlp_sbf1", "mlp_sbf2", "mlp_sbf",
-    "mlp_x1", "mlp_x2", "mlp_m", "mlp_m_ji", "mlp_m_kj", "mlp_out",
+    "mlp_x1", "mlp_x2", "mlp_m", "mlp_m_ji", "mlp_m_kj", "mlp_m_jj", "mlp_out",
 }
 _LINEAR_NAMES = {"W_edge_attr", "W_out", "lin_rbf", "lin_rbf_out", "init_linear"}
 

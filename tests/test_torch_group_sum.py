@@ -11,6 +11,7 @@ Tolerances: a group sum within 1e-5 of the largest value's magnitude (f32
 sums of up to 16,896 rows in another order); gathers exact."""
 
 import functools
+import time
 
 import numpy as np
 import pytest
@@ -227,6 +228,23 @@ def test_kernel_totals_counts_every_record():
     assert got["by_name"] == {long: [3.0, pytest.approx(0.015)],
                               "Optimizer.step#Adam.step": [1.0, pytest.approx(0.02)],
                               "mul_kernel": [4.0, pytest.approx(0.008)]}
+
+
+def test_time_ms_on_the_host_clock():
+    """The shared timer that ``chip_smoke.py`` and the bench call: ``warmup``
+    calls untimed, then the mean of ``iters`` calls in a row, on the host's
+    clock where it is not timing the card."""
+    from pamnet_tpu_torch.profiling import time_ms
+
+    calls = []
+
+    def fn():
+        calls.append(time.perf_counter())
+        time.sleep(0.002)
+
+    ms = time_ms(fn, iters=4, warmup=2, cuda=False)
+    assert len(calls) == 6
+    assert 2.0 <= ms < 100.0
 
 
 def test_smoke_compare_reads_profile_totals():

@@ -149,5 +149,5 @@ def test_main_qm9_needs_a_card_unless_told(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main_qm9.main(["--synthetic", "--limit", "16", "--epochs", "1"])
-    with pytest.raises(NotImplementedError, match="full PAMNet"):
-        main_qm9.main(["--model", "PAMNet_s", "--device", "cpu", "--synthetic"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main_qm9.main(["--model", "PAMNet_s", "--synthetic", "--limit", "16", "--epochs", "1"])
