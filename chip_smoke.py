@@ -25,6 +25,12 @@ Phases, each printing one JSON line:
      version, timed beside the rows + kernel A sum of the same arrays, and
      ``walk_shape_trials`` (each team shape of the walk timed at those CSRs;
      the training kernel phases carry the same trials at theirs);
+     host_build: where the host's time goes on the scoring batch and on the
+     QM9 epoch wall's 4,608 molecules, with the numpy builders and the
+     native ones (``data/native.py``): seconds by part (neighbours, edge
+     sort, triplets, pairs, distances, the f64 basis, collation, the
+     backward's permutations), the two builders' arrays bit for bit equal,
+     and the service call on each;
   4. service: the HTTP server on an ephemeral port answers JSON and raw-PDB
      requests, compared with direct scoring;
   5. train_kernels: each backward kernel against its plain version at the
@@ -69,7 +75,10 @@ Phases, each printing one JSON line:
      ``python -m pamnet_tpu_torch.main_rna_puzzles`` in-process: three epochs
      straight, two epochs and a ``--resume`` for the third, which must give
      the same losses bit for bit, and ``RNAScoringService`` scoring the
-     validation structures with the exported ``pamnet_rna_best.pt``.
+     validation structures with the exported ``pamnet_rna_best.pt``
+     (every in-process entry point of phases 6-11 runs with
+     ``--host_geometry``, the geometry its batches carried before training
+     batches derived theirs by default).
      The group sums of both training phases are bitwise equal across two
      calls; the embedding's (the sum by ``z``) takes the split kernel
      (``group_sum_split``) on both training paths;
@@ -93,7 +102,22 @@ Phases, each printing one JSON line:
  11. qm9_s_train: PAMNet_s at the QM9 recipe, the same checks, no t2
      launch (kernel A 2 a layer, the fused role swap 1), then ``main_qm9
      --model PAMNet_s`` in-process for one epoch;
- 12. kernels: one line listing every kernel with its numbers (the role
+ 12. derive_train: the QM9 recipe step and the RNA recipe step (folded:
+     kernel B on a radial table computed on the card) on derive batches
+     (positions and integer tables; the geometry computed in the step):
+     gradients against the plain route of the same batch, a repeated step
+     bitwise, predictions, loss and the parameters after one step against
+     the host-geometry step of the same molecules, the host step's kernel
+     launches, an epoch, and ms per step, device ms, idle share, every
+     kernel launch and the host syncs of a step beside the host step's;
+ 13. device_graph_train: the graph rebuilt from the positions on the card
+     (``device_graph=True``): the rebuilt QM9 and PDBbind batches equal to
+     the host's field by field (edges, CSRs, the backward's permutations,
+     counts) with one host sync a rebuild; the QM9 recipe step checked as
+     in 12 (predictions and loss within 2e-5 + 2e-4 of the host step's); a
+     PDBbind forward on the smoke batch against its host forward and its
+     plain route; ``main_qm9 --device_graph`` in-process for one epoch;
+ 14. kernels: one line listing every kernel with its numbers (the role
      swap alone and gather_product are off the main paths since the fused
      role swap: 0 launches, asserted).
 With ``--profile`` each phase also lists its device time by kernel and, for
@@ -1215,6 +1239,9 @@ def main() -> int:
           "plain_ms_per_batch": plain_ms, "plain_graphs_per_s": ng / plain_ms * 1e3,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
 
+    # ---- 3b. where the host's time goes: numpy and native builders ----
+    host_build_phase(args, mols, service, emit)
+
     # Kernel B on the scoring batch's own triplet arrays, both modes; then
     # with every triplet on edge 0 (its rows always cached), which shows
     # how much of the time the row gather takes.
@@ -1306,6 +1333,10 @@ def main() -> int:
     # ---- 11. PAMNet_s training at the QM9 recipe ----
     _, s_launches = train_phase(args, gen, reset_counts, read_counts, emit, variant="s")
 
+    # ---- 12-13. geometry derived on the card, and the graph rebuilt there ----
+    derive_launches = derive_phase(args, rna_mols, reset_counts, read_counts, emit)
+    graph_launches = device_graph_phase(args, reset_counts, read_counts, emit)
+
     # ---- 12. every kernel of the paths, with its numbers ----
     # Each kernel's top-level numbers are those of one main-path case: the
     # folded t2 triplet sum (kernel A's, on random data), kernel B's t2 sum
@@ -1354,7 +1385,8 @@ def main() -> int:
     numbers = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
                "library_device_ms", "enqueue_ms")
     by_path = {"serve": launches, "train": train_launches, "rna_train": rna_launches,
-               "pdbbind_train": pdb_launches, "qm9_s_train": s_launches}
+               "pdbbind_train": pdb_launches, "qm9_s_train": s_launches,
+               "derive_train": derive_launches, "device_graph_train": graph_launches}
 
     def first_case(path_cases, name):
         if name not in path_cases:
@@ -1534,7 +1566,8 @@ def train_phase(args, gen, reset_counts, read_counts, emit_line,
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out), tempfile.TemporaryDirectory() as tmp:
         main_qm9.main(["--synthetic", "--limit", "320", "--epochs", "1", *model_flag,
-                       "--seed", str(args.seed), "--device", "cuda", "--save_dir", tmp])
+                       "--host_geometry", "--seed", str(args.seed), "--device", "cuda",
+                       "--save_dir", tmp])
     main_s = time.perf_counter() - t0
     text = out.getvalue()
     maes = re.findall(r"(Train|Val|Test) MAE: (\S+?),? ", text)
@@ -1704,7 +1737,8 @@ def rna_train_phase(args, mols, gen, reset_counts, read_counts, emit_line) -> tu
         # main_rna_puzzles, in-process: three epochs straight, then two
         # epochs and a resume for the third, which must repeat it bit for bit.
         recipe = ["--dim", str(d), "--n_layer", "1", "--batch_size", str(bs), "--lr", str(lr),
-                  "--seed", str(args.seed), "--data_root", root, "--device", "cuda"]
+                  "--seed", str(args.seed), "--data_root", root, "--device", "cuda",
+                  "--host_geometry"]
 
         def drive(*extra):
             out = io.StringIO()
@@ -1979,7 +2013,7 @@ def pdbbind_phase(args, gen, reset_counts, read_counts, emit_line) -> tuple[dict
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out), tempfile.TemporaryDirectory() as tmp:
         res = main_pdbbind.main(["--synthetic", "48", "--epochs", "1", "--device", "cuda",
-                                 "--save_dir", tmp])
+                                 "--host_geometry", "--save_dir", tmp])
     text = out.getvalue()
     quads = re.findall(r"(Train|Test) (RMSE|MAE|SD|P): (\S+?),? ", text)
     finals = re.findall(r"Testing (RMSE|MAE|SD|P): (\S+)", text)
@@ -1990,6 +2024,450 @@ def pdbbind_phase(args, gen, reset_counts, read_counts, emit_line) -> tuple[dict
                "lines": [ln for ln in text.splitlines() if "RMSE" in ln or "Testing" in ln
                          or "Data loaded" in ln], "test": list(res["test"])})
     return cases, launches
+
+
+@contextlib.contextmanager
+def _builders(which: str):
+    """Run the host graph build on ``which`` builders: "numpy" (the plain
+    versions everywhere), "native" (the C++ library everywhere) or
+    "dispatch" (the library above its thresholds, as the loaders run)."""
+    from pamnet_tpu_torch.data import native
+
+    saved = native.NATIVE_MIN_NODES, native.NATIVE_MIN_EDGES
+    if which != "dispatch":
+        limit = sys.maxsize if which == "numpy" else -1
+        native.NATIVE_MIN_NODES = native.NATIVE_MIN_EDGES = limit
+    try:
+        yield
+    finally:
+        native.NATIVE_MIN_NODES, native.NATIVE_MIN_EDGES = saved
+
+
+def _timed_host_build(mols, kind: str, cutoff_l: float, cutoff_g: float, bs: int,
+                      builders: str, perms: bool) -> tuple[list, dict]:
+    """(structures, seconds by part): the structures' neighbour search,
+    edge sort, triplets, pairs and distances, the f64 basis, the batches'
+    collation and, with ``perms``, their collation with the backward's CSR
+    permutations."""
+    from pamnet_tpu_torch.config import atom_type_count
+    from pamnet_tpu_torch.data.batch import attach_basis, collate_structures, precompute_structure
+
+    parts: dict = {}
+    t0 = time.perf_counter()
+    with _builders(builders):
+        structs = [precompute_structure(m, kind, cutoff_l, cutoff_g, timings=parts)
+                   for m in mols]
+    parts["structures"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for st in structs:
+        attach_basis(st, cutoff_l)
+    parts["f64_basis"] = time.perf_counter() - t0
+    chunks = [structs[i:i + bs] for i in range(0, len(structs), bs)]
+    t0 = time.perf_counter()
+    for c in chunks:
+        collate_structures(c)
+    parts["collation"] = time.perf_counter() - t0
+    if perms:
+        t0 = time.perf_counter()
+        for c in chunks:
+            collate_structures(c, build_perms=True, num_atom_types=atom_type_count(kind))
+        parts["collation_with_perms"] = time.perf_counter() - t0
+    return structs, parts
+
+
+def _same_structures(a: list, b: list) -> bool:
+    return all(np.array_equal(x[k], y[k]) for x, y in zip(a, b) for k in ("eg", "el")) and all(
+        np.array_equal(x[t][k], y[t][k]) for x, y in zip(a, b) for t in ("t2", "t1")
+        for k in x[t])
+
+
+def host_build_phase(args, mols, service, emit_line) -> None:
+    """Phase 3b, host_build: where the host's time goes, with the numpy
+    builders and with the native ones (``data/native.py``), on the scoring
+    batch and on the QM9 epoch wall's 4,608 molecules; the two builders'
+    edge lists and triplet tables bit for bit equal; and the service call
+    on each."""
+    import torch
+
+    from pamnet_tpu_torch.data import native
+    from pamnet_tpu_torch.data.graphbuild import knn_graph, knn_graph_np
+    from pamnet_tpu_torch.data.loader import GraphLoader
+    from pamnet_tpu_torch.data.synthetic import synthetic_qm9_dataset
+
+    t0 = time.perf_counter()
+    native.library()
+    lib_s = time.perf_counter() - t0
+    cfg = service.cfg
+    res: dict = {"phase": "host_build", "native_library_s": lib_s}
+    # The scoring batch: knn(50) over 2,100 atoms and triplets over
+    # ~25k local edges a structure, above the thresholds.
+    scoring: dict = {"structures": len(mols)}
+    built = {}
+    for which in ("numpy", "dispatch"):
+        built[which], scoring[which] = _timed_host_build(mols, "rna", cfg.cutoff_l, cfg.cutoff_g,
+                                                         16, which, perms=False)
+    if not _same_structures(built["numpy"], built["dispatch"]):
+        raise AssertionError("native and numpy structures differ on the scoring batch")
+    knn_same = all(np.array_equal(knn_graph(m["pos"], 50), knn_graph_np(m["pos"], 50))
+                   for m in mols[:2])
+    if not knn_same:
+        raise AssertionError("native and numpy knn differ")
+    # The service call, host build included, on each builder.
+    for which in ("numpy", "dispatch"):
+        with _builders(which):
+            t0 = time.perf_counter()
+            loader = GraphLoader(mols, "rna", cfg.cutoff_l, cfg.cutoff_g, batch_size=16,
+                                 ladder_pads=True)
+            next(iter(loader))
+            build_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            service.score_molecules(mols)
+            torch.cuda.synchronize()
+            scoring[which].update(host_build_s=build_s, service_call_s=time.perf_counter() - t0)
+    res["scoring"] = scoring
+    # The QM9 epoch wall's molecules (bench.py: 4,096 + 512, seed 481):
+    # ~18 atoms each, under the thresholds, so the loaders run numpy; the
+    # native builders forced on every molecule show the call's cost there.
+    qmols = synthetic_qm9_dataset(4608, seed=481)
+    qm9: dict = {"molecules": len(qmols)}
+    for which in ("dispatch", "native"):
+        built[which], qm9[which] = _timed_host_build(qmols, "qm9", 5.0, 5.0, 32, which,
+                                                     perms=True)
+    if not _same_structures(built["dispatch"], built["native"]):
+        raise AssertionError("native and numpy structures differ on QM9")
+    res["qm9_epoch_wall"] = qm9
+    res["bit_equal"] = True
+    emit_line(res)
+
+
+def _kernel_launches_per_step(step) -> dict:
+    """Every kernel launch of one step and its device ms, by the profiler
+    over three steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+    totals = kernel_totals(prof.key_averages(), 3)
+    return {"kernel_launches_per_step": totals["kernel_launches"],
+            "profile_device_ms_per_step": totals["device_ms"]}
+
+
+def _syncs(fn) -> int:
+    """Host syncs in one call of ``fn``: CUDA's synchronizing operations
+    that ``torch.cuda.set_sync_debug_mode("warn")`` reports (and not the
+    mode's own warning, once a process, that it is a prototype)."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
+
+
+def _against_host(model, host_model, gb, gb_host, kind: str, make_opt, use_ema: bool,
+                  rtol: float, atol: float) -> dict:
+    """``model`` on ``gb`` against ``host_model`` on the host-geometry batch
+    of the same molecules, from the same parameters: the predictions and
+    the loss within ``rtol``/``atol``, and the parameters after one step of
+    a fresh optimizer within rtol 5e-3, atol 5e-4 (the JAX package's
+    f32-geometry tolerance, tests/test_wire_geometry.py:75-107)."""
+    import torch
+
+    from pamnet_tpu_torch.train.ema import ema_init
+    from pamnet_tpu_torch.train.loop import train_step
+
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    host_model.load_state_dict(start)
+    with torch.no_grad():
+        preds = {"host": host_model(gb_host), "card": model(gb)}
+    pred = compare("predictions vs host geometry", preds["card"], preds["host"], atol=atol,
+                   rtol=rtol)
+    out = {}
+    for name, m, b in (("host", host_model, gb_host), ("card", model, gb)):
+        m.load_state_dict(start)
+        loss = float(train_step(m, make_opt(m), ema_init(m.state_dict()) if use_ema else None,
+                                b, kind))
+        out[name] = (loss, {k: v.clone() for k, v in m.state_dict().items()})
+    model.load_state_dict(start)
+    (loss_h, after_h), (loss_c, after_c) = out["host"], out["card"]
+    if not abs(loss_c - loss_h) <= atol + rtol * abs(loss_h):
+        raise AssertionError(f"step loss {loss_c} against the host step's {loss_h}")
+    worst = 0.0
+    for k, v in after_h.items():
+        if not torch.allclose(after_c[k], v, rtol=5e-3, atol=5e-4):
+            raise AssertionError(f"{k} after one step differs from the host step's")
+        worst = max(worst, float((after_c[k] - v).abs().max()))
+    moved = max(float((after_c[k] - start[k]).abs().max()) for k in start)
+    if not moved > 0.0:
+        raise AssertionError("the comparison step moved no parameter")
+    return {"predictions": pred, "loss": loss_c, "host_loss": loss_h,
+            "params_after_step_max_abs_diff": worst, "params_moved_max": moved,
+            "tolerance": f"predictions and loss atol {atol} + rtol {rtol}; parameters "
+                         "after one step rtol 5e-3, atol 5e-4"}
+
+
+def _card_geometry_step(what: str, model, host_model, gb, gb_host, loader, kind: str,
+                        make_opt, opt, ema, want_fwd: dict, want_bwd: dict, rtol: float,
+                        atol: float, extra_syncs: int, reset_counts,
+                        read_counts) -> tuple[dict, dict]:
+    """The checks and numbers of a step whose geometry (or graph) the card
+    computes: its gradients against the plain route of the same batch and a
+    repeated step bitwise (``_step_checks``), the host-geometry step of the
+    same molecules (``_against_host``), the same kernel launches as the
+    host step, an epoch, and beside the host step's own: ms per step,
+    device ms, the card's idle share, every kernel launch and the host
+    syncs of a step, exactly ``extra_syncs`` more than the host step's.
+    Returns (its numbers, the epoch's launches)."""
+    from pamnet_tpu_torch.train.loop import train_step
+
+    use_ema = ema is not None
+    checks = _step_checks(model, opt, ema, gb, kind)
+    host = _against_host(model, host_model, gb, gb_host, kind, make_opt, use_ema, rtol, atol)
+    fwd, bwd = _step_launches(model, gb, kind, reset_counts, read_counts, want_fwd, want_bwd,
+                              what)
+    launches, epoch = _epoch(model, opt, ema, loader, kind, reset_counts, read_counts,
+                             want_fwd, want_bwd, what)
+    host_model.load_state_dict(model.state_dict())
+    host_opt = make_opt(host_model)
+    steps = {"card": lambda: train_step(model, opt, ema, gb, kind),
+             "host": lambda: train_step(host_model, host_opt, ema, gb_host, kind)}
+    numbers = {}
+    for name in ("card", "host", "card"):  # in turns; the second card reading is kept
+        numbers[name] = {**_step_numbers(steps[name], gb.num_graphs),
+                         **_kernel_launches_per_step(steps[name]),
+                         "syncs_per_step": _syncs(steps[name])}
+    if numbers["card"]["syncs_per_step"] != numbers["host"]["syncs_per_step"] + extra_syncs:
+        raise AssertionError(f"{what}: host syncs a step {numbers}")
+    return {"gradient_check": checks, "against_host_geometry": host, "bitwise_repeat": True,
+            "launches_per_step_forward": fwd, "launches_per_step_backward": bwd, **epoch,
+            "main_path_launches": launches, **numbers["card"], "host_geometry_step": numbers["host"]}, launches
+
+
+def _add_counts(*counts: dict) -> dict:
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+QM9_WANT = (
+    {"triplet_aggregate": 18, "edge_message_sum": 6, "edge_message": None, "row_gather": None},
+    {"triplet_aggregate_grad_ab": 12, "gated_sum_backward": 6, "row_gather": 0,
+     "gather_product": 0, "triplet_aggregate_grad_a": 0, "group_sum": None,
+     "group_sum_split": None, "edge_message_backward": None})
+RNA_WANT = (
+    {"sbf_modulate": 2, "triplet_aggregate": 1, "edge_message_sum": 1, "edge_message": None,
+     "row_gather": None},
+    {"sbf_modulate_backward": 2, "gated_sum_backward": 1, "row_gather": 0, "group_sum": None,
+     "group_sum_split": None, "edge_message_backward": None})
+
+
+def _qm9_recipe(args, cfg, loader):
+    """A QM9 recipe model, its optimizer and EMA, and the fresh optimizer of
+    a comparison step (constant lr 1e-4, the recipe's peak, clip 1000)."""
+    import torch
+
+    from pamnet_tpu_torch.models.pamnet import PAMNet
+    from pamnet_tpu_torch.train.ema import ema_init
+    from pamnet_tpu_torch.train.loop import Optimizer
+    from pamnet_tpu_torch.train.schedules import constant, warmup_exponential
+
+    model = PAMNet(cfg, torch.Generator().manual_seed(args.seed)).to("cuda")
+    opt = Optimizer(model.parameters(),
+                    warmup_exponential(1e-4, len(loader),
+                                       frac_steps_per_epoch=len(loader.structs) / 32),
+                    clip_norm=1000.0)
+
+    def make_opt(m):
+        return Optimizer(m.parameters(), constant(1e-4), clip_norm=1000.0)
+
+    return model, opt, ema_init(model.state_dict()), make_opt
+
+
+def derive_phase(args, rna_mols, reset_counts, read_counts, emit_line) -> dict:
+    """Phase 12, derive_train: the QM9 recipe step (full PAMNet, dim 128, 6
+    layers, batch 32, f32, TF32 off) and the RNA recipe step (dim 16, 1
+    layer, batch 8, folded: kernel B forward and backward on a radial table
+    computed on the card) on derive batches, which carry positions and
+    integer tables only.  Returns the launches of their epochs."""
+    import torch
+
+    from pamnet_tpu_torch.config import PAMNetConfig
+    from pamnet_tpu_torch.data.loader import GraphLoader
+    from pamnet_tpu_torch.data.synthetic import synthetic_qm9_dataset
+    from pamnet_tpu_torch.models.pamnet import PAMNet
+    from pamnet_tpu_torch.train.loop import Optimizer
+    from pamnet_tpu_torch.train.schedules import constant
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res: dict = {"phase": "derive_train"}
+    qmols = synthetic_qm9_dataset(args.qm9_molecules, seed=args.seed)
+    loaders = {}
+    for geometry in ("host", "derive"):
+        t0 = time.perf_counter()
+        loaders[geometry] = GraphLoader(qmols, "qm9", 5.0, 5.0, 32, shuffle=True,
+                                        seed=args.seed, drop_last=True, build_perms=True,
+                                        wire_geometry=geometry)
+        res[f"qm9_{geometry}_host_build_s"] = time.perf_counter() - t0
+    gb_h = loaders["host"].collate(list(range(32))).to("cuda")
+    gb = loaders["derive"].collate(list(range(32))).to("cuda")
+    if gb.sbf_radial is not None or gb.dist_g is not None:
+        raise AssertionError("a derive batch carries float geometry")
+    cfg = PAMNetConfig(dataset="QM9", dim=128, n_layer=6, cutoff_l=5.0, cutoff_g=5.0)
+    model, opt, ema, make_opt = _qm9_recipe(args, cfg, loaders["derive"])
+    res["qm9"], qm9_launches = _card_geometry_step(
+        "QM9 derive", model, PAMNet(cfg).to("cuda"), gb, gb_h, loaders["derive"], "l1",
+        make_opt, opt, ema, *QM9_WANT, 1e-4, 1e-5, 0, reset_counts, read_counts)
+
+    bs = 8
+    train_mols = rna_mols[:args.rna_structures - args.rna_structures // 4]
+    rloaders = {g: GraphLoader(train_mols, "rna", 2.6, 20.0, bs, shuffle=True, seed=args.seed,
+                               build_perms=True, wire_geometry=g) for g in ("host", "derive")}
+    first = list(range(min(bs, len(train_mols))))
+    rgb_h = rloaders["host"].collate(first).to("cuda")
+    rgb = rloaders["derive"].collate(first).to("cuda")
+    rcfg = PAMNetConfig(dataset="RNA-Puzzles", dim=16, n_layer=1, cutoff_l=2.6,
+                        cutoff_g=20.0, flow="target_to_source")
+    rmodel = PAMNet(rcfg, torch.Generator().manual_seed(args.seed)).to("cuda")
+    if not rmodel.fold_sbf():
+        raise AssertionError("the RNA recipe must train folded")
+
+    def rna_opt(m):
+        return Optimizer(m.parameters(), constant(1e-4))
+
+    res["rna"], rna_launches = _card_geometry_step(
+        "RNA derive", rmodel, PAMNet(rcfg).to("cuda"), rgb, rgb_h, rloaders["derive"],
+        "smooth_l1", rna_opt, rna_opt(rmodel), None, *RNA_WANT, 1e-4, 1e-5, 0,
+        reset_counts, read_counts)
+    res["rna"]["pads"] = dataclasses.asdict(rloaders["derive"].pads)
+    emit_line(res)
+    return _add_counts(qm9_launches, rna_launches)
+
+
+def _rebuilt_equals_host(rebuilt, host) -> dict:
+    """Every integer field, mask, CSR, permutation, valid count and longest
+    group of the batch rebuilt on the card against the host batch."""
+    import torch
+
+    from pamnet_tpu_torch.data.batch import GEOMETRY_FIELDS
+
+    bad = []
+    for f in dataclasses.fields(host):
+        a, b = getattr(host, f.name), getattr(rebuilt, f.name)
+        if f.name in GEOMETRY_FIELDS:
+            continue
+        if isinstance(a, torch.Tensor):
+            if b is None or a.dtype != b.dtype or not torch.equal(a, b):
+                bad.append(f.name)
+        elif f.name == "perms":
+            bad += [k for k in a if k not in b or not torch.equal(a[k], b[k])]
+        elif a != b:
+            bad.append(f.name)
+    if bad:
+        raise AssertionError(f"the graph rebuilt on the card differs from the host's: {bad}")
+    return {"fields_equal": True, "valid": rebuilt.valid, "perms": sorted(rebuilt.perms)}
+
+
+def device_graph_phase(args, reset_counts, read_counts, emit_line) -> dict:
+    """Phase 13, device_graph_train: the QM9 recipe step with the graph
+    rebuilt from the positions on the card in every forward
+    (``device_graph=True``); a PDBbind forward on the smoke batch (32
+    realistic complexes at the worst-case pads of 64) rebuilt alike; and
+    ``main_qm9 --device_graph`` in-process.  Returns the QM9 epoch's
+    launches."""
+    import torch
+
+    from pamnet_tpu_torch import main_qm9
+    from pamnet_tpu_torch.config import PAMNetConfig
+    from pamnet_tpu_torch.data.loader import GraphLoader
+    from pamnet_tpu_torch.data.synthetic import (pdbbind_molecule,
+                                                 synthetic_pdbbind_complex_dataset,
+                                                 synthetic_qm9_dataset)
+    from pamnet_tpu_torch.models.device_graph import rebuild_structure
+    from pamnet_tpu_torch.models.pamnet import PAMNet
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res: dict = {"phase": "device_graph_train"}
+    qmols = synthetic_qm9_dataset(args.qm9_molecules, seed=args.seed)
+    loaders = {g: GraphLoader(qmols, "qm9", 5.0, 5.0, 32, shuffle=True, seed=args.seed,
+                              drop_last=True, build_perms=True, wire_geometry=g)
+               for g in ("host", "derive")}
+    gb_h = loaders["host"].collate(list(range(32))).to("cuda")
+    gb = loaders["derive"].collate(list(range(32))).to("cuda")
+    cfg = PAMNetConfig(dataset="QM9", dim=128, n_layer=6, cutoff_l=5.0, cutoff_g=5.0,
+                       device_graph=True)
+    rebuilt = rebuild_structure(gb, cfg)  # also the first launch of each kernel
+    res["qm9_rebuild"] = {**_rebuilt_equals_host(rebuilt, gb_h),
+                          "syncs": _syncs(lambda: rebuild_structure(gb, cfg)),
+                          "ms": time_ms(lambda: rebuild_structure(gb, cfg), iters=10),
+                          "device_ms": device_ms(lambda: rebuild_structure(gb, cfg), iters=5)}
+    if res["qm9_rebuild"]["syncs"] != 1:
+        raise AssertionError(f"the rebuild's host syncs: {res['qm9_rebuild']}")
+    model, opt, ema, make_opt = _qm9_recipe(args, cfg, loaders["derive"])
+    host_model = PAMNet(dataclasses.replace(cfg, device_graph=False)).to("cuda")
+    res["qm9"], launches = _card_geometry_step(
+        "QM9 device_graph", model, host_model, gb, gb_h, loaders["derive"], "l1", make_opt,
+        opt, ema, *QM9_WANT, 2e-4, 2e-5, 1, reset_counts, read_counts)
+
+    # PDBbind: the smoke batch's complexes, forward only (the candidate sets
+    # are O(N^2) in nodes: ~0.6 GB of squared distances at n 12,032).
+    mols = [pdbbind_molecule(g)
+            for g in synthetic_pdbbind_complex_dataset(args.pdbbind_complexes, seed=805)]
+    ploaders = {g: GraphLoader(mols, "pdbbind", 2.0, 6.0, 32, shuffle=True, seed=args.seed,
+                               build_perms=True, wire_geometry=g) for g in ("host", "derive")}
+    pgb_h = ploaders["host"].collate(list(range(32))).to("cuda")
+    pgb = ploaders["derive"].collate(list(range(32))).to("cuda")
+    pcfg = PAMNetConfig(dataset="PDBbind", dim=128, n_layer=3, cutoff_l=2.0, cutoff_g=6.0,
+                        device_graph=True)
+    pmodel = PAMNet(pcfg, torch.Generator().manual_seed(args.seed)).to("cuda")
+    phost = PAMNet(dataclasses.replace(pcfg, device_graph=False)).to("cuda")
+    phost.load_state_dict(pmodel.state_dict())
+    torch.cuda.reset_peak_memory_stats()
+    rebuilt = rebuild_structure(pgb, pcfg)
+    rebuild_peak = torch.cuda.max_memory_allocated() / 1e9
+    with torch.no_grad():
+        want, got = phost(pgb_h), pmodel(pgb)
+        plain = pmodel(pgb, plain=True)
+    res["pdbbind"] = {
+        "pads": dataclasses.asdict(ploaders["derive"].pads), "rebuild": {
+            **_rebuilt_equals_host(rebuilt, pgb_h),
+            "syncs": _syncs(lambda: rebuild_structure(pgb, pcfg)),
+            "ms": time_ms(lambda: rebuild_structure(pgb, pcfg), iters=5, warmup=1),
+            "peak_mem_gb": rebuild_peak},
+        "forward_vs_host": compare("PDBbind device_graph forward vs host", got, want,
+                                   atol=2e-5, rtol=2e-4),
+        "forward_vs_plain": compare("PDBbind device_graph forward vs plain", got, plain,
+                                    atol=2e-5, rtol=2e-4)}
+
+    if res["pdbbind"]["rebuild"]["syncs"] != 1:
+        raise AssertionError(f"the PDBbind rebuild's host syncs: {res['pdbbind']['rebuild']}")
+
+    # main_qm9 --device_graph, in-process, one epoch at the recipe.
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), tempfile.TemporaryDirectory() as tmp:
+        main_qm9.main(["--synthetic", "--limit", "320", "--epochs", "1", "--device_graph",
+                       "--seed", str(args.seed), "--device", "cuda", "--save_dir", tmp])
+    text = out.getvalue()
+    maes = re.findall(r"(Train|Val|Test) MAE: (\S+?),? ", text)
+    maes += re.findall(r"(Best Validation|Testing) MAE: (\S+)", text)
+    if len(maes) != 5 or not all(math.isfinite(float(v)) for _, v in maes):
+        raise AssertionError(f"main_qm9 --device_graph output: {text}")
+    res["main_qm9_device_graph"] = {"seconds": time.perf_counter() - t0,
+                                    "lines": [ln for ln in text.splitlines() if "MAE" in ln]}
+    emit_line(res)
+    return launches
 
 
 def _check_names(res: dict, names: list[str]) -> dict:

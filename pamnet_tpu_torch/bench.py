@@ -2,7 +2,7 @@
 ``bench.py``, whose four JSON lines, metric names, units and estimated
 baselines it prints in the same order):
 
-    python -m pamnet_tpu_torch.bench [--device cpu] [--small]
+    python -m pamnet_tpu_torch.bench [--device cpu] [--small] [--geometry host]
 
   {"metric": "qm9_pamnet_d128_L6_train_throughput", "value": N,
    "unit": "molecules/sec/chip", "vs_baseline": N, "baseline": 450.0,
@@ -26,6 +26,13 @@ baselines it prints in the same order):
 4. PDBbind training at the README recipe (dim 128, 3 layers, batch 32, MSE,
    the multistep schedule at lr 1e-5 as the JAX line) for 64 steps over
    4 x 32 realistic synthetic complexes (seed 805) resident on the device.
+
+The epoch wall's training batches and the PDBbind batches derive their
+geometry on the device, as the JAX bench's do (``wire_geometry="derive"``);
+``--geometry host`` ships the host geometry instead.  The QM9 step line and
+the RNA scoring line keep host geometry, as the JAX bench does.  Each line
+gives the seconds its structures took to build on the host
+(``structure_build_s``).
 
 Each value is the median over timed windows (the host's spread is wide);
 the windows, the device ms per step (the profiler's kernel time) and the
@@ -119,8 +126,10 @@ def bench_qm9(args, device: torch.device) -> float:
     bs = 32
     cfg = PAMNetConfig(dataset="QM9", dim=args.dim, n_layer=args.qm9_layers)
     mols = synthetic_qm9_dataset(16 * bs if not args.small else 2 * bs, seed=480)
+    t0 = time.perf_counter()
     loader = GraphLoader(mols, "qm9", cfg.cutoff_l, cfg.cutoff_g, bs, drop_last=True,
                          build_perms=True)
+    build_s = time.perf_counter() - t0
     batches = [gb.to(device) for _, gb in zip(range(8), loader)]
     log(f"qm9: pads {loader.pads}, {len(batches)} resident batches")
     model = PAMNet(cfg, torch.Generator().manual_seed(480)).to(device)
@@ -132,7 +141,7 @@ def bench_qm9(args, device: torch.device) -> float:
     ms = statistics.median(times)
     line(f"qm9_pamnet_d{cfg.dim}_L{cfg.n_layer}_train_throughput", bs / ms * 1e3,
          "molecules/sec/chip", REFERENCE_GPU_MOL_PER_SEC, device, ms_per_step=round(ms, 3),
-         device_ms_per_step=dev)
+         device_ms_per_step=dev, geometry="host", structure_build_s=round(build_s, 3))
     return bs / ms * 1e3
 
 
@@ -146,10 +155,12 @@ def bench_rna(args, device: torch.device) -> None:
     t0 = time.perf_counter()
     mols = synthetic_rna_dataset(4 if args.small else 16, seed=0,
                                  n_atoms=120 if args.small else 2100)
+    t1 = time.perf_counter()
     gb = next(iter(GraphLoader(mols, "rna", cfg.cutoff_l, cfg.cutoff_g, batch_size=16,
                                ladder_pads=True))).to(device)
+    build_s = time.perf_counter() - t1
     log(f"rna: {len(mols)} synthetic structures, generated and built in "
-        f"{time.perf_counter() - t0:.1f}s; valid {gb.valid}")
+        f"{time.perf_counter() - t0:.1f}s (built in {build_s:.1f}s); valid {gb.valid}")
     model = PAMNet(cfg, torch.Generator().manual_seed(0)).to(device).eval()
     with torch.inference_mode():
         fwd = lambda: model(gb)  # noqa: E731
@@ -162,7 +173,7 @@ def bench_rna(args, device: torch.device) -> None:
     ms = statistics.median(times)
     line("rna_scoring_throughput", len(mols) / ms * 1e3, "graphs/sec/chip",
          REFERENCE_GPU_RNA_GRAPHS_PER_SEC, device, ms_per_batch=round(ms, 3),
-         device_ms_per_batch=dev)
+         device_ms_per_batch=dev, geometry="host", structure_build_s=round(build_s, 3))
 
 
 def bench_epoch(args, device: torch.device, device_step_mol_s: float | None) -> None:
@@ -184,10 +195,11 @@ def bench_epoch(args, device: torch.device, device_step_mol_s: float | None) -> 
     common = dict(dataset_kind="qm9", cutoff_l=cfg.cutoff_l, cutoff_g=cfg.cutoff_g,
                   batch_size=bs)
     train_loader = GraphLoader(mols[:n_train], shuffle=True, seed=480, drop_last=True,
-                               build_perms=True, **common)
+                               build_perms=True, wire_geometry=args.geometry, **common)
     val_batches = list(GraphLoader(mols[n_train:], **common))
-    log(f"epoch-wall: structure build {time.perf_counter() - t0:.1f}s "
-        f"(train={n_train} val={n_val})")
+    build_s = time.perf_counter() - t0
+    log(f"epoch-wall: structure build {build_s:.1f}s (train={n_train} val={n_val}, "
+        f"{args.geometry} geometry)")
     model = PAMNet(cfg, torch.Generator().manual_seed(480)).to(device)
     opt = Optimizer(model.parameters(), warmup_exponential(1e-4, len(train_loader)),
                     clip_norm=1000.0)
@@ -207,7 +219,8 @@ def bench_epoch(args, device: torch.device, device_step_mol_s: float | None) -> 
     log(f"epoch-wall: {[round(s, 2) for s, _, _ in runs]} s per epoch, val MAE "
         f"{[round(v, 3) for _, _, v in runs]}")
     mol_s = float(np.median(rates))
-    extra = {"epoch_seconds": round(statistics.median(s for s, _, _ in runs), 2)}
+    extra = {"epoch_seconds": round(statistics.median(s for s, _, _ in runs), 2),
+             "geometry": args.geometry, "structure_build_s": round(build_s, 3)}
     if device_step_mol_s:
         extra["ratio_to_device_step"] = round(mol_s / device_step_mol_s, 3)
     line("qm9_epoch_wall_throughput", mol_s, "molecules/sec/chip",
@@ -230,10 +243,11 @@ def bench_pdbbind(args, device: torch.device) -> None:
     make = synthetic_pdbbind_dataset if args.small else synthetic_pdbbind_complex_dataset
     mols = [pdbbind_molecule(g) for g in make((1 if args.small else 4) * bs, seed=805)]
     loader = GraphLoader(mols, "pdbbind", cfg.cutoff_l, cfg.cutoff_g, bs, drop_last=True,
-                         build_perms=True)
+                         build_perms=True, wire_geometry=args.geometry)
     batches = [gb.to(device) for gb in loader]
-    log(f"pdbbind: structure build {time.perf_counter() - t0:.1f}s, pads {loader.pads}, "
-        f"{len(batches)} resident batches")
+    build_s = time.perf_counter() - t0
+    log(f"pdbbind: structure build {build_s:.1f}s, pads {loader.pads}, "
+        f"{len(batches)} resident batches, {args.geometry} geometry")
     model = PAMNet(cfg, torch.Generator().manual_seed(480)).to(device)
     opt = Optimizer(model.parameters(), multistep(1e-5, steps_per_epoch=len(loader)))
     times, dev = train_windows(device, model, opt, None, batches, "mse", args.windows,
@@ -242,7 +256,7 @@ def bench_pdbbind(args, device: torch.device) -> None:
     ms = statistics.median(times)
     line("pdbbind_train_throughput", bs / ms * 1e3, "graphs/sec/chip",
          REFERENCE_GPU_PDBBIND_GRAPHS_PER_SEC, device, ms_per_step=round(ms, 3),
-         device_ms_per_step=dev)
+         device_ms_per_step=dev, geometry=args.geometry, structure_build_s=round(build_s, 3))
 
 
 def main(argv=None) -> None:
@@ -251,6 +265,9 @@ def main(argv=None) -> None:
                         help="cuda (default; raises without a card) or cpu")
     parser.add_argument("--small", action="store_true",
                         help="dim 16, 1 layer, a few small structures (tests)")
+    parser.add_argument("--geometry", choices=("derive", "host"), default="derive",
+                        help="geometry of the epoch wall's training batches and the "
+                             "PDBbind batches (derive: computed on the device)")
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
     if device.type == "cuda":

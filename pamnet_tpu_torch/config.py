@@ -19,6 +19,8 @@ class PAMNetConfig:
     exactly where the fused ``sbf_modulate`` kernel is built for
     ``(num_spherical, dim)``; True/False force it.  (The JAX model's
     ``fuse_sbf_gather`` has no counterpart: a folded stage always runs fused.)
+    ``device_graph`` rebuilds the graph from the positions on the device in
+    every forward (``models/device_graph.py``; JAX ``config.py:85-87``).
     """
 
     dataset: str = "QM9"
@@ -35,6 +37,7 @@ class PAMNetConfig:
     variant: str = "full"
     compute_dtype: str = "float32"
     fold_sbf: bool | None = None
+    device_graph: bool = False
 
     def __post_init__(self):
         if self.flow not in ("source_to_target", "target_to_source"):

@@ -1,0 +1,169 @@
+// Host graph construction of the port: radius and knn neighbour search and
+// the incoming-edge expansion behind the triplet and pair tables (reference:
+// models.py:110,143 radius/knn; models.py:68-98 the SparseTensor expansion).
+//
+// A copy of the JAX package's csrc/graphbuild.cc (radius_graph, knn_graph,
+// expand_incoming), changed so that each function gives the numpy builders'
+// arrays bit for bit (pamnet_tpu_torch/data/graphbuild.py):
+//   * radius_graph emits each query's sources in index order and keeps the
+//     first max_nb of them, and compares the float32 squared distance with
+//     the caller's float32 r2 (numpy compares at float32(r * r));
+//   * knn_graph measures distances in double, as the numpy builder does,
+//     and breaks distance ties by index.
+// Built with g++ at first use and loaded through ctypes
+// (pamnet_tpu_torch/data/native.py).
+//
+// Output convention: results go into caller-supplied buffers, the first
+// array at out[0..m), the second at out[cap..cap+m); the row count m is
+// returned, or -1 when it would pass cap (the caller retries larger).
+
+#include <algorithm>
+#include <cstdint>
+#include <utility>
+#include <vector>
+
+namespace {
+
+// Per-graph contiguous ranges of a sorted graph-indicator vector.
+std::vector<std::pair<int64_t, int64_t>> graph_ranges(const int64_t* batch,
+                                                      int64_t n) {
+  std::vector<std::pair<int64_t, int64_t>> ranges;
+  int64_t start = 0;
+  for (int64_t i = 1; i <= n; ++i) {
+    if (i == n || batch[i] != batch[start]) {
+      if (i > start) ranges.emplace_back(start, i);
+      start = i;
+    }
+  }
+  return ranges;
+}
+
+struct Cell {
+  int32_t x, y, z;
+};
+
+uint64_t key_of(const Cell& c) {
+  return ((uint64_t)(uint32_t)c.x << 42) ^ ((uint64_t)(uint32_t)c.y << 21) ^
+         (uint64_t)(uint32_t)c.z;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Every (query, source) pair of one graph with squared distance <= r2
+// (float32, as ((dx*dx + dy*dy) + dz*dz)), self included, query-major,
+// sources in index order, at most max_nb a query.  Cells of side `cell`
+// (slightly above the radius) bucket the sources: every candidate lies in
+// one of the 27 cells around its query.
+int64_t radius_graph(const float* pos, const int64_t* batch, int64_t n,
+                     float cell, float r2, int64_t max_nb, int32_t* out,
+                     int64_t cap) {
+  int64_t m = 0;
+  std::vector<std::pair<uint64_t, int64_t>> keyed;
+  std::vector<int64_t> found;
+  for (const auto& [lo, hi] : graph_ranges(batch, n)) {
+    float mn[3] = {pos[lo * 3], pos[lo * 3 + 1], pos[lo * 3 + 2]};
+    for (int64_t i = lo; i < hi; ++i)
+      for (int d = 0; d < 3; ++d) mn[d] = std::min(mn[d], pos[i * 3 + d]);
+    auto cell_of = [&](int64_t i) -> Cell {
+      return Cell{(int32_t)((pos[i * 3 + 0] - mn[0]) / cell),
+                  (int32_t)((pos[i * 3 + 1] - mn[1]) / cell),
+                  (int32_t)((pos[i * 3 + 2] - mn[2]) / cell)};
+    };
+    keyed.resize(hi - lo);
+    for (int64_t i = lo; i < hi; ++i) keyed[i - lo] = {key_of(cell_of(i)), i};
+    std::sort(keyed.begin(), keyed.end());
+    for (int64_t q = lo; q < hi; ++q) {
+      const Cell c = cell_of(q);
+      found.clear();
+      for (int dx = -1; dx <= 1; ++dx)
+        for (int dy = -1; dy <= 1; ++dy)
+          for (int dz = -1; dz <= 1; ++dz) {
+            const uint64_t key = key_of(Cell{c.x + dx, c.y + dy, c.z + dz});
+            auto it = std::lower_bound(keyed.begin(), keyed.end(),
+                                       std::make_pair(key, (int64_t)-1));
+            for (; it != keyed.end() && it->first == key; ++it) {
+              const int64_t s = it->second;
+              const float ddx = pos[q * 3] - pos[s * 3];
+              const float ddy = pos[q * 3 + 1] - pos[s * 3 + 1];
+              const float ddz = pos[q * 3 + 2] - pos[s * 3 + 2];
+              const float xx = ddx * ddx;
+              const float yy = ddy * ddy;
+              const float zz = ddz * ddz;
+              if ((xx + yy) + zz <= r2) found.push_back(s);
+            }
+          }
+      std::sort(found.begin(), found.end());
+      const int64_t take = std::min<int64_t>((int64_t)found.size(), max_nb);
+      if (m + take > cap) return -1;
+      for (int64_t j = 0; j < take; ++j) {
+        out[m] = (int32_t)q;
+        out[cap + m] = (int32_t)found[j];
+        ++m;
+      }
+    }
+  }
+  return m;
+}
+
+// The k nearest sources of each query in its graph, self included, ordered
+// by (double squared distance, index).
+int64_t knn_graph(const float* pos, const int64_t* batch, int64_t n, int64_t k,
+                  int32_t* out, int64_t cap) {
+  int64_t m = 0;
+  std::vector<std::pair<double, int64_t>> d;
+  for (const auto& [lo, hi] : graph_ranges(batch, n)) {
+    const int64_t gn = hi - lo;
+    const int64_t kk = std::min<int64_t>(k, gn);
+    d.resize(gn);
+    for (int64_t q = lo; q < hi; ++q) {
+      for (int64_t s = lo; s < hi; ++s) {
+        const double dx = (double)pos[q * 3] - (double)pos[s * 3];
+        const double dy = (double)pos[q * 3 + 1] - (double)pos[s * 3 + 1];
+        const double dz = (double)pos[q * 3 + 2] - (double)pos[s * 3 + 2];
+        const double xx = dx * dx;
+        const double yy = dy * dy;
+        const double zz = dz * dz;
+        d[s - lo] = {(xx + yy) + zz, s};
+      }
+      std::partial_sort(d.begin(), d.begin() + kk, d.end());
+      if (m + kk > cap) return -1;
+      for (int64_t j = 0; j < kk; ++j) {
+        out[m] = (int32_t)q;
+        out[cap + m] = (int32_t)d[j].second;
+        ++m;
+      }
+    }
+  }
+  return m;
+}
+
+// For each edge i, every edge id e with dst[e] == anchor[i], in edge-id
+// order (anchor = src: two-hop triplets; anchor = dst: one-hop pairs).
+// Emits (outer = i, inner = e).
+int64_t expand_incoming(const int32_t* dst, const int32_t* anchor, int64_t e,
+                        int64_t n_nodes, int32_t* out, int64_t cap) {
+  std::vector<int64_t> offsets(n_nodes + 1, 0);
+  for (int64_t i = 0; i < e; ++i) offsets[dst[i] + 1]++;
+  for (int64_t v = 0; v < n_nodes; ++v) offsets[v + 1] += offsets[v];
+  std::vector<int32_t> in_edges(e);
+  {
+    std::vector<int64_t> cursor(offsets.begin(), offsets.end() - 1);
+    for (int64_t i = 0; i < e; ++i) in_edges[cursor[dst[i]]++] = (int32_t)i;
+  }
+  int64_t m = 0;
+  for (int64_t i = 0; i < e; ++i) {
+    const int32_t a = anchor[i];
+    const int64_t lo = offsets[a], hi = offsets[a + 1];
+    if (m + (hi - lo) > cap) return -1;
+    for (int64_t p = lo; p < hi; ++p) {
+      out[m] = (int32_t)i;
+      out[cap + m] = in_edges[p];
+      ++m;
+    }
+  }
+  return m;
+}
+
+}  // extern "C"

@@ -4,7 +4,9 @@ Builds the same batches as ``pamnet_tpu.data.batch.collate_structures(...,
 build_tables=False)`` on its numpy path: per-structure graph structure and
 host float64 geometry (QM9, PDBbind with its (N, 18) ``feat``, RNA; PAMNet_s
 without triplets), concatenated with node/edge offsets and padded to a
-bucket.  Every aggregation of the model reads the CSR offsets carried here
+bucket.  With ``wire_geometry="derive"`` a batch carries positions and
+integer tables only, and the model derives distances and the spherical
+basis on the device (``models/pamnet.py::derive_geometry``).  Every aggregation of the model reads the CSR offsets carried here
 (``eg_src_off``/``eg_dst_off``, ``el_dst_off``, ``t2_ji_off``,
 ``t1_ji_off``), so rows must stay sorted by their aggregation key.
 
@@ -24,6 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 
 import numpy as np
 import torch
@@ -44,7 +47,10 @@ class GraphBatch:
     CSR offsets over rows sorted by that key, or None when the rows are not
     sorted by it.  ``num_graphs`` counts the real (unpadded) graphs and
     ``valid`` the real rows of each padded dimension ("n", "eg", "el", "t2",
-    "t1"), host ints that the kernels' wrappers check against.  ``feat``
+    "t1"), host ints that the kernels' wrappers check against.  The float
+    geometry (``dist_g``, ``dist_l``, ``sbf_radial``, ``cbf2``, ``cbf1``) is
+    None where the batch leaves it to the model (derive geometry, or no
+    host basis).  ``feat``
     holds the atom features, (N, 18) on PDBbind and (N, 0) otherwise.  ``perms``
     holds the backward's CSR arrays (module docstring), empty unless the
     batch was built with ``build_perms=True``.  ``longest`` holds the most
@@ -76,11 +82,11 @@ class GraphBatch:
     t1_mask: torch.Tensor
     y: torch.Tensor
     graph_mask: torch.Tensor
-    dist_g: torch.Tensor
-    dist_l: torch.Tensor
-    sbf_radial: torch.Tensor
-    cbf2: torch.Tensor
-    cbf1: torch.Tensor
+    dist_g: torch.Tensor | None
+    dist_l: torch.Tensor | None
+    sbf_radial: torch.Tensor | None
+    cbf2: torch.Tensor | None
+    cbf1: torch.Tensor | None
     eg_src_off: torch.Tensor | None
     eg_dst_off: torch.Tensor | None
     el_dst_off: torch.Tensor | None
@@ -157,8 +163,23 @@ class PadSizes:
                    max(8, g))
 
 
+def _lap_clock(timings: dict | None):
+    """``lap(part)`` adds the seconds since the previous lap to
+    ``timings[part]`` (nothing when ``timings`` is None)."""
+    last = [time.perf_counter()]
+
+    def lap(part: str) -> None:
+        if timings is not None:
+            now = time.perf_counter()
+            timings[part] = timings.get(part, 0.0) + now - last[0]
+            last[0] = now
+
+    return lap
+
+
 def precompute_structure(mol: dict, dataset_kind: str, cutoff_l: float,
-                         cutoff_g: float, variant: str = "full") -> dict:
+                         cutoff_g: float, variant: str = "full",
+                         timings: dict | None = None) -> dict:
     """One structure's graph (reference: models.py:104-162, 263-301), the
     one-hop pairs, and for the full PAMNet the two-hop triplets, on the
     local edges:
@@ -173,40 +194,47 @@ def precompute_structure(mol: dict, dataset_kind: str, cutoff_l: float,
     Global edges are sorted by the endpoint the global layer aggregates at:
     dst-major on QM9 and PDBbind (``source_to_target``), src-major on RNA;
     local edges dst-major.  ``variant="s"`` (PAMNet_s) leaves the triplets
-    empty."""
+    empty.  ``timings`` accumulates the seconds of each part
+    ("neighbours", "edge_sort", "triplets", "pairs", "distances")."""
+    lap = _lap_clock(timings)
     pos = np.asarray(mol["pos"], np.float32)
     n = pos.shape[0]
     if dataset_kind == "qm9":
         el = graphbuild.remove_self_loops_np(
             np.asarray(mol["edge_index"], np.int64).astype(np.int32))
-        eg = graphbuild.remove_self_loops_np(graphbuild.radius_graph_np(
+        eg = graphbuild.remove_self_loops_np(graphbuild.radius_graph(
             pos, cutoff_g, None, 500 if variant == "s" else 1000))
     elif dataset_kind == "pdbbind":
         eg = graphbuild.remove_self_loops_np(
-            graphbuild.radius_graph_np(pos, cutoff_g, None, 1000))
+            graphbuild.radius_graph(pos, cutoff_g, None, 1000))
         el = eg[:, graphbuild.edge_distances_np(eg, pos) <= cutoff_l]
     elif dataset_kind == "rna":
-        eknn = graphbuild.remove_self_loops_np(graphbuild.knn_graph_np(pos, 50))
+        eknn = graphbuild.remove_self_loops_np(graphbuild.knn_graph(pos, 50))
         dist_knn = graphbuild.edge_distances_np(eknn, pos)
         eg = eknn[:, dist_knn <= cutoff_g]
         el = eknn[:, dist_knn <= cutoff_l]
     else:
         raise ValueError(f"unknown dataset kind: {dataset_kind}")
+    lap("neighbours")
     if dataset_kind == "rna":
         eg = eg[:, np.lexsort((eg[1], eg[0]))]
     else:
         eg = eg[:, np.lexsort((eg[0], eg[1]))]
     el = el[:, np.lexsort((el[0], el[1]))]
+    lap("edge_sort")
     if variant == "full":
-        t2 = graphbuild.triplets_np(el, n)
+        t2 = graphbuild.triplets(el, n)
     else:
         t2 = {k: np.zeros(0, np.int32) for k in ("idx_i", "idx_j", "idx_k", "idx_kj", "idx_ji")}
+    lap("triplets")
+    t1 = graphbuild.pairs(el, n)
+    lap("pairs")
     p64 = pos.astype(np.float64)
     if dataset_kind == "pdbbind":
         feat, z = np.asarray(mol["feat"], np.float32), np.zeros(n, np.int32)
     else:
         feat, z = np.zeros((n, 0), np.float32), np.asarray(mol["z"], np.int32)
-    return {
+    out = {
         "pos": pos,
         "z": z,
         "feat": feat,
@@ -214,10 +242,12 @@ def precompute_structure(mol: dict, dataset_kind: str, cutoff_l: float,
         "eg": np.ascontiguousarray(eg, np.int32),
         "el": np.ascontiguousarray(el, np.int32),
         "t2": t2,
-        "t1": graphbuild.pairs_np(el, n),
+        "t1": t1,
         "dist_g": np.sqrt(((p64[eg[1]] - p64[eg[0]]) ** 2).sum(-1)).astype(np.float32),
         "dist_l": np.sqrt(((p64[el[1]] - p64[el[0]]) ** 2).sum(-1)).astype(np.float32),
     }
+    lap("distances")
+    return out
 
 
 def attach_basis(s: dict, cutoff_l: float, num_spherical: int = 7,
@@ -341,22 +371,36 @@ _INT_FIELDS = (
     ("t1_jj", ("t1", "idx_jj"), "edge", "t1"),
     ("t1_ji", ("t1", "idx_ji"), "edge", "t1"),
 )
-_F32_FIELDS = (("pos", "n"), ("feat", "n"), ("dist_g", "eg"), ("dist_l", "el"),
-               ("sbf_radial", "el"), ("cbf2", "t2"), ("cbf1", "t1"))
+_F32_FIELDS = (("pos", "n"), ("feat", "n"))
+_DIST_FIELDS = (("dist_g", "eg"), ("dist_l", "el"))
+_BASIS_FIELDS = (("sbf_radial", "el"), ("cbf2", "t2"), ("cbf1", "t1"))
+GEOMETRY_FIELDS = tuple(k for k, _ in _DIST_FIELDS + _BASIS_FIELDS)
 
 
 def collate_structures(structs: list[dict], pads: PadSizes | None = None,
                        align: int = 128, build_perms: bool = False,
                        num_atom_types: int | None = None,
-                       variant: str = "full") -> GraphBatch:
-    """Concatenate structures (with ``attach_basis`` applied) into one padded
-    batch, offsetting node ids by node counts and edge ids by local-edge
+                       variant: str = "full",
+                       wire_geometry: str = "host") -> GraphBatch:
+    """Concatenate structures into one padded batch, offsetting node ids by node counts and edge ids by local-edge
     counts; pads default to the geometric bucket of the batch's counts.
     ``build_perms`` adds the backward's CSR arrays (module docstring); the
     CSR of ``z`` has ``num_atom_types`` groups, and None (PDBbind, which
     embeds no atom type) builds none.  ``variant="s"`` (PAMNet_s, no
     triplets) carries the padded t2 fields as JAX does but no CSR of
-    them, so no kernel is handed the empty stream."""
+    them, so no kernel is handed the empty stream.
+
+    ``wire_geometry="host"`` carries the structures' distances and, where
+    every structure has ``attach_basis`` applied, their host basis;
+    ``"derive"`` carries neither, even where the structures hold them (the
+    JAX package's ``collate_structures(wire_geometry=)``)."""
+    if wire_geometry not in ("host", "derive"):
+        raise ValueError(f"wire_geometry must be 'host'|'derive', got {wire_geometry!r}")
+    host = wire_geometry == "host"
+    f32_fields = (_F32_FIELDS
+                  + (_DIST_FIELDS if host and all("dist_g" in s for s in structs) else ())
+                  + (_BASIS_FIELDS if host and all("sbf_radial" in s for s in structs)
+                     else ()))
     nb = len(structs)
     n_per = np.array([s["pos"].shape[0] for s in structs], np.int64)
     el_per = np.array([s["el"].shape[1] for s in structs], np.int64)
@@ -384,7 +428,7 @@ def collate_structures(structs: list[dict], pads: PadSizes | None = None,
                 v = v[p]
             parts.append(v.astype(np.int32) + o)
         f[key] = _pad1(np.concatenate(parts), pad_of[pdim])
-    for key, pdim in _F32_FIELDS:
+    for key, pdim in f32_fields:
         f[key] = _pad1(np.concatenate([s[key] for s in structs]).astype(np.float32),
                        pad_of[pdim])
 
@@ -425,6 +469,7 @@ def collate_structures(structs: list[dict], pads: PadSizes | None = None,
     opt = lambda a: None if a is None else t(a)  # noqa: E731
     return GraphBatch(
         **{k: t(v) for k, v in f.items()},
+        **{k: None for k in GEOMETRY_FIELDS if k not in f},
         node_mask=t(_mask(num_nodes, pads.n)),
         node_graph=t(_pad1(node_graph, pads.n)),
         eg_mask=t(_mask(n_eg, pads.eg)),

@@ -2,11 +2,48 @@
 ``pamnet_tpu/data/graphbuild.py``, with the same index conventions and tie
 order.  An edge list is a (2, E) int array with ``src = edge_index[0]`` and
 ``dst = edge_index[1]``; neighbour searches emit (query, source) pairs in
-query-major order, query in row 0 (reference: models.py:110-111)."""
+query-major order, query in row 0 (reference: models.py:110-111).
+
+Above ``native.NATIVE_MIN_NODES`` nodes (neighbour searches) or
+``native.NATIVE_MIN_EDGES`` edges (triplets, pairs) the public builders hand
+the work to the native library (``data/native.py``), which gives the same
+arrays bit for bit; the ``*_np`` functions below are the plain versions that
+the tests hold it against.  A batch vector must be sorted (graphs
+contiguous)."""
 
 from __future__ import annotations
 
 import numpy as np
+
+from pamnet_tpu_torch.data import native
+
+
+def radius_graph(pos, r: float, batch=None, max_num_neighbors: int = 1000) -> np.ndarray:
+    """``radius_graph_np``, natively above ``NATIVE_MIN_NODES`` nodes."""
+    if np.shape(pos)[0] > native.NATIVE_MIN_NODES:
+        return native.radius_graph(pos, r, batch, max_num_neighbors)
+    return radius_graph_np(pos, r, batch, max_num_neighbors)
+
+
+def knn_graph(pos, k: int, batch=None) -> np.ndarray:
+    """``knn_graph_np``, natively above ``NATIVE_MIN_NODES`` nodes."""
+    if np.shape(pos)[0] > native.NATIVE_MIN_NODES:
+        return native.knn_graph(pos, k, batch)
+    return knn_graph_np(pos, k, batch)
+
+
+def triplets(edge_index: np.ndarray, num_nodes: int) -> dict:
+    """``triplets_np``, natively above ``NATIVE_MIN_EDGES`` edges."""
+    if edge_index.shape[1] > native.NATIVE_MIN_EDGES:
+        return native.triplets(edge_index, num_nodes)
+    return triplets_np(edge_index, num_nodes)
+
+
+def pairs(edge_index: np.ndarray, num_nodes: int) -> dict:
+    """``pairs_np``, natively above ``NATIVE_MIN_EDGES`` edges."""
+    if edge_index.shape[1] > native.NATIVE_MIN_EDGES:
+        return native.pairs(edge_index, num_nodes)
+    return pairs_np(edge_index, num_nodes)
 
 
 def radius_graph_np(
@@ -40,7 +77,9 @@ def knn_graph_np(
 ) -> np.ndarray:
     """For each query its k nearest sources in the same graph, self included,
     distance ties broken by index (``torch_cluster.knn``, reference:
-    models.py:143).  (2, E) int32, row 0 = query."""
+    models.py:143), float64 distances.  (2, E) int32, row 0 = query.  (The
+    JAX package's numpy builder selects by ``argpartition``, which may take
+    another of the sources tied at the k-th distance.)"""
     pos = np.asarray(pos, dtype=np.float32)
     if batch is None:
         batch = np.zeros(pos.shape[0], dtype=np.int64)
@@ -51,13 +90,7 @@ def knn_graph_np(
         m = len(idx)
         kk = min(k, m)
         d2 = ((p[:, None, :] - p[None, :, :]) ** 2).sum(-1)
-        if kk < m:
-            part = np.argpartition(d2, kk - 1, axis=1)[:, :kk]
-            rows = np.arange(m)[:, None]
-            order = np.lexsort((part, d2[rows, part]), axis=1)
-            nbrs = part[rows, order]
-        else:
-            nbrs = np.argsort(d2, axis=1, kind="stable")
+        nbrs = np.argsort(d2, axis=1, kind="stable")[:, :kk]
         queries.append(np.repeat(idx, kk))
         sources.append(idx[nbrs.reshape(-1)])
     if not queries:

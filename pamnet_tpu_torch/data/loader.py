@@ -1,6 +1,6 @@
-"""Batch loader: per-structure graph build with the host basis, then padded
-batches in order or shuffled per epoch (the inference and training subset
-of ``pamnet_tpu.data.loader.GraphLoader``)."""
+"""Batch loader: per-structure graph build (with the host basis unless the
+batches derive it), then padded batches in order or shuffled per epoch (the
+inference and training subset of ``pamnet_tpu.data.loader.GraphLoader``)."""
 
 from __future__ import annotations
 
@@ -36,6 +36,13 @@ class GraphLoader:
         them (so batches hold the same molecules).
       drop_last: drop an epoch's last, partial batch.
       build_perms: batches carry the backward's CSR arrays (training).
+      wire_geometry: "host" ships the host distances (and basis);
+        "derive" ships positions and integer tables only, and the model
+        derives the geometry on the device.  Derive implies
+        ``precompute_basis=False``.
+      precompute_basis: build the host f64 spherical basis
+        (``attach_basis``); without it the model derives the basis from the
+        host distances (JAX ``main_qm9.py --device_basis``).
     """
 
     def __init__(self, mols: list[dict], dataset_kind: str, cutoff_l: float,
@@ -44,7 +51,8 @@ class GraphLoader:
                  num_spherical: int = 7, num_radial: int = 6,
                  envelope_exponent: int = 5, shuffle: bool = False, seed: int = 0,
                  drop_last: bool = False, build_perms: bool = False,
-                 variant: str = "full"):
+                 variant: str = "full", wire_geometry: str = "host",
+                 precompute_basis: bool = True):
         if not mols:
             raise ValueError("GraphLoader needs at least one molecule")
         self.batch_size = batch_size
@@ -53,17 +61,20 @@ class GraphLoader:
         self.drop_last = drop_last
         self.build_perms = build_perms
         self.variant = variant
+        if wire_geometry not in ("host", "derive"):
+            raise ValueError(
+                f"wire_geometry must be 'host'|'derive', got {wire_geometry!r}")
+        self.wire_geometry = wire_geometry
+        precompute_basis = precompute_basis and wire_geometry == "host"
         self._num_atom_types = (atom_type_count(dataset_kind)
                                 if embeds_atom_types(dataset_kind) else None)
         self._rng = np.random.default_rng(seed)
         self._align = align
-        self.structs = [
-            attach_basis(
-                precompute_structure(m, dataset_kind, cutoff_l, cutoff_g, variant),
-                cutoff_l, num_spherical, num_radial, envelope_exponent,
-            )
-            for m in mols
-        ]
+        self.structs = [precompute_structure(m, dataset_kind, cutoff_l, cutoff_g, variant)
+                        for m in mols]
+        if precompute_basis:
+            for s in self.structs:
+                attach_basis(s, cutoff_l, num_spherical, num_radial, envelope_exponent)
         self._counts = np.array([structure_counts(s) for s in self.structs])
         b = min(batch_size, len(self.structs))
         n, eg, el, t2, t1 = np.sort(self._counts, axis=0)[-b:].sum(axis=0)
@@ -120,7 +131,7 @@ class GraphLoader:
         return collate_structures([self.structs[i] for i in idxs], pads,
                                   build_perms=build_perms,
                                   num_atom_types=self._num_atom_types,
-                                  variant=self.variant)
+                                  variant=self.variant, wire_geometry=self.wire_geometry)
 
     def in_order(self):
         """Every molecule once, in order, the last batch partial, without the
@@ -133,3 +144,24 @@ class GraphLoader:
     def __iter__(self):
         for idxs in self.batches():
             yield self.collate(idxs)
+
+
+def add_geometry_flags(parser) -> None:
+    """The geometry flags of the JAX package's training entry points, with
+    their defaults."""
+    parser.add_argument("--host_geometry", action="store_true",
+                        help="Ship host-computed float geometry (distances and the "
+                             "f64 spherical basis) in training batches instead of the "
+                             "default derive batches (positions and integer tables; "
+                             "the geometry computed on the device in the step)")
+    parser.add_argument("--device_basis", action="store_true",
+                        help="Evaluation batches skip the host spherical basis too: "
+                             "the model computes it on the device from the distances")
+
+
+def geometry_options(args) -> tuple[dict, dict]:
+    """(training, evaluation) ``GraphLoader`` keyword arguments of the
+    geometry flags: training batches derive unless ``--host_geometry``;
+    ``--device_basis`` skips the host basis everywhere."""
+    basis = dict(precompute_basis=not args.device_basis)
+    return ({"wire_geometry": "host" if args.host_geometry else "derive", **basis}, basis)

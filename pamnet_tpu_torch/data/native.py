@@ -1,0 +1,162 @@
+"""The port's native host graph builders (``csrc/graphbuild.cc``) through
+``ctypes``: the counterpart of ``pamnet_tpu/data/native.py``'s radius, knn,
+triplet and pair builders, each bit for bit the numpy builder of
+``data/graphbuild.py`` on the same input.
+
+The library is compiled by ``g++`` at first use into ``build/torch_ext/`` at
+the repository root, named by a hash of the source and the flags, so an
+edited source is rebuilt.  When it cannot be built or loaded, every call
+raises: nothing carries on in numpy behind the caller's back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+import numpy as np
+
+# Above these sizes data/graphbuild.py hands a build to the library (the JAX
+# package's thresholds).
+NATIVE_MIN_NODES = 512
+NATIVE_MIN_EDGES = 8192
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCE = _PKG / "csrc" / "graphbuild.cc"
+BUILD_DIR = _PKG.parent / "build" / "torch_ext"
+CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-ffp-contract=off"]
+
+_lib: ctypes.CDLL | None = None
+_lock = threading.Lock()
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(SOURCE.read_bytes())
+    h.update(" ".join(CXX_FLAGS).encode())
+    return BUILD_DIR / f"libgraphbuild_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the source unless its library exists; raises on failure."""
+    out = library_path()
+    if out.is_file():
+        return out
+    cxx = os.environ.get("CXX") or shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("g++ not found: the native graph builders cannot be built")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        staged = Path(tmp) / out.name
+        res = subprocess.run([cxx, *CXX_FLAGS, str(SOURCE), "-o", str(staged)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"g++ failed on {SOURCE.name}:\n{res.stdout}")
+        os.replace(staged, out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded library, built at first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            i32p = np.ctypeslib.ndpointer(dtype=np.int32, flags="C_CONTIGUOUS")
+            i64p = np.ctypeslib.ndpointer(dtype=np.int64, flags="C_CONTIGUOUS")
+            f32p = np.ctypeslib.ndpointer(dtype=np.float32, flags="C_CONTIGUOUS")
+            i64, f32 = ctypes.c_int64, ctypes.c_float
+            lib.radius_graph.argtypes = [f32p, i64p, i64, f32, f32, i64, i32p, i64]
+            lib.knn_graph.argtypes = [f32p, i64p, i64, i64, i32p, i64]
+            lib.expand_incoming.argtypes = [i32p, i32p, i64, i64, i32p, i64]
+            for fn in (lib.radius_graph, lib.knn_graph, lib.expand_incoming):
+                fn.restype = i64
+            _lib = lib
+    return _lib
+
+
+def _grow(call, cap: int) -> np.ndarray:
+    """Run ``call(out, cap)`` with a doubling buffer until its rows fit:
+    the (2, m) int32 result."""
+    while True:
+        out = np.empty(2 * cap, dtype=np.int32)
+        m = call(out, cap)
+        if m >= 0:
+            return np.stack([out[:m], out[cap:cap + m]])
+        cap *= 2
+
+
+def _inputs(pos, batch):
+    pos = np.ascontiguousarray(pos, dtype=np.float32)
+    n = pos.shape[0]
+    batch = (np.zeros(n, np.int64) if batch is None
+             else np.ascontiguousarray(batch, dtype=np.int64))
+    if n and np.any(np.diff(batch) < 0):
+        raise ValueError("the batch vector must be sorted (graphs contiguous)")
+    return pos, batch, n
+
+
+def radius_graph(pos, r: float, batch=None, max_num_neighbors: int = 1000) -> np.ndarray:
+    """``graphbuild.radius_graph_np`` in C++: (2, E) int32, row 0 the query."""
+    pos, batch, n = _inputs(pos, batch)
+    lib = library()
+    # numpy compares the float32 squared distance with float32(r * r).
+    r2, cell = np.float32(r * r), np.float32(r) * np.float32(1.0 + 1e-5)
+    return _grow(lambda out, cap: lib.radius_graph(pos, batch, n, cell, r2,
+                                                   max_num_neighbors, out, cap),
+                 max(n * 32, 1024))
+
+
+def knn_graph(pos, k: int, batch=None) -> np.ndarray:
+    """``graphbuild.knn_graph_np`` in C++: (2, E) int32, row 0 the query."""
+    pos, batch, n = _inputs(pos, batch)
+    lib = library()
+    return _grow(lambda out, cap: lib.knn_graph(pos, batch, n, k, out, cap),
+                 max(n * k, 1))
+
+
+def _expand(edge_index: np.ndarray, num_nodes: int, anchor_row: int):
+    """(outer, inner) int64: every edge e' with dst[e'] == anchor[e], for
+    each edge e in order."""
+    lib = library()
+    dst = np.ascontiguousarray(edge_index[1], dtype=np.int32)
+    anchor = np.ascontiguousarray(edge_index[anchor_row], dtype=np.int32)
+    e = dst.shape[0]
+    pair = _grow(lambda out, cap: lib.expand_incoming(dst, anchor, e, num_nodes, out, cap),
+                 max(e * 8, 1 << 16))
+    return pair[0].astype(np.int64), pair[1].astype(np.int64)
+
+
+def triplets(edge_index: np.ndarray, num_nodes: int) -> dict:
+    """``graphbuild.triplets_np`` with the expansion in C++."""
+    outer, inner = _expand(edge_index, num_nodes, 0)
+    src, dst = edge_index.astype(np.int64)
+    idx_i, idx_j, idx_k = dst[outer], src[outer], src[inner]
+    keep = idx_i != idx_k
+    return {
+        "idx_i": idx_i[keep].astype(np.int32),
+        "idx_j": idx_j[keep].astype(np.int32),
+        "idx_k": idx_k[keep].astype(np.int32),
+        "idx_kj": inner[keep].astype(np.int32),
+        "idx_ji": outer[keep].astype(np.int32),
+    }
+
+
+def pairs(edge_index: np.ndarray, num_nodes: int) -> dict:
+    """``graphbuild.pairs_np`` with the expansion in C++."""
+    outer, inner = _expand(edge_index, num_nodes, 1)
+    src, dst = edge_index.astype(np.int64)
+    idx_i, idx_j1, idx_j2 = src[outer], dst[outer], src[inner]
+    keep = idx_j1 != idx_j2
+    return {
+        "idx_i": idx_i[keep].astype(np.int32),
+        "idx_j1": idx_j1[keep].astype(np.int32),
+        "idx_j2": idx_j2[keep].astype(np.int32),
+        "idx_jj": inner[keep].astype(np.int32),
+        "idx_ji": outer[keep].astype(np.int32),
+    }

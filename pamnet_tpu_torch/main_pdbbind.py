@@ -19,6 +19,9 @@ best validation RMSE.  Each best validation RMSE writes
 names); every epoch writes the full training state to
 ``<save_dir>/<dataset>/last.ckpt``, which ``--resume`` continues from bit for
 bit.  ``--device`` defaults to ``cuda`` and raises without a card.
+Training batches derive their geometry on the device unless
+``--host_geometry``; ``--device_basis`` drops the host basis from the
+evaluation batches too.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import numpy as np
 import torch
 
 from pamnet_tpu_torch.config import PAMNetConfig, resolve_device
+from pamnet_tpu_torch.data.loader import add_geometry_flags, geometry_options
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -63,6 +67,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Append per-epoch metrics to this CSV file")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default; raises without a card) or cpu")
+    add_geometry_flags(parser)
     return parser
 
 
@@ -123,10 +128,11 @@ def main(argv=None) -> dict:
                        cutoff_l=args.cutoff_l, cutoff_g=args.cutoff_g)
     common = dict(dataset_kind="pdbbind", cutoff_l=cfg.cutoff_l, cutoff_g=cfg.cutoff_g,
                   batch_size=args.batch_size)
+    train_geometry, eval_geometry = geometry_options(args)
     train_loader = GraphLoader(train_mols, shuffle=True, seed=args.seed, build_perms=True,
-                               **common)
-    val_loader = GraphLoader(val_mols, **common)
-    test_loader = GraphLoader(test_mols, **common)
+                               **common, **train_geometry)
+    val_loader = GraphLoader(val_mols, **common, **eval_geometry)
+    test_loader = GraphLoader(test_mols, **common, **eval_geometry)
     print(f"Data loaded! train={len(train_mols)} val={len(val_mols)} "
           f"test={len(test_mols)} pads={train_loader.pads} "
           f"({time.time() - t_load:.1f}s structure build)")

@@ -10,8 +10,13 @@ TF32 off; ``--model PAMNet_s`` trains the one-hop variant at the same
 recipe.  ``--synthetic`` trains on generated molecules when the QM9 raw
 files are not staged under ``./data/<dataset>/raw``; ``--limit`` keeps the
 first N molecules.  ``--device`` defaults to ``cuda`` and raises without a
-card.  Batches carry host-computed geometry (distances and the spherical
-basis tables); evaluation runs under the EMA weights.  Each best validation
+card.  Training batches carry positions and integer tables only and the
+step derives distances and the spherical basis on the device, as the JAX
+``main_qm9.py`` streams by default; ``--host_geometry`` ships the host geometry
+instead, ``--device_basis`` drops the host basis from the evaluation
+batches too, and ``--device_graph`` rebuilds the radius graph from the
+positions on the device in every forward.  Evaluation runs under the EMA
+weights.  Each best validation
 MAE writes the EMA weights to ``<save_dir>/<dataset>/best_model.pt`` (the
 reference's ``state_dict`` names); every epoch writes the full training state
 to ``<save_dir>/<dataset>/last.ckpt``, which ``--resume`` continues from bit
@@ -29,6 +34,7 @@ import numpy as np
 import torch
 
 from pamnet_tpu_torch.config import PAMNetConfig, resolve_device
+from pamnet_tpu_torch.data.loader import add_geometry_flags, geometry_options
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -59,6 +65,11 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Checkpoint to resume the full training state from")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default; raises without a card) or cpu")
+    parser.add_argument("--device_graph", action="store_true",
+                        help="Rebuild the radius graph from the positions on the device "
+                             "in every forward (the reference's per-forward "
+                             "construction, models.py:110)")
+    add_geometry_flags(parser)
     return parser
 
 
@@ -104,7 +115,8 @@ def main(argv=None) -> dict:
     mols, n_train, n_val = load_molecules(args)
     cfg = PAMNetConfig(dataset="QM9", dim=args.dim, n_layer=args.n_layer,
                        cutoff_l=args.cutoff_l, cutoff_g=args.cutoff_g,
-                       variant="s" if args.model == "PAMNet_s" else "full")
+                       variant="s" if args.model == "PAMNet_s" else "full",
+                       device_graph=args.device_graph)
     train_mols = mols[:n_train]
     val_mols = mols[n_train:n_train + n_val]
     test_mols = mols[n_train + n_val:]
@@ -112,11 +124,12 @@ def main(argv=None) -> dict:
     t_load = time.time()
     common = dict(dataset_kind="qm9", cutoff_l=cfg.cutoff_l, cutoff_g=cfg.cutoff_g,
                   batch_size=args.batch_size, variant=cfg.variant)
+    train_geometry, eval_geometry = geometry_options(args)
     train_loader = GraphLoader(train_mols, shuffle=True, seed=args.seed, drop_last=True,
-                               build_perms=True, **common)
+                               build_perms=True, **common, **train_geometry)
     # Evaluation composition is free: the metric is a mean over molecules.
-    val_batches = list(GraphLoader(val_mols, **common))
-    test_batches = list(GraphLoader(test_mols, **common))
+    val_batches = list(GraphLoader(val_mols, **common, **eval_geometry))
+    test_batches = list(GraphLoader(test_mols, **common, **eval_geometry))
     print(f"Data loaded! train={len(train_mols)} val={len(val_mols)} "
           f"test={len(test_mols)} pads={train_loader.pads} "
           f"({time.time() - t_load:.1f}s structure build)")

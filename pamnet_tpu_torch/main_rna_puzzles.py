@@ -15,7 +15,11 @@ writes ``<save_dir>/pamnet_rna_best.pt`` under the reference's ``state_dict``
 names, which ``python -m pamnet_tpu_torch.serve --saved_model`` loads; every
 epoch writes the full training state to ``<save_dir>/pamnet_rna_last.ckpt``,
 which ``--resume`` continues from bit for bit.  ``--device`` defaults to
-``cuda`` and raises without a card.  Batches carry host-computed geometry.
+``cuda`` and raises without a card.  Training batches carry positions and
+integer tables only and the step derives the geometry on the device (the
+folded stage then reads a radial table computed on the card) unless
+``--host_geometry``; ``--device_basis`` drops the host basis from the
+validation batches too.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import time
 import torch
 
 from pamnet_tpu_torch.config import PAMNetConfig, resolve_device
+from pamnet_tpu_torch.data.loader import add_geometry_flags, geometry_options
 
 BEST_NAME = "pamnet_rna_best.pt"
 LAST_NAME = "pamnet_rna_last.ckpt"
@@ -63,6 +68,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Append per-epoch metrics to this CSV file")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default; raises without a card) or cpu")
+    add_geometry_flags(parser)
     return parser
 
 
@@ -118,9 +124,10 @@ def main(argv=None) -> dict:
                        cutoff_g=args.cutoff_g, flow=args.flow)
     common = dict(dataset_kind="rna", cutoff_l=cfg.cutoff_l, cutoff_g=cfg.cutoff_g,
                   batch_size=args.batch_size)
+    train_geometry, eval_geometry = geometry_options(args)
     train_loader = GraphLoader(train_mols, shuffle=True, seed=args.seed,
-                               build_perms=True, **common)
-    val_loader = GraphLoader(val_mols, **common)
+                               build_perms=True, **common, **train_geometry)
+    val_loader = GraphLoader(val_mols, **common, **eval_geometry)
 
     model = PAMNet(cfg, torch.Generator().manual_seed(args.seed)).to(device)
     print("Number of model parameters:", sum(p.numel() for p in model.parameters()))

@@ -1,8 +1,14 @@
 """PAMNet and PAMNet_s on the RNA, QM9 and PDBbind branches (reference:
 models.py:21-353; JAX counterpart ``pamnet_tpu/models/pamnet.py:116-397``).
 
-The batch carries host-f64 distances and spherical-basis tables
-(``data/batch.py``); the trainable Bessel basis is evaluated here.  Where
+A host-geometry batch carries host-f64 distances and spherical-basis tables
+(``data/batch.py``); a derive batch carries positions and integer tables
+only, and ``derive_geometry`` computes the same fields in f32 on the device
+before anything reads them, so every later route (the folded kernel B path
+included) stays as it is.  With ``cfg.device_graph`` the forward first
+rebuilds the graph from the positions on the device
+(``models/device_graph.py``).  The trainable Bessel basis is evaluated
+here.  Where
 ``sbf_modulate`` has kernels for ``(num_spherical, dim)`` (the RNA dim-16
 model), the model-level sbf MLP folds through the triplet gather, in scoring
 and in training: the radial table is projected once per edge and the folded
@@ -18,18 +24,71 @@ one model-level sbf MLP (``mlp_sbf``) and ``mlp_m_jj`` local layers.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 from torch import nn
 from torch.nn import functional as F
 
 from pamnet_tpu_torch.config import PAMNetConfig, embeds_atom_types
 from pamnet_tpu_torch.data.batch import GraphBatch
+from pamnet_tpu_torch.models.device_graph import rebuild_structure
 from pamnet_tpu_torch.models.layers import FoldedSBF, GlobalMP, LocalMP
 from pamnet_tpu_torch.nn import Linear, init_, mlp
-from pamnet_tpu_torch.ops.basis import BesselRBF
+from pamnet_tpu_torch.ops.basis import BesselRBF, legendre_cbf, spherical_basis_edge_rbf
 from pamnet_tpu_torch.ops.gather import row_gather, row_gather_plain
 from pamnet_tpu_torch.ops.sbf_modulate import KERNEL_SHAPES
 from pamnet_tpu_torch.ops.segment import segment_mean, segment_sum
+
+
+def _safe_edge_dist(pos, src, dst, mask, cutoff: float) -> torch.Tensor:
+    """Edge lengths, padded edges at 2 * cutoff so every basis channel is
+    exactly zero there (``pamnet_tpu/models/pamnet.py:77``); the padded
+    rows' zero lengths never reach the square root, whose gradient at 0
+    would be NaN."""
+    v = torch.index_select(pos, 0, dst) - torch.index_select(pos, 0, src)
+    real = mask > 0
+    return torch.where(real, torch.sqrt(torch.where(real, (v * v).sum(-1), 1.0)), 2.0 * cutoff)
+
+
+def _angle(pos, a, b, c, mask) -> torch.Tensor:
+    """The angle between v1 = pos[b] - pos[a] and v2 = pos[c] - pos[b] as
+    atan2(|v1 x v2|, v1 . v2) (reference: models.py:164-177), with a
+    zero-safe norm and, at padded rows, dot = 1 (atan2(0, 0) has NaN
+    gradients; ``pamnet_tpu/models/pamnet.py:84``)."""
+    pb = torch.index_select(pos, 0, b)
+    v1 = pb - torch.index_select(pos, 0, a)
+    v2 = torch.index_select(pos, 0, c) - pb
+    dot = (v1 * v2).sum(-1)
+    cross = torch.linalg.cross(v1, v2, dim=-1)
+    sq = (cross * cross).sum(-1)
+    nrm = torch.where(sq > 0, torch.sqrt(torch.where(sq > 0, sq, 1.0)), 0.0)
+    return torch.atan2(nrm, torch.where(mask > 0, dot, 1.0))
+
+
+def derive_geometry(g: GraphBatch, cfg: PAMNetConfig) -> GraphBatch:
+    """``g`` with the geometry it does not carry computed from ``g.pos`` in
+    its dtype: the distances (padded edges at 2 * cutoff), the radial table
+    ``sbf_radial`` = ``spherical_basis_edge_rbf`` of the local distances,
+    flattened to (El, ns*nr), and ``cbf2``/``cbf1`` = ``legendre_cbf`` of the
+    triplets' angles (PAMNet_s: no ``cbf2``).  The fields JAX's derive
+    forward computes in the step (``pamnet_tpu/models/pamnet.py:138-143,
+    256-266``), laid out as the host's.  Geometry only: no parameter."""
+    if g.dist_g is not None and g.sbf_radial is not None:
+        return g
+    rep = {}
+    if g.dist_g is None:
+        rep["dist_g"] = _safe_edge_dist(g.pos, g.eg_src, g.eg_dst, g.eg_mask, cfg.cutoff_g)
+        rep["dist_l"] = _safe_edge_dist(g.pos, g.el_src, g.el_dst, g.el_mask, cfg.cutoff_l)
+    if g.sbf_radial is None:
+        ns, nr = cfg.num_spherical, cfg.num_radial
+        dist_l = torch.where(g.el_mask > 0, rep.get("dist_l", g.dist_l), 2.0 * cfg.cutoff_l)
+        rep["sbf_radial"] = spherical_basis_edge_rbf(
+            dist_l, ns, nr, cfg.cutoff_l, cfg.envelope_exponent).reshape(-1, ns * nr)
+        rep["cbf1"] = legendre_cbf(_angle(g.pos, g.t1_i, g.t1_j1, g.t1_j2, g.t1_mask), ns)
+        rep["cbf2"] = (legendre_cbf(_angle(g.pos, g.t2_i, g.t2_j, g.t2_k, g.t2_mask), ns)
+                       if cfg.variant == "full" else None)
+    return dataclasses.replace(g, **rep)
 
 
 class PAMNet(nn.Module):
@@ -117,6 +176,9 @@ class PAMNet(nn.Module):
         runs the plain versions of the kernels, on any device."""
         cfg = self.cfg
         kind = cfg.dataset_kind
+        if cfg.device_graph:
+            g = rebuild_structure(g, cfg)
+        g = derive_geometry(g, cfg)
         if not embeds_atom_types(kind):
             x = self.init_linear(g.feat)
         elif plain:

@@ -783,3 +783,98 @@ def test_gated_sum_function_on_the_card(cuda, d):
     again = run(False)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
+
+
+def _count_syncs(fn) -> int:
+    """Host syncs of one call of ``fn``: the operations that
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports as synchronizing."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
+
+
+def _geometry_batches(cuda, kind, n, build_perms=True):
+    """(host batch, derive batch) of the same small molecules on the card."""
+    if kind == "qm9":
+        mols, cl, cg = synthetic_qm9_dataset(n, seed=5), 5.0, 5.0
+    else:
+        mols, cl, cg = synthetic_rna_dataset(n, seed=5, n_atoms=300), 2.6, 20.0
+    return [next(iter(GraphLoader(mols, kind, cl, cg, n, build_perms=build_perms,
+                                  wire_geometry=g))).to(cuda) for g in ("host", "derive")]
+
+
+@pytest.mark.parametrize("kind,dim", [("qm9", 32), ("rna", 16)])
+def test_derive_forward_and_gradients_kernels_vs_plain(cuda, kind, dim):
+    """A derive batch on the card: the kernels' route against the plain
+    route (predictions within 5e-5 + 1e-4 |want|, each gradient within
+    1e-4 * max|g| + 1e-6) and against the host-geometry batch (5e-5 +
+    1e-4 |want|); RNA at dim 16 folds through kernel B on the card's radial
+    table."""
+    host, derive = _geometry_batches(cuda, kind, 4)
+    kw = (dict(dataset="QM9", dim=dim, n_layer=2) if kind == "qm9" else
+          dict(dataset="rna", dim=dim, n_layer=1, cutoff_l=2.6, cutoff_g=20.0,
+               flow="target_to_source"))
+    model = PAMNet(PAMNetConfig(**kw)).to(cuda)
+    assert model.fold_sbf() == (dim == 16)
+    loss_kind = "l1" if kind == "qm9" else "smooth_l1"
+    grads, preds = [], []
+    for plain in (False, True):
+        model.zero_grad()
+        batch_loss(model, derive, loss_kind, plain=plain).backward()
+        grads.append({n: p.grad.clone() for n, p in model.named_parameters()
+                      if p.grad is not None})
+        with torch.no_grad():
+            preds.append(model(derive, plain=plain))
+    with torch.no_grad():
+        want_host = model(host)
+        assert _count_syncs(lambda: model(derive)) == 0  # the basis' constants stay on the card
+    torch.testing.assert_close(preds[0], preds[1], atol=5e-5, rtol=1e-4)
+    torch.testing.assert_close(preds[0], want_host, atol=5e-5, rtol=1e-4)
+    for name, want in grads[1].items():
+        err = float((grads[0][name] - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max()) + 1e-6, name
+
+
+@pytest.mark.parametrize("kind", ["qm9", "rna"])
+def test_device_graph_on_the_card(cuda, kind):
+    """The graph rebuilt on the card equals the host batch field by field
+    (CSRs and the backward's permutations included) with one host sync;
+    the device_graph forward holds its plain route and the host forward
+    within 2e-5 + 2e-4 |want|."""
+    import dataclasses
+
+    from pamnet_tpu_torch.data.batch import GEOMETRY_FIELDS
+    from pamnet_tpu_torch.models.device_graph import rebuild_structure
+
+    host, derive = _geometry_batches(cuda, kind, 3)
+    kw = (dict(dataset="QM9", dim=32, n_layer=2) if kind == "qm9" else
+          dict(dataset="rna", dim=16, n_layer=1, cutoff_l=2.6, cutoff_g=20.0,
+               flow="target_to_source"))
+    cfg = PAMNetConfig(**kw, device_graph=True)
+    rebuilt = rebuild_structure(derive, cfg)  # loads each kernel's module at its first launch
+    assert _count_syncs(lambda: rebuild_structure(derive, cfg)) == 1
+    for f in dataclasses.fields(host):
+        a, b = getattr(host, f.name), getattr(rebuilt, f.name)
+        if f.name in GEOMETRY_FIELDS:
+            continue
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a, b), f.name
+        elif f.name == "perms":
+            assert all(torch.equal(a[k], b[k]) for k in a)
+        else:
+            assert a == b, f.name
+    model = PAMNet(cfg).to(cuda)
+    plain_host = PAMNet(PAMNetConfig(**kw)).to(cuda)
+    plain_host.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        got = model(derive)
+        torch.testing.assert_close(got, model(derive, plain=True), atol=2e-5, rtol=2e-4)
+        torch.testing.assert_close(got, plain_host(host), atol=2e-5, rtol=2e-4)
