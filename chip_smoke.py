@@ -117,9 +117,34 @@ Phases, each printing one JSON line:
      in 12 (predictions and loss within 2e-5 + 2e-4 of the host step's); a
      PDBbind forward on the smoke batch against its host forward and its
      plain route; ``main_qm9 --device_graph`` in-process for one epoch;
- 14. kernels: one line listing every kernel with its numbers (the role
+ 14. bf16_kernels: every kernel with a bfloat16 version (kernel A's sums,
+     the fused role swap, the gated backward, the edge messages, the summed
+     global message and its backward, the group sums' walk, the row gather
+     of the radial table at D=42 and of 16-byte rows) against its plain
+     bfloat16 version, which computes in f32 and rounds once, within one
+     bfloat16 ulp (2^-7 |want| + 1e-5 max|want|), at the QM9 recipe's batch
+     and, for the summed global message and its backward, the PDBbind
+     batch's arrays; bounds count 2 bytes a value;
+ 15. qm9_bf16_train: the QM9 recipe in bfloat16 (``compute_dtype``): the
+     gradients through the kernels against the plain bfloat16 route (per
+     tensor 2e-2 * max|g_plain| + 1e-6, or twice the tensor's distance
+     between the bfloat16 and float32 plain routes), loss and predictions
+     against the plain route (1e-2) and the float32 step (3e-2), a repeated
+     step bitwise, ten steps whose loss falls, the same launches of every
+     port kernel as the float32 step, an epoch (the main path), and ms per
+     step, device ms, idle share, launches and peak memory beside the
+     float32 step's;
+ 16. pdbbind_bf16_train: the same at the PDBbind README recipe, but for
+     the gradients and predictions, which the signed pool's cancellation
+     leaves to rounding noise in bfloat16 on either route: the kernels'
+     whole gradient within 2e-2 of the float32 route's norm or twice the
+     plain bfloat16 route's distance from it, their predictions within
+     3e-2 * max|pred_f32| or twice that route's (per-tensor ratios
+     reported);
+ 17. kernels: one line listing every kernel with its numbers (the role
      swap alone and gather_product are off the main paths since the fused
-     role swap: 0 launches, asserted).
+     role swap: 0 launches, asserted; they and the split group sum and
+     kernel B have no bfloat16 version).
 With ``--profile`` each phase also lists its device time by kernel and, for
 the scoring forward and a QM9, an RNA, a PDBbind and a PAMNet_s training
 step, every kernel launch
@@ -263,6 +288,25 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+BF16_RULE = "one bf16 ulp: |got - want| <= 2^-7 |want| + 1e-5 max|want|"
+
+
+def bf16_tolerance(wants) -> tuple[float, float]:
+    """(atol, rtol) of one bfloat16 ulp against the plain bfloat16 version
+    (which computes in f32 and rounds once): the two f32 results differ by
+    their sums' order, so their roundings differ by at most one ulp, 2^-7
+    of the value, with 1e-5 of the largest value for sums that cancel."""
+    return 1e-5 * max(float(w.double().abs().max()) for w in wants), 2.0 ** -7
+
+
+def _stream(dtype):
+    """(dtype, bytes a value) of a case's rows: float32 unless given."""
+    import torch
+
+    dtype = dtype or torch.float32
+    return dtype, (2 if dtype == torch.bfloat16 else 4)
 
 
 def kernel_a_case(name, num_out, rows, d, gather, modulate, gen):
@@ -465,12 +509,17 @@ def _timed_case(name, fn, plain_fn, lib_fn, got, want, atol, rtol, nbytes, flops
                 **extra) -> dict:
     """Compare ``got`` with ``want`` (tensors or tuples of them), then time
     the kernel (before and after the others, to show its spread), its plain
-    version and the library call, and compute the bound."""
+    version and the library call, and compute the bound.  ``atol`` None:
+    one bfloat16 ulp (``bf16_tolerance``)."""
     import torch
 
     torch.cuda.synchronize()
     pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
-    errs = [compare(name, g, w, atol=atol, rtol=rtol) for g, w in pairs if g is not None]
+    pairs = [(g, w) for g, w in pairs if g is not None]
+    if atol is None:
+        atol, rtol = bf16_tolerance([w for _, w in pairs])
+        extra["tolerance_rule"] = BF16_RULE
+    errs = [compare(name, g, w, atol=atol, rtol=rtol) for g, w in pairs]
     err = max(errs, key=lambda e: e["max_abs_err"])
     ms_first = time_ms(fn)
     plain = time_ms(plain_fn)
@@ -535,58 +584,68 @@ def gather_product_case(gb, kind: str, d: int, gen) -> dict:
         valid * d, rows=idx.shape[0], valid=valid, d=d)
 
 
-def fused_role_swap_case(gb, kind: str, d: int, gen) -> dict:
+def fused_role_swap_case(gb, kind: str, d: int, gen, dtype=None) -> dict:
     """Kernel A's role swap with the gathered triplet sum's d_b in one walk
     (``triplet_aggregate_grad_ab``) over the training batch's CSR of t2_kj /
     t1_jj, b zero on the padded rows as the model masks it: d_a bitwise
     the role swap alone's and d_b bitwise ``gather_product``'s on the same
     arrays, against the plain version.  Timed alike beside it: the role
     swap alone (``alone_*``) and the role swap + ``gather_product``
-    (``pair_*``), what the backward launched before the fusion.  No one
-    PyTorch call computes it."""
+    (``pair_*``), what the backward launched before the fusion.  In
+    bfloat16 (``dtype``; those two take float32 only) against the plain
+    version within one ulp, the padded rows zero.  No one PyTorch call
+    computes it."""
     import torch
 
     from pamnet_tpu_torch.ops.triplet import (gather_product, triplet_aggregate_grad_a,
                                               triplet_aggregate_grad_ab,
                                               triplet_aggregate_grad_ab_plain)
 
+    dtype, es = _stream(dtype)
     key = "t2_kj" if kind == "t2" else "t1_jj"
     by_idx, idx, seg = gb.groups(key), getattr(gb, key), getattr(gb, kind + "_ji")
     seg_by_idx = gb.perms["t2_ji_by_kj" if kind == "t2" else "t1_ji_by_jj"]
     valid, e, rows = gb.valid[kind], gb.el_src.shape[0], idx.shape[0]
     r = lambda *s: torch.randn(*s, device="cuda", generator=gen)  # noqa: E731
     g, a, b = r(e, d), r(e, d), r(rows, d) * getattr(gb, kind + "_mask")[:, None]
+    g, a, b = g.to(dtype), a.to(dtype), b.to(dtype)
     args = (g, by_idx, seg_by_idx, b, a)
     fn = lambda: triplet_aggregate_grad_ab(*args)  # noqa: E731
     alone = lambda: triplet_aggregate_grad_a(*args[:4])  # noqa: E731
     pair = lambda: (alone(), gather_product(a, idx, g, seg, valid))  # noqa: E731
-    got, want = fn(), pair()
-    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-        raise AssertionError(f"fused role swap at {kind}: not the bits of the role swap "
-                             f"and gather_product")
+    got = fn()
+    f32 = dtype == torch.float32
+    if f32:
+        want = pair()
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"fused role swap at {kind}: not the bits of the role swap "
+                                 f"and gather_product")
     if not torch.equal(got[1][valid:], torch.zeros_like(got[1][valid:])):
         raise AssertionError(f"fused role swap at {kind}: padded d_b rows not zero")
     # The role swap's bytes (the used g rows, b's valid rows, the two keys a
     # row, the offsets, d_a), the non-empty groups' a rows, every d_b row
     # and the tail's perm entries.
-    nbytes = (_unique(seg, valid) * d * 4 + valid * d * 4 + valid * 8 + (e + 1) * 4
-              + e * d * 4 + _unique(idx, valid) * d * 4 + rows * d * 4 + (rows - valid) * 4)
+    nbytes = (_unique(seg, valid) * d * es + valid * d * es + valid * 8 + (e + 1) * 4
+              + e * d * es + _unique(idx, valid) * d * es + rows * d * es + (rows - valid) * 4)
     res = _timed_case(
         f"d_a and d_b by the fused role swap over the {key} CSR", fn,
         lambda: triplet_aggregate_grad_ab_plain(*args), None, got,
-        triplet_aggregate_grad_ab_plain(*args), 1e-4, 1e-5, nbytes, 3 * valid * d,
-        rows=rows, valid=valid, d=d, bitwise_vs_pair=True)
-    res.update(alone_ms=time_ms(alone), alone_device_ms=device_ms(alone),
-               pair_ms=time_ms(pair), pair_device_ms=device_ms(pair))
+        triplet_aggregate_grad_ab_plain(*args), 1e-4 if f32 else None, 1e-5, nbytes,
+        3 * valid * d, rows=rows, valid=valid, d=d, dtype=str(dtype)[6:],
+        bitwise_vs_pair=f32)
+    if f32:
+        res.update(alone_ms=time_ms(alone), alone_device_ms=device_ms(alone),
+                   pair_ms=time_ms(pair), pair_device_ms=device_ms(pair))
     return res
 
 
-def gated_backward_case(gb, d: int, gen) -> dict:
+def gated_backward_case(gb, d: int, gen, dtype=None) -> dict:
     """The backward of the local layer's gated el_dst sum,
     ``gated_sum_backward``, on batch ``gb``'s own el_dst index and valid
     count with random rows: both gradients in one launch against the plain
-    version within 1e-4 * max|g_plain| + 1e-6, rows past the valid count
-    zero.  Timed alike beside it (``rows_mul_*``): what the backward
+    version within 1e-4 * max|g_plain| + 1e-6 (bfloat16 ``dtype``: one ulp),
+    rows past the valid count zero.  Timed alike beside it in float32
+    (``rows_mul_*``): what the backward
     launched before, on the same arrays: the node gradient gathered by
     el_dst (``row_gather`` with the valid count), times the edge mask, then
     times each operand.  ``device_ms`` and ``rows_mul_device_ms`` are read
@@ -600,10 +659,11 @@ def gated_backward_case(gb, d: int, gen) -> dict:
     from pamnet_tpu_torch.ops.gather import row_gather
     from pamnet_tpu_torch.ops.triplet import gated_sum_backward, gated_sum_backward_plain
 
+    dtype, es = _stream(dtype)
     seg, valid, mask = gb.el_dst, gb.valid["el"], gb.el_mask
     rows, nodes = seg.shape[0], gb.z.shape[0]
     r = lambda *s: torch.randn(*s, device="cuda", generator=gen)  # noqa: E731
-    a, b, g = r(rows, d), r(rows, d), r(nodes, d)
+    a, b, g = r(rows, d).to(dtype), r(rows, d).to(dtype), r(nodes, d).to(dtype)
     fn = lambda: gated_sum_backward(a, b, g, seg, valid)  # noqa: E731
 
     def rows_mul():
@@ -613,36 +673,41 @@ def gated_backward_case(gb, d: int, gen) -> dict:
     got, want = fn(), gated_sum_backward_plain(a, b, g, seg, valid)
     if any(not torch.equal(t[valid:], torch.zeros_like(t[valid:])) for t in got):
         raise AssertionError("gated_sum_backward: rows past the valid count not zero")
-    atol = 1e-4 * max(float(w.abs().max()) for w in want) + 1e-6
+    f32 = dtype == torch.float32
+    atol = 1e-4 * max(float(w.abs().max()) for w in want) + 1e-6 if f32 else None
     res = _timed_case(
         "gated el_dst sum backward", fn, lambda: gated_sum_backward_plain(a, b, g, seg, valid),
         None, got, want, atol, 0.0,
-        2 * valid * d * 4 + valid * 4 + _unique(seg, valid) * d * 4 + 2 * rows * d * 4,
-        2 * valid * d, rows=rows, valid=valid, nodes=nodes, d=d,
-        tolerance_rule="1e-4 * max|g_plain| + 1e-6")
-    res.update(warm_device_ms=res["device_ms"], device_ms=cold_device_ms(fn),
-               rows_mul_ms=time_ms(rows_mul), rows_mul_warm_device_ms=device_ms(rows_mul),
-               rows_mul_device_ms=cold_device_ms(rows_mul),
-               rows_mul_max_abs_err=max(float((x - y).abs().max())
-                                        for x, y in zip(rows_mul(), got)))
+        2 * valid * d * es + valid * 4 + _unique(seg, valid) * d * es + 2 * rows * d * es,
+        2 * valid * d, rows=rows, valid=valid, nodes=nodes, d=d, dtype=str(dtype)[6:],
+        **({"tolerance_rule": "1e-4 * max|g_plain| + 1e-6"} if f32 else {}))
+    res.update(warm_device_ms=res["device_ms"], device_ms=cold_device_ms(fn))
+    if f32:
+        res.update(rows_mul_ms=time_ms(rows_mul), rows_mul_warm_device_ms=device_ms(rows_mul),
+                   rows_mul_device_ms=cold_device_ms(rows_mul),
+                   rows_mul_max_abs_err=max(float((x - y).abs().max())
+                                            for x, y in zip(rows_mul(), got)))
     return res
 
 
 def edge_backward_case(gb, which: str, d: int, gen, flow: str = "source_to_target",
-                       summed: bool = False) -> dict:
+                       summed: bool = False, dtype=None) -> dict:
     """The edge message's backward (d_pre, d_gate) for the global message
     (gate, mask; ``flow`` picks which endpoint is ``i``, as the global layer
     does) or a local one (m_kj: gate; m_ji: none).  ``summed``: the backward
     of the global message summed by node, the (N, D) gradient read at each
-    row's ``i`` and rows past the valid count zero (the global layer's)."""
+    row's ``i`` and rows past the valid count zero (the global layer's).
+    In bfloat16 (``dtype``, the mask too) within one ulp of the plain
+    version."""
     import torch
 
     from pamnet_tpu_torch.ops.gather import edge_message_backward, edge_message_backward_plain
 
-    r = lambda *s: torch.randn(*s, device="cuda", generator=gen)  # noqa: E731
+    dtype, es = _stream(dtype)
+    r = lambda *s: torch.randn(*s, device="cuda", generator=gen).to(dtype)  # noqa: E731
     nodes = gb.z.shape[0]
     if which == "global":
-        i, j, mask, valid = gb.eg_dst, gb.eg_src, gb.eg_mask, gb.valid["eg"]
+        i, j, mask, valid = gb.eg_dst, gb.eg_src, gb.eg_mask.to(dtype), gb.valid["eg"]
         if flow == "target_to_source":
             i, j = j, i
     else:
@@ -652,20 +717,21 @@ def edge_backward_case(gb, which: str, d: int, gen, flow: str = "source_to_targe
     args = (r(nodes, d), r(nodes, d), i, j, r(rows, d), r(rows, d) if gated else None,
             mask, r(nodes if summed else rows, d))
     kw = dict(at_i=True, valid=valid) if summed else {}
-    g_bytes = _unique(i, valid) * d * 4 if summed else rows * d * 4
-    nbytes = ((_unique(i, rows) + _unique(j, rows)) * d * 4 + rows * 8
-              + rows * d * 4 * (1 + gated) + g_bytes + (rows * 4 if mask is not None else 0)
-              + rows * d * 4 * (1 + gated))
+    g_bytes = _unique(i, valid) * d * es if summed else rows * d * es
+    nbytes = ((_unique(i, rows) + _unique(j, rows)) * d * es + rows * 8
+              + rows * d * es * (1 + gated) + g_bytes + (rows * es if mask is not None else 0)
+              + rows * d * es * (1 + gated))
     # Per element: the pre-activation (2 adds), sigmoid (exp, add, divide),
     # silu' (4), silu (1), the mask and the gate products.
     flops = rows * d * (10 + int(mask is not None) + 2 * int(gated))
+    f32 = dtype == torch.float32
     return _timed_case(
         f"edge message backward, {which}{', summed' if summed else ''}",
         lambda: edge_message_backward(*args, **kw),
         lambda: edge_message_backward_plain(*args, **kw), None,
         edge_message_backward(*args, **kw), edge_message_backward_plain(*args, **kw),
-        1e-6, 1e-5, nbytes, flops, nodes=nodes, rows=rows, valid=valid, d=d, gated=gated,
-        masked=mask is not None, summed=summed)
+        1e-6 if f32 else None, 1e-5, nbytes, flops, nodes=nodes, rows=rows, valid=valid, d=d,
+        gated=gated, masked=mask is not None, summed=summed, dtype=str(dtype)[6:])
 
 
 def batch_sum_case(gb, key: str, name: str, d: int, gen) -> dict:
@@ -695,19 +761,20 @@ def batch_sum_case(gb, key: str, name: str, d: int, gen) -> dict:
         walk_shape=walk_shape(d, num, valid), bitwise_repeat=True)
 
 
-def batch_gathered_sum_case(gb, kind: str, d: int, gen) -> dict:
+def batch_gathered_sum_case(gb, kind: str, d: int, gen, dtype=None) -> dict:
     """Kernel A as a training step's forward calls it on batch ``gb``'s own
     arrays, random rows: the unfolded triplet sum of ``kind`` ("t2" or
     "t1"; its center edges' CSR, the neighbour edge ``idx`` gathered, ``b``
     the masked modulation) or the gated el_dst sum ("el_dst": the edges'
     CSR by el_dst, ``b`` the rbf gate, no gather); against its plain
-    version; ``library_ms`` times index_add_ of the product computed
-    beforehand."""
+    version (bfloat16 ``dtype``: within one ulp); ``library_ms`` times
+    index_add_ of the product computed beforehand."""
     import torch
 
     from pamnet_tpu_torch.ops.triplet import (triplet_aggregate, triplet_aggregate_plain,
                                               walk_shape)
 
+    dtype, es = _stream(dtype)
     r = lambda *s: torch.randn(*s, device="cuda", generator=gen)  # noqa: E731
     if kind == "el_dst":
         groups, ids, idx = gb.groups("el_dst"), gb.el_dst, None
@@ -720,41 +787,47 @@ def batch_gathered_sum_case(gb, kind: str, d: int, gen) -> dict:
         a = r(gb.el_src.shape[0], d)
         b = r(ids.shape[0], d) * getattr(gb, kind + "_mask")[:, None]
         name = f"{kind} gathered and modulated sum (unfolded path)"
+    a, b = a.to(dtype), b.to(dtype)
     off, valid, num = groups.off, groups.total, groups.off.shape[0] - 1
     fn = lambda: triplet_aggregate(a, off, idx, b, total=valid)  # noqa: E731
     if not torch.equal(fn(), fn()):
         raise AssertionError(f"kernel A's {name} is not bitwise repeatable")
     vals = (a[idx[:valid].long()] if idx is not None else a[:valid]) * b[:valid]
-    ids_long, acc = ids[:valid].long(), torch.zeros(num, d, device="cuda")
+    ids_long, acc = ids[:valid].long(), torch.zeros(num, d, device="cuda", dtype=dtype)
     a_read = _unique(idx, valid) if idx is not None else valid
-    nbytes = (a_read * d * 4 + valid * d * 4 + (valid * 4 if idx is not None else 0)
-              + (num + 1) * 4 + num * d * 4)
+    nbytes = (a_read * d * es + valid * d * es + (valid * 4 if idx is not None else 0)
+              + (num + 1) * 4 + num * d * es)
     return _timed_case(
         name, fn, lambda: triplet_aggregate_plain(a, off, idx, b),
         lambda: acc.index_add_(0, ids_long, vals), fn(),
-        triplet_aggregate_plain(a, off, idx, b), 1e-4, 1e-5, nbytes, 2 * valid * d,
+        triplet_aggregate_plain(a, off, idx, b), 1e-4 if dtype == torch.float32 else None,
+        1e-5, nbytes, 2 * valid * d,
         num_out=num, rows=ids.shape[0], valid=valid, longest_group=groups.longest, d=d,
-        walk_shape=walk_shape(d, num, valid), bitwise_repeat=True)
+        walk_shape=walk_shape(d, num, valid, dtype), bitwise_repeat=True, dtype=str(dtype)[6:])
 
 
-def batch_edge_message_case(gb, which: str, d: int, gen) -> dict:
+def batch_edge_message_case(gb, which: str, d: int, gen, dtype=None) -> dict:
     """A local edge message (rows, no sum) on batch ``gb``'s own el_dst /
     el_src arrays with random node projections, base and (``m_kj``) gate,
-    against its plain version; no one PyTorch call computes it."""
+    against its plain version (bfloat16 ``dtype``: within one ulp); no one
+    PyTorch call computes it."""
     import torch
 
     from pamnet_tpu_torch.ops.gather import edge_message, edge_message_plain
 
-    r = lambda *s: torch.randn(*s, device="cuda", generator=gen)  # noqa: E731
+    dtype, es = _stream(dtype)
+    r = lambda *s: torch.randn(*s, device="cuda", generator=gen).to(dtype)  # noqa: E731
     i, j, nodes = gb.el_dst, gb.el_src, gb.z.shape[0]
     rows, gated = i.shape[0], which == "local m_kj"
     args = (r(nodes, d), r(nodes, d), i, j, r(rows, d), r(rows, d) if gated else None, None)
-    nbytes = ((_unique(i, rows) + _unique(j, rows)) * d * 4 + rows * 8
-              + rows * d * 4 * (3 if gated else 2))
+    nbytes = ((_unique(i, rows) + _unique(j, rows)) * d * es + rows * 8
+              + rows * d * es * (3 if gated else 2))
     return _timed_case(
         f"{which}, batch", lambda: edge_message(*args), lambda: edge_message_plain(*args),
-        None, edge_message(*args), edge_message_plain(*args), 1e-6, 1e-5, nbytes,
-        rows * d * (6 + int(gated)), nodes=nodes, rows=rows, d=d, gated=gated)
+        None, edge_message(*args), edge_message_plain(*args),
+        1e-6 if dtype == torch.float32 else None, 1e-5, nbytes,
+        rows * d * (6 + int(gated)), nodes=nodes, rows=rows, d=d, gated=gated,
+        dtype=str(dtype)[6:])
 
 
 def walk_shape_trial(name: str, fn, d: int, num_out: int, total: int) -> dict:
@@ -816,97 +889,108 @@ def walk_trials(gb, d: int, gen, keys: tuple, message_flow: str | None) -> list[
     return out
 
 
-def message_sum_case(gb, name: str, d: int, gen, flow: str) -> dict:
+def message_sum_case(gb, name: str, d: int, gen, flow: str, dtype=None) -> dict:
     """The global message summed by the node it goes to
     (``edge_message(..., out_groups=)``) on batch ``gb``'s own arrays: its
     sorted CSR of ``i`` (``flow`` picks the endpoint, as the global layer
     does), ``j`` and edge mask, with random node projections, base and gate;
     against its plain version (the rows, then kernel A's plain sum) within
-    atol 1e-4 + rtol 1e-5, two calls bitwise equal.  Timed alike beside it:
-    ``rows_sum_*``, the same arrays through the rows kernel and kernel A's
-    sum (the global layer's forward without the fold).  No one PyTorch call
-    computes it."""
+    atol 1e-4 + rtol 1e-5 (bfloat16 ``dtype``: one ulp of the plain
+    version's f32 sum, rounded once), two calls bitwise equal.  Timed alike
+    beside it in float32: ``rows_sum_*``, the same arrays through the rows
+    kernel and kernel A's sum (the global layer's forward without the
+    fold).  No one PyTorch call computes it."""
     import torch
 
     from pamnet_tpu_torch.ops.gather import edge_message, edge_message_plain
     from pamnet_tpu_torch.ops.triplet import triplet_aggregate, walk_shape
 
+    dtype, es = _stream(dtype)
+    f32 = dtype == torch.float32
     i_key, j_key = (("eg_dst", "eg_src") if flow == "source_to_target"
                     else ("eg_src", "eg_dst"))
     groups = gb.groups(i_key)
     if groups is None or groups.perm is not None:
         raise AssertionError(f"the batch's global edges are not sorted by {i_key}")
-    i, j, mask = getattr(gb, i_key), getattr(gb, j_key), gb.eg_mask
+    i, j, mask = getattr(gb, i_key), getattr(gb, j_key), gb.eg_mask.to(dtype)
     nodes, rows, valid = gb.z.shape[0], i.shape[0], groups.total
-    r = lambda *s: torch.randn(*s, device="cuda", generator=gen)  # noqa: E731
+    r = lambda *s: torch.randn(*s, device="cuda", generator=gen).to(dtype)  # noqa: E731
     args = (r(nodes, d), r(nodes, d), i, j, r(rows, d), r(rows, d), mask)
     fn = lambda: edge_message(*args, out_groups=groups)  # noqa: E731
     rows_sum = lambda: triplet_aggregate(edge_message(*args), groups.off, total=valid)  # noqa: E731
     got = fn()
     if not torch.equal(got, fn()):
         raise AssertionError(f"edge_message_sum[{name}] is not bitwise repeatable")
-    rows_sum_err = compare(f"rows + sum[{name}]", rows_sum(), got, atol=1e-4, rtol=1e-5)
+    if f32:
+        rows_sum_err = compare(f"rows + sum[{name}]", rows_sum(), got, atol=1e-4, rtol=1e-5)
     # Each input read once: per valid row j, the mask and the base and gate
     # rows; the j rows of xj and the non-empty groups' rows of xi; the
     # offsets; the (N, D) output written once.
     filled = int((groups.off[1:] > groups.off[:-1]).sum())
-    nbytes = (valid * (8 + 2 * d * 4) + (_unique(j, valid) + filled) * d * 4
-              + (nodes + 1) * 4 + nodes * d * 4)
+    nbytes = (valid * (4 + es + 2 * d * es) + (_unique(j, valid) + filled) * d * es
+              + (nodes + 1) * 4 + nodes * d * es)
     # Per element of a row: two adds, silu (4), gate and mask, the sum.
     flops = valid * d * 9
     res = _timed_case(name, fn, lambda: edge_message_plain(*args, out_off=groups.off), None,
-                      got, edge_message_plain(*args, out_off=groups.off), 1e-4, 1e-5, nbytes,
+                      got, edge_message_plain(*args, out_off=groups.off),
+                      1e-4 if f32 else None, 1e-5, nbytes,
                       flops, nodes=nodes, rows=rows, valid=valid, longest_group=groups.longest,
-                      d=d, walk_shape=walk_shape(d, nodes, valid), bitwise_repeat=True)
-    res.update(rows_sum_ms=time_ms(rows_sum), rows_sum_device_ms=device_ms(rows_sum),
-               rows_sum_max_abs_err=rows_sum_err["max_abs_err"])
+                      d=d, walk_shape=walk_shape(d, nodes, valid, dtype), bitwise_repeat=True,
+                      dtype=str(dtype)[6:])
+    if f32:
+        res.update(rows_sum_ms=time_ms(rows_sum), rows_sum_device_ms=device_ms(rows_sum),
+                   rows_sum_max_abs_err=rows_sum_err["max_abs_err"])
     return res
 
 
-def group_sum_case(gb, key: str, d: int, gen) -> dict:
+def group_sum_case(gb, key: str, d: int, gen, dtype=None) -> dict:
     """A row gather's backward, sum of row gradients by the index ``key``,
     over the batch's CSR of it, by the kernel ``group_sum`` routes it to
     (``route``); ``library_ms`` times index_add_.  Held to atol + 1e-5 |want|
     per element, atol = 1e-4 for groups of up to 512 rows and growing with
     the longest group beyond that: an f32 running sum's rounding grows with
-    its length, and the two versions add in different orders.  Two calls
-    must be bitwise equal."""
+    its length, and the two versions add in different orders (bfloat16
+    ``dtype``: one ulp of the plain version's f32 sum, rounded once).  Two
+    calls must be bitwise equal."""
     import torch
 
     from pamnet_tpu_torch.ops.triplet import group_sum, group_sum_plain, group_sum_route
 
+    dtype, es = _stream(dtype)
     groups, ids = gb.groups(key), getattr(gb, key)
     valid, num = groups.total, groups.off.shape[0] - 1
     longest = int((groups.off[1:] - groups.off[:-1]).max())
     if groups.longest != longest:
         raise AssertionError(f"the batch's longest group of {key}: {groups.longest}, "
                              f"its offsets say {longest}")
-    x = torch.randn(ids.shape[0], d, device="cuda", generator=gen)
+    x = torch.randn(ids.shape[0], d, device="cuda", generator=gen).to(dtype)
     if not torch.equal(group_sum(x, groups), group_sum(x, groups)):
         raise AssertionError(f"group_sum by {key} is not bitwise repeatable")
-    atol = 1e-4 * max(1.0, longest / 512)
-    ids_long, xs, acc = ids[:valid].long(), x[:valid], torch.zeros(num, d, device="cuda")
-    nbytes = (valid * d * 4 + (valid * 4 if groups.perm is not None else 0)
-              + (num + 1) * 4 + num * d * 4)
+    atol = 1e-4 * max(1.0, longest / 512) if dtype == torch.float32 else None
+    ids_long, xs = ids[:valid].long(), x[:valid]
+    acc = torch.zeros(num, d, device="cuda", dtype=dtype)
+    nbytes = (valid * d * es + (valid * 4 if groups.perm is not None else 0)
+              + (num + 1) * 4 + num * d * es)
     return _timed_case(
         f"sum by {key} ({'permuted' if groups.perm is not None else 'sorted'} CSR)",
         lambda: group_sum(x, groups), lambda: group_sum_plain(x, groups),
         lambda: acc.index_add_(0, ids_long, xs), group_sum(x, groups),
         group_sum_plain(x, groups), atol, 1e-5, nbytes, valid * d, groups=num,
         longest_group=longest, route=group_sum_route(groups), bitwise_repeat=True,
-        rows=ids.shape[0], valid=valid, d=d)
+        rows=ids.shape[0], valid=valid, d=d, dtype=str(dtype)[6:])
 
 
-def row_gather_batch_case(gb, key: str, d: int, gen) -> dict:
+def row_gather_batch_case(gb, key: str, d: int, gen, dtype=None) -> dict:
     """The row gather by the batch's index ``key``: the embedding lookup
     (``z``, every row) or the backward of a plain sum by ``key`` (the sum's
     output gradient gathered back to its rows; rows past the batch's valid
-    count are written as zeros).  ``library_ms`` times ``torch.index_select``
-    of the valid rows."""
+    count are written as zeros), of ``dtype`` rows (a copy: exact).
+    ``library_ms`` times ``torch.index_select`` of the valid rows."""
     import torch
 
     from pamnet_tpu_torch.ops.gather import row_gather, row_gather_plain
 
+    dtype, es = _stream(dtype)
     idx = getattr(gb, key)
     rows = idx.shape[0]
     if key == "z":
@@ -914,35 +998,37 @@ def row_gather_batch_case(gb, key: str, d: int, gen) -> dict:
     else:
         table_rows = getattr(gb, key + "_off").shape[0] - 1
         valid = gb.valid["eg" if key[:2] == "eg" else key[:2]]
-    src = torch.randn(table_rows, d, device="cuda", generator=gen)
+    src = torch.randn(table_rows, d, device="cuda", generator=gen).to(dtype)
     used = rows if valid is None else valid
     idx_long = idx[:used].long()
-    nbytes = _unique(idx, used) * d * 4 + used * 4 + rows * d * 4
+    nbytes = _unique(idx, used) * d * es + used * 4 + rows * d * es
     return _timed_case(
         f"rows by {key}" + ("" if valid is None else " (valid count)"),
         lambda: row_gather(src, idx, valid=valid), lambda: row_gather_plain(src, idx, valid),
         lambda: torch.index_select(src, 0, idx_long), row_gather(src, idx, valid=valid),
         row_gather_plain(src, idx, valid), 0.0, 0.0, nbytes, 0.0, table_rows=table_rows,
-        rows=rows, valid=used, d=d)
+        rows=rows, valid=used, d=d, dtype=str(dtype)[6:])
 
 
-def radial_gather_case(gb, kind: str) -> dict:
+def radial_gather_case(gb, kind: str, dtype=None) -> dict:
     """The unfolded path's gather of the batch's radial table (``sbf_radial``,
-    D=42) by ``t2_kj`` / ``t1_jj``, every row as the model gathers it: exact
-    against the plain version; ``library_ms`` times ``torch.index_select``."""
+    D=42, cast to ``dtype`` first as the model does) by ``t2_kj`` /
+    ``t1_jj``, every row as the model gathers it: exact against the plain
+    version; ``library_ms`` times ``torch.index_select``."""
     import torch
 
     from pamnet_tpu_torch.ops.gather import row_gather, row_gather_plain
 
-    src, idx = gb.sbf_radial, gb.t2_kj if kind == "t2" else gb.t1_jj
+    dtype, es = _stream(dtype)
+    src, idx = gb.sbf_radial.to(dtype), gb.t2_kj if kind == "t2" else gb.t1_jj
     rows, d = idx.shape[0], src.shape[1]
     idx_long = idx.long()
-    nbytes = _unique(idx, rows) * d * 4 + rows * 4 + rows * d * 4
+    nbytes = _unique(idx, rows) * d * es + rows * 4 + rows * d * es
     return _timed_case(
         f"radial table at {kind} (unfolded path)", lambda: row_gather(src, idx),
         lambda: row_gather_plain(src, idx), lambda: torch.index_select(src, 0, idx_long),
         row_gather(src, idx), row_gather_plain(src, idx), 0.0, 0.0, nbytes, 0.0,
-        table_rows=src.shape[0], rows=rows, d=d)
+        table_rows=src.shape[0], rows=rows, d=d, dtype=str(dtype)[6:])
 
 
 def sbf_backward_bytes(ns: int, d: int, edges: int, valid: int, edges_read: int,
@@ -1321,23 +1407,29 @@ def main() -> int:
     emit({"phase": "service", "requests": http})
 
     # ---- 5-6. QM9 training: backward kernels and the training path ----
-    bwd_cases, train_launches = train_phase(args, gen, reset_counts, read_counts, emit)
+    bwd_cases, train_launches, qm9_data = train_phase(args, gen, reset_counts, read_counts,
+                                                      emit)
 
     # ---- 7-8. RNA training: the kernels at its shapes and the folded training path ----
     rna_cases, rna_launches = rna_train_phase(
         args, rna_mols[:args.rna_structures], gen, reset_counts, read_counts, emit)
 
     # ---- 9-10. PDBbind training: the kernels at its shapes and its training path ----
-    pdb_cases, pdb_launches = pdbbind_phase(args, gen, reset_counts, read_counts, emit)
+    pdb_cases, pdb_launches, pdbbind_data = pdbbind_phase(args, gen, reset_counts, read_counts,
+                                                          emit)
 
     # ---- 11. PAMNet_s training at the QM9 recipe ----
-    _, s_launches = train_phase(args, gen, reset_counts, read_counts, emit, variant="s")
+    _, s_launches, _ = train_phase(args, gen, reset_counts, read_counts, emit, variant="s")
 
     # ---- 12-13. geometry derived on the card, and the graph rebuilt there ----
     derive_launches = derive_phase(args, rna_mols, reset_counts, read_counts, emit)
     graph_launches = device_graph_phase(args, reset_counts, read_counts, emit)
 
-    # ---- 12. every kernel of the paths, with its numbers ----
+    # ---- 14-16. bfloat16: its kernels, QM9 and PDBbind training ----
+    bf16_cases, qm9_bf16_launches, pdb_bf16_launches = bf16_phase(
+        args, gen, qm9_data, pdbbind_data, reset_counts, read_counts, emit)
+
+    # ---- 17. every kernel of the paths, with its numbers ----
     # Each kernel's top-level numbers are those of one main-path case: the
     # folded t2 triplet sum (kernel A's, on random data), kernel B's t2 sum
     # by center edge on the scoring batch, the global message, its sum by
@@ -1349,9 +1441,12 @@ def main() -> int:
     # at t2 and dim 16 (RNA batch-8 training shapes).  "rna_train" holds the same
     # numbers of the kernel's first case at the RNA training shapes (null for
     # the kernels that path does not run), "pdbbind" those at the PDBbind
-    # training shapes.  Launches add the serving, the QM9, RNA, PDBbind and
-    # PAMNet_s training main paths; group_sum counts its calls, of either
-    # kernel, and group_sum_split the split kernel's.
+    # training shapes, "bf16" those of its first bfloat16 case (null for the
+    # kernels without a bfloat16 version).  Launches add the serving, the
+    # QM9, RNA, PDBbind and PAMNet_s training main paths, the derive and
+    # device_graph steps and the QM9 and PDBbind bfloat16 training paths;
+    # group_sum counts its calls, of either kernel, and group_sum_split the
+    # split kernel's.
     table = [
         ("triplet_aggregate", "triplet_aggregate.cu", "pamnet_tpu/ops/pallas_triplet.py:47",
          a_cases + walk_batch, a_cases[0]),
@@ -1386,7 +1481,8 @@ def main() -> int:
                "library_device_ms", "enqueue_ms")
     by_path = {"serve": launches, "train": train_launches, "rna_train": rna_launches,
                "pdbbind_train": pdb_launches, "qm9_s_train": s_launches,
-               "derive_train": derive_launches, "device_graph_train": graph_launches}
+               "derive_train": derive_launches, "device_graph_train": graph_launches,
+               "qm9_bf16_train": qm9_bf16_launches, "pdbbind_bf16_train": pdb_bf16_launches}
 
     def first_case(path_cases, name):
         if name not in path_cases:
@@ -1401,9 +1497,10 @@ def main() -> int:
          "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
          "max_abs_err": max(c["max_abs_err"] for c in
                             cases + bwd_cases.get(name, []) + rna_cases.get(name, [])
-                            + pdb_cases.get(name, [])),
+                            + pdb_cases.get(name, []) + bf16_cases.get(name, [])),
          **{k: rep[k] for k in numbers}, "timed_case": rep["case"],
-         "rna_train": first_case(rna_cases, name), "pdbbind": first_case(pdb_cases, name)}
+         "rna_train": first_case(rna_cases, name), "pdbbind": first_case(pdb_cases, name),
+         "bf16": first_case(bf16_cases, name)}
         for name, src, replaces, cases, rep in table
     ]
     # The role swap alone and gather_product are routes for one gradient
@@ -1457,13 +1554,13 @@ def port_kernel_launches(prof, calls: int) -> list[dict]:
 
 
 def train_phase(args, gen, reset_counts, read_counts, emit_line,
-                variant: str = "full") -> tuple[dict, dict]:
+                variant: str = "full") -> tuple[dict, dict, tuple]:
     """QM9 training at the recipe (dim 128, 6 layers, batch 32, L1, Adam +
     clip 1000 + EMA 0.999, warmup-exponential).  ``variant="full"``: phases 5
     and 6, the backward kernel cases at the QM9 pads and PAMNet's training;
     ``variant="s"``: phase 11, PAMNet_s's training, the one-hop stream alone.
     Returns (kernel cases by kernel, none for PAMNet_s; launches of the
-    training main path)."""
+    training main path; its loader and resident batch)."""
     import torch
 
     from pamnet_tpu_torch import main_qm9
@@ -1576,7 +1673,7 @@ def train_phase(args, gen, reset_counts, read_counts, emit_line,
         raise AssertionError(f"main_qm9 {' '.join(model_flag)} output: {text}")
     emit_line({"phase": "main_qm9" if variant == "full" else "main_qm9_pamnet_s",
                "seconds": main_s, "lines": [ln for ln in text.splitlines() if "MAE" in ln]})
-    return cases, launches
+    return cases, launches, (loader, gb)
 
 
 def _parameter_grads(model, loss_fn) -> dict:
@@ -1798,21 +1895,7 @@ def _step_checks(model, opt, ema, gb, kind: str) -> dict:
     check["loss"], check["plain_loss"] = losses
     compare("step loss vs plain", torch.tensor(losses[:1]), torch.tensor(losses[1:]),
             atol=1e-5, rtol=1e-4)
-    params = list(model.parameters())
-    snap = ([p.detach().clone() for p in params], opt.state_dict(),
-            None if ema is None else {k: v.clone() for k, v in ema.items()})
-    runs = []
-    for _ in range(2):
-        with torch.no_grad():
-            torch._foreach_copy_(params, snap[0])
-        opt.load_state_dict(snap[1])
-        if ema is not None:
-            torch._foreach_copy_(list(ema.values()), list(snap[2].values()))
-        loss = train_step(model, opt, ema, gb, kind)
-        runs.append([loss] + [p.detach().clone() for p in params]
-                    + ([] if ema is None else [v.clone() for v in ema.values()]))
-    if not all(torch.equal(a, b) for a, b in zip(*runs)):
-        raise AssertionError("a repeated step is not bitwise equal")
+    _repeat_step_bitwise(model, opt, ema, gb, kind)
     return check
 
 
@@ -1922,11 +2005,12 @@ def _profile_step(step, name: str, step_ms: float, emit_line) -> None:
                    for k, v in py_rows]})
 
 
-def pdbbind_phase(args, gen, reset_counts, read_counts, emit_line) -> tuple[dict, dict]:
+def pdbbind_phase(args, gen, reset_counts, read_counts,
+                  emit_line) -> tuple[dict, dict, tuple]:
     """Phases 9 and 10: every wrapper a PDBbind training step launches, on a
     batch of 32 realistic complexes (D=128), and PDBbind training at the
     README recipe.  Returns (kernel cases by kernel, launches of the PDBbind
-    training main path)."""
+    training main path, its loader, resident batch and complexes)."""
     import torch
 
     from pamnet_tpu_torch import main_pdbbind
@@ -1979,19 +2063,7 @@ def pdbbind_phase(args, gen, reset_counts, read_counts, emit_line) -> tuple[dict
     model = PAMNet(cfg, torch.Generator().manual_seed(args.seed)).to("cuda")
     opt = Optimizer(model.parameters(), multistep(1e-3, steps_per_epoch=len(loader)))
     checks = _step_checks(model, opt, None, gb, kind)
-    # Unfolded at dim 128: per layer kernel A's t2 and t1 sums and the gated
-    # el_dst sum, the global message summed by node, the two local messages
-    # (``edge_message`` counts the summed call too);
-    # the radial table gathered at t2 and t1 once; no embedding gather (the
-    # features go through init_linear), no kernel B.  Backward: the fused
-    # role swap 2 a layer, the gated backward 1, no row gather, and no split
-    # group sum (no CSR of z; the global CSR's longest group is short).
-    want_fwd = {"triplet_aggregate": 3 * n_layer, "edge_message_sum": n_layer,
-                "edge_message": 3 * n_layer, "row_gather": 2, "sbf_modulate": 0}
-    want_bwd = {"triplet_aggregate_grad_ab": 2 * n_layer, "gated_sum_backward": n_layer,
-                "row_gather": 0, "group_sum_split": 0, "gather_product": 0,
-                "triplet_aggregate_grad_a": 0, "sbf_modulate_backward": 0,
-                "group_sum": None, "edge_message_backward": None}
+    want_fwd, want_bwd = _pdbbind_want(n_layer)
     fwd, bwd = _step_launches(model, gb, kind, reset_counts, read_counts, want_fwd, want_bwd,
                               "PDBbind")
     launches, epoch = _epoch(model, opt, None, loader, kind, reset_counts, read_counts,
@@ -2023,7 +2095,7 @@ def pdbbind_phase(args, gen, reset_counts, read_counts, emit_line) -> tuple[dict
     emit_line({"phase": "main_pdbbind", "seconds": time.perf_counter() - t0,
                "lines": [ln for ln in text.splitlines() if "RMSE" in ln or "Testing" in ln
                          or "Data loaded" in ln], "test": list(res["test"])})
-    return cases, launches
+    return cases, launches, (loader, gb, mols)
 
 
 @contextlib.contextmanager
@@ -2468,6 +2540,448 @@ def device_graph_phase(args, reset_counts, read_counts, emit_line) -> dict:
                                     "lines": [ln for ln in text.splitlines() if "MAE" in ln]}
     emit_line(res)
     return launches
+
+
+def _repeat_step_bitwise(model, opt, ema, gb, kind: str) -> None:
+    """One step from the same state twice: the loss, the parameters and the
+    EMA bitwise equal; the state is put back after."""
+    import torch
+
+    from pamnet_tpu_torch.train.loop import train_step
+
+    params = list(model.parameters())
+    snap = ([p.detach().clone() for p in params], opt.state_dict(),
+            None if ema is None else {k: v.clone() for k, v in ema.items()})
+    runs = []
+    for _ in range(2):
+        with torch.no_grad():
+            torch._foreach_copy_(params, snap[0])
+        opt.load_state_dict(snap[1])
+        if ema is not None:
+            torch._foreach_copy_(list(ema.values()), list(snap[2].values()))
+        loss = train_step(model, opt, ema, gb, kind)
+        runs.append([loss] + [p.detach().clone() for p in params]
+                    + ([] if ema is None else [v.clone() for v in ema.values()]))
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        raise AssertionError("a repeated step is not bitwise equal")
+    with torch.no_grad():
+        torch._foreach_copy_(params, snap[0])
+    opt.load_state_dict(snap[1])
+    if ema is not None:
+        torch._foreach_copy_(list(ema.values()), list(snap[2].values()))
+
+
+def _pdbbind_want(n_layer: int) -> tuple[dict, dict]:
+    """Launches of a PDBbind step (None: at least one).  Unfolded at dim
+    128: per layer kernel A's t2 and t1 sums and the gated el_dst sum, the
+    global message summed by node, the two local messages (``edge_message``
+    counts the summed call too); the radial table gathered at t2 and t1
+    once; no embedding gather (the features go through init_linear), no
+    kernel B.  Backward: the fused role swap 2 a layer, the gated backward
+    1, no row gather, and no split group sum (no CSR of z; the global CSR's
+    longest group is short)."""
+    return ({"triplet_aggregate": 3 * n_layer, "edge_message_sum": n_layer,
+             "edge_message": 3 * n_layer, "row_gather": 2, "sbf_modulate": 0},
+            {"triplet_aggregate_grad_ab": 2 * n_layer, "gated_sum_backward": n_layer,
+             "row_gather": 0, "group_sum_split": 0, "gather_product": 0,
+             "triplet_aggregate_grad_a": 0, "sbf_modulate_backward": 0,
+             "group_sum": None, "edge_message_backward": None})
+
+
+def _pool_terms(model, gb, plain: bool = False):
+    """((G, 2) float32, (G,) predictions): each graph's sum of the fused
+    per-node energies over the atoms its pool adds (column 0) and over those
+    it subtracts (column 1: PDBbind's pocket and ligand copies, x > 40 A; none
+    elsewhere), fused from the layers' heads (read by forward hooks) as
+    ``PAMNet.forward`` fuses them.  PDBbind's prediction is the difference of
+    two near-equal sums; each column is a sum without that cancellation.
+    Raises where column 0 - column 1 is not the model's prediction."""
+    import torch
+    from torch.nn import functional as F
+
+    heads = []
+    hooks = [m.register_forward_hook(lambda _m, _i, out: heads.append(out[1:]))
+             for pair in zip(model.global_layer, model.local_layer) for m in pair]
+    try:
+        pred = model(gb, plain=plain)
+    finally:
+        for h in hooks:
+            h.remove()
+    pairs = list(zip(heads[::2], heads[1::2]))  # (global, local) of each layer
+    outs = torch.stack([torch.cat([hg[0], hl[0]], 1) for hg, hl in pairs]).float()
+    att = torch.softmax(F.leaky_relu(
+        torch.stack([torch.cat([hg[1], hl[1]], 1) for hg, hl in pairs]).float(), 0.2), dim=-1)
+    node = (outs * att).sum(-1).sum(0) * gb.node_mask
+    minus = gb.pos[:, 0] > 40.0
+    if model.cfg.dataset_kind != "pdbbind":
+        minus = torch.zeros_like(minus)
+    cols = torch.stack([torch.where(minus, 0.0, node), torch.where(minus, node, 0.0)], 1)
+    terms = cols.new_zeros((pred.shape[0], 2)).index_add_(0, gb.node_graph.long(), cols)
+    terms = terms * gb.graph_mask[:, None]
+    if not bool(((terms[:, 0] - terms[:, 1] - pred).abs()
+                 <= 1e-5 * float(terms.abs().max()) + 1e-6).all()):
+        raise AssertionError("the pool's terms do not add up to the predictions")
+    return terms, pred
+
+
+def _moved_positions(gb, seed: int):
+    """``gb`` with every position moved by up to 4 float32 ulps (seeded) and
+    its geometry left to the step to derive from them: a float32 step moves
+    by its rounding (~1e-7 relative), a bfloat16 one by its rounding noise."""
+    import torch
+
+    gen = torch.Generator(device=gb.pos.device).manual_seed(seed)
+    ulps = torch.randint(-4, 5, gb.pos.shape, generator=gen, device=gb.pos.device)
+    return dataclasses.replace(gb, pos=gb.pos * (1.0 + ulps * 2.0 ** -23), dist_g=None,
+                               dist_l=None, sbf_radial=None, cbf1=None, cbf2=None)
+
+
+def _plain_swaps(model16, gb, kind: str, grads: tuple, names: list[str]) -> dict:
+    """The kernel route with one family of kernels at a time replaced by its
+    plain version (``triplet_aggregate``: kernel A's sums, its fused role swap
+    and gated backward; ``edge_message``: the messages, their sums by node and
+    their backward with its group sums; ``row_gather``: the radial table's and
+    the embedding's gathers), against ``grads`` = (kernel route, plain
+    bfloat16 route, plain float32 route) on the batch, and the plain bfloat16
+    route run again (its ``index_add_`` sums in no fixed order): max|difference|
+    per tensor of ``names``."""
+    import pamnet_tpu_torch.models.layers as layers
+    import pamnet_tpu_torch.models.pamnet as pamnet
+    from pamnet_tpu_torch.ops.gather import edge_message_plain, row_gather_plain
+    from pamnet_tpu_torch.ops.triplet import triplet_aggregate_plain
+    from pamnet_tpu_torch.train.loop import batch_loss
+
+    g16, p16, p32 = grads
+
+    def diff(a, b):
+        return {n: float((a[n] - b[n]).abs().max()) for n in names}
+
+    plain = {
+        "triplet_aggregate": [(layers, lambda a, off, idx=None, b=None, total=None, grad=None:
+                               triplet_aggregate_plain(a, off, idx, b))],
+        "edge_message": [(layers, lambda *a, i_groups=None, j_groups=None, out_groups=None:
+                          edge_message_plain(*a, None if out_groups is None
+                                             else out_groups.off))],
+        "row_gather": [(m, lambda src, idx, groups=None, valid=None:
+                        row_gather_plain(src, idx, valid)) for m in (layers, pamnet)],
+    }
+    swaps = {}
+    for name, where in plain.items():
+        kept = [getattr(m, name) for m, _ in where]
+        for m, fn in where:
+            setattr(m, name, fn)
+        try:
+            g = _parameter_grads(model16, lambda: batch_loss(model16, gb, kind))
+        finally:
+            for (m, _), fn in zip(where, kept):
+                setattr(m, name, fn)
+        swaps[name] = {"vs_kernel_route": diff(g, g16), "vs_plain": diff(g, p16),
+                       "vs_f32": diff(g, p32)}
+    again = _parameter_grads(model16, lambda: batch_loss(model16, gb, kind, plain=True))
+    return {"tensors": names, "swaps": swaps, "plain_route_again_vs_plain": diff(again, p16)}
+
+
+def _route_grads(model16, model32, batch, kind: str) -> tuple[dict, dict, dict]:
+    """(kernel route, plain bfloat16 route, plain float32 route) parameter
+    gradients of the loss on ``batch``."""
+    from pamnet_tpu_torch.train.loop import batch_loss
+
+    return (_parameter_grads(model16, lambda: batch_loss(model16, batch, kind)),
+            _parameter_grads(model16, lambda: batch_loss(model16, batch, kind, plain=True)),
+            _parameter_grads(model32, lambda: batch_loss(model32, batch, kind, plain=True)))
+
+
+def _tensor_ratios(g16: dict, p16: dict, p32: dict) -> dict:
+    """Per tensor, max|g16 - p16| over its limit: 2e-2 * max|p16| + 1e-6 or
+    twice max|p16 - p32|, whichever is larger."""
+    return {n: float((g16[n] - w).abs().max())
+            / max(2e-2 * float(w.abs().max()) + 1e-6, 2 * float((w - p32[n]).abs().max()))
+            for n, w in p16.items()}
+
+
+def _relative_distance(a: dict, b: dict) -> float:
+    """|a - b| over every tensor as one vector, relative to |b|."""
+    num = sum(float(((a[n] - v).double() ** 2).sum()) for n, v in b.items())
+    return math.sqrt(num / sum(float((v.double() ** 2).sum()) for v in b.values()))
+
+
+def _gradient_rule(model16, model32, batch, kind: str, what: str) -> dict:
+    """The bfloat16 kernel route's parameter gradients against the plain
+    bfloat16 route's on ``batch``, per tensor within 2e-2 * max|g_plain| +
+    1e-6 or twice the tensor's distance between the plain bfloat16 and
+    float32 routes (``_tensor_ratios``); raises beyond it."""
+    g16, p16, p32 = _route_grads(model16, model32, batch, kind)
+    ratios = _tensor_ratios(g16, p16, p32)
+    worst = max(ratios, key=ratios.get)
+    res = {"tensors": len(ratios), "worst": worst, "worst_err_over_tolerance": ratios[worst],
+           "worst_five": dict(sorted(ratios.items(), key=lambda kv: -kv[1])[:5]),
+           "heads_biases": {n: r for n, r in ratios.items() if n.endswith("W_out.bias")},
+           "tolerance": "per tensor 2e-2 * max|g_plain_bf16| + 1e-6, or twice the tensor's "
+                        "distance between the bf16 and f32 plain routes",
+           "whole_gradient_relative_distance": {
+               "kernel_vs_plain": _relative_distance(g16, p16),
+               "kernel_vs_f32": _relative_distance(g16, p32),
+               "plain_vs_f32": _relative_distance(p16, p32)}}
+    if not ratios[worst] <= 1.0:
+        raise AssertionError(f"{what}: {worst} at {ratios[worst]} of the tolerance: {res}")
+    return res
+
+
+def _signed_batch_gradients(model16, model32, gb, kind: str, what: str) -> dict:
+    """PDBbind's signed batch, whose pool subtracts copies of the same atoms:
+    the kernel route's whole gradient (every tensor as one vector) within
+    2e-2 of the plain bfloat16 route's, or twice that route's distance from
+    the float32 route; raises beyond it.  Reported beside it: the per-tensor
+    ratios of ``_tensor_ratios`` and, for the worst five and the heads'
+    biases, what rounding alone moves (``_moved_positions``: the batch with
+    its positions moved by a few ulps, and ``_plain_swaps``)."""
+    runs = [_route_grads(model16, model32, b, kind)
+            for b in (gb, _moved_positions(gb, 1), _moved_positions(gb, 2))]
+    g16, p16, p32 = runs[0]
+    ratios = _tensor_ratios(g16, p16, p32)
+    worst_five = dict(sorted(ratios.items(), key=lambda kv: -kv[1])[:5])
+    shown = list(worst_five) + [n for n in ratios
+                                if n.endswith("W_out.bias") and n not in worst_five]
+
+    def diff(a, b):
+        return {n: float((a[n] - b[n]).abs().max()) for n in shown}
+
+    vector = {"kernel_vs_plain": _relative_distance(g16, p16),
+              "kernel_vs_f32": _relative_distance(g16, p32),
+              "plain_vs_f32": _relative_distance(p16, p32)}
+    res = {"whole_gradient_relative_distance": vector,
+           "tolerance": "kernel_vs_plain <= max(2e-2, twice plain_vs_f32)",
+           "per_tensor_worst_five": worst_five,
+           "per_tensor_heads_biases": {n: ratios[n] for n in shown
+                                       if n.endswith("W_out.bias")},
+           "distances": [{"kernel_vs_plain": diff(a, b), "plain_vs_f32": diff(b, c),
+                          "kernel_vs_batch": diff(a, g16), "plain_vs_batch": diff(b, p16),
+                          "f32_vs_batch": diff(c, p32)} for a, b, c in runs],
+           "plain_swaps": _plain_swaps(model16, gb, kind, runs[0], shown)}
+    if not vector["kernel_vs_plain"] <= max(2e-2, 2 * vector["plain_vs_f32"]):
+        raise AssertionError(f"{what}: the signed batch's gradient: {res}")
+    return res
+
+
+def _bf16_step(what: str, kind: str, model32, model16, opt16, ema16, make_opt, gb, loader,
+               want: tuple[dict, dict], reset_counts, read_counts,
+               grad_batch=None) -> tuple[dict, dict]:
+    """The checks and numbers of the bfloat16 step of ``model16`` (the
+    weights of ``model32``, a float32 model of the same recipe): its
+    parameter gradients through the kernels against PyTorch's autograd of
+    the plain route in bfloat16, per tensor (``_gradient_rule``) on
+    ``grad_batch``, by default ``gb``; PDBbind passes the same complexes with
+    their three copies as graphs of their own, where the pool cancels
+    nothing, and ``gb``'s own gradient is checked as a whole
+    (``_signed_batch_gradients``); its loss within 1e-2 of the plain
+    route's; the pool's terms (``_pool_terms``: the predictions, and for
+    PDBbind each of the two sums its signed pool subtracts) within 1e-2 *
+    max of the plain route's and 3e-2 * max of the float32 step's; a
+    repeated step bitwise; ten steps on the batch with a finite loss that
+    falls; the launches of every port kernel in a step equal to the float32
+    step's; an epoch (the main path); and beside the float32 step's, in
+    turns: ms per step, enqueue ms, device ms, idle share, every kernel
+    launch and peak memory.  Returns (its numbers, the epoch's launches)."""
+    import torch
+
+    from pamnet_tpu_torch.train.loop import batch_loss, train_step
+
+    model16.load_state_dict(model32.state_dict())
+    grad_check = _gradient_rule(model16, model32, grad_batch or gb, kind, what)
+    if grad_batch is not None:
+        grad_check["signed_batch"] = _signed_batch_gradients(model16, model32, gb, kind, what)
+    with torch.no_grad():
+        (terms, pred), (terms_plain, _), (terms32, _) = (
+            _pool_terms(model16, gb), _pool_terms(model16, gb, plain=True),
+            _pool_terms(model32, gb))
+        losses = [float(batch_loss(model16, gb, kind, plain=p)) for p in (False, True)]
+    if pred.dtype != torch.float32:
+        raise AssertionError(f"{what}: predictions in {pred.dtype}")
+    terms_check = {"kernel_vs_plain": float((terms - terms_plain).abs().max()),
+                   "kernel_vs_f32": float((terms - terms32).abs().max()),
+                   "plain_vs_f32": float((terms_plain - terms32).abs().max()),
+                   "max_plain": float(terms_plain.abs().max()),
+                   "max_f32": float(terms32.abs().max()),
+                   "signed_predictions_kernel_vs_f32": float(
+                       (terms[:, 0] - terms[:, 1] - terms32[:, 0] + terms32[:, 1]).abs().max()),
+                   "signed_predictions_max_f32": float((terms32[:, 0] - terms32[:, 1]).abs().max())}
+    if not (terms_check["kernel_vs_plain"] <= 1e-2 * terms_check["max_plain"]
+            and terms_check["kernel_vs_f32"] <= 3e-2 * terms_check["max_f32"]):
+        raise AssertionError(f"{what}: the pool's terms {terms_check}")
+    if not abs(losses[0] - losses[1]) <= 1e-2 * max(abs(v) for v in losses):
+        raise AssertionError(f"{what}: loss {losses[0]} against the plain route's {losses[1]}")
+    _repeat_step_bitwise(model16, opt16, ema16, gb, kind)
+    start = {k: v.clone() for k, v in model16.state_dict().items()}
+    opt = make_opt(model16)
+    falls = [float(train_step(model16, opt, None, gb, kind)) for _ in range(10)]
+    model16.load_state_dict(start)
+    if not (all(math.isfinite(v) for v in falls) and falls[-1] < falls[0]):
+        raise AssertionError(f"{what}: ten steps' losses {falls}")
+    fwd, bwd = _step_launches(model16, gb, kind, reset_counts, read_counts, *want, what)
+    fwd32, bwd32 = _step_launches(model32, gb, kind, reset_counts, read_counts, *want,
+                                  what + " (f32)")
+    if (fwd, bwd) != (fwd32, bwd32):
+        raise AssertionError(f"{what}: launches {fwd}, {bwd} against the f32 step's "
+                             f"{fwd32}, {bwd32}")
+    launches, epoch = _epoch(model16, opt16, ema16, loader, kind, reset_counts, read_counts,
+                             *want, what)
+    model32.load_state_dict(model16.state_dict())
+    opt32 = make_opt(model32)
+    steps = {"bf16": lambda: train_step(model16, opt16, ema16, gb, kind),
+             "f32": lambda: train_step(model32, opt32, None, gb, kind)}
+    numbers = {}
+    for name in ("bf16", "f32", "bf16"):  # in turns; the second bf16 reading is kept
+        numbers[name] = {**_step_numbers(steps[name], gb.num_graphs),
+                         **_kernel_launches_per_step(steps[name])}
+    return {"gradient_check": grad_check, "loss": losses[0], "plain_loss": losses[1],
+            "cast_parameters": _cast_cost(model16), "pool_terms": terms_check,
+            "pool_terms_tolerance": "1e-2 * max of the plain route's, 3e-2 * max of the f32 "
+                                    "step's",
+            "bitwise_repeat": True, "ten_step_losses": falls,
+            "launches_per_step_forward": fwd, "launches_per_step_backward": bwd,
+            "launches_equal_f32_step": True, **epoch, "main_path_launches": launches,
+            **numbers["bf16"], "f32_step": numbers["f32"]}, launches
+
+
+def _cast_cost(model) -> dict:
+    """The batched parameter cast of a bfloat16 step on its own
+    (``nn.cast_parameters`` over the parameters the stack reads, which a
+    bfloat16 forward of ``model`` has listed: the flat buffer's cat, cast and
+    views, the views' lookups at their uses, and the backward's cast of the
+    gradients back): host enqueue ms, event-timed ms and device ms of one
+    forward and backward, beside a cast of each parameter on its own."""
+    import torch
+
+    from pamnet_tpu_torch.nn import as_dtype, cast_parameters
+
+    params = model._stack_params
+    grads = [torch.ones_like(p, dtype=torch.bfloat16) for p in params]
+
+    def cast():
+        with cast_parameters(params, torch.bfloat16):
+            casts = [as_dtype(p, torch.bfloat16) for p in params]
+        torch.autograd.backward(casts, grads)
+
+    def per_use():  # a cast of each parameter and its backward, for comparison
+        torch.autograd.backward([p.to(torch.bfloat16) for p in params], grads)
+
+    res = {"tensors": len(params)}
+    for name, fn in (("batched", cast), ("per_tensor", per_use)):
+        res[name] = {"enqueue_ms": enqueue_ms(fn, iters=20), "ms": time_ms(fn, iters=20),
+                     "device_ms": device_ms(fn, iters=5)}
+    model.zero_grad()
+    return res
+
+
+def _pdbbind_copies(mol: dict) -> list[dict]:
+    """A PDBbind graph's three subgraphs as graphs of their own, each where
+    the signed pool adds (x <= 40 A): the complex, the pocket shifted back by
+    100 A and the ligand by 200 A (exact: the shifts keep every difference of
+    positions, so every distance and angle, bit for bit)."""
+    x = mol["pos"][:, 0]
+    out = []
+    for sel, shift in ((x <= 40.0, 0.0), ((x > 40.0) & (x <= 140.0), 100.0),
+                       (x > 140.0, 200.0)):
+        pos = mol["pos"][sel].copy()
+        pos[:, 0] -= shift
+        out.append(dict(pos=pos, feat=mol["feat"][sel], y=mol["y"]))
+    return out
+
+
+def bf16_phase(args, gen, qm9_data: tuple, pdbbind_data: tuple, reset_counts, read_counts,
+               emit_line) -> tuple[dict, dict, dict]:
+    """Phases 14-16: bf16_kernels, every kernel with a bfloat16 version
+    against its plain bfloat16 version within one ulp (``bf16_tolerance``)
+    at the QM9 recipe's batch (D=128; the radial table at D=42) and at the
+    PDBbind batch, the resident batches of the float32 training phases
+    (``qm9_data``, ``pdbbind_data``: their loaders and batches, and the
+    PDBbind complexes, whose copies ``_bf16_step`` checks per tensor); then
+    qm9_bf16_train (the QM9 recipe in bfloat16: full PAMNet, dim 128, 6
+    layers, batch 32, L1, Adam + clip 1000 + EMA 0.999, warmup-exponential)
+    and pdbbind_bf16_train (the README recipe in bfloat16: dim 128, 3
+    layers, batch 32, MSE, Adam, multistep), each checked by ``_bf16_step``
+    beside its float32 step.  Returns (kernel cases by kernel, launches of
+    the QM9 and of the PDBbind bfloat16 main paths)."""
+    import torch
+
+    from pamnet_tpu_torch.config import PAMNetConfig
+    from pamnet_tpu_torch.data.loader import GraphLoader
+    from pamnet_tpu_torch.models.pamnet import PAMNet
+    from pamnet_tpu_torch.train.loop import Optimizer, train_step
+    from pamnet_tpu_torch.train.schedules import constant, multistep
+
+    bf16, d = torch.bfloat16, 128
+    (qloader, qgb), (ploader, pgb, pmols) = qm9_data, pdbbind_data
+    # The resident batch's complexes with their three copies as graphs of
+    # their own: the same atoms, edges and triplets, a pool without signs.
+    copies = [c for m in pmols[:32] for c in _pdbbind_copies(m)]
+    cgb = GraphLoader(copies, "pdbbind", 2.0, 6.0, len(copies), build_perms=True).collate(
+        list(range(len(copies)))).to("cuda")
+
+    # ---- 14. every bfloat16 kernel against its plain bfloat16 version ----
+    def on_both(make):
+        """``make(batch)``'s cases on the QM9 batch, then on the PDBbind one."""
+        return [dict(case, batch=name) for name, batch in (("QM9", qgb), ("PDBbind", pgb))
+                for case in make(batch)]
+
+    cases = {
+        "triplet_aggregate": on_both(lambda b: [batch_gathered_sum_case(b, k, d, gen, bf16)
+                                                for k in ("t2", "t1", "el_dst")]),
+        "triplet_aggregate_grad_ab": on_both(lambda b: [fused_role_swap_case(b, k, d, gen, bf16)
+                                                        for k in ("t2", "t1")]),
+        "gated_sum_backward": on_both(lambda b: [gated_backward_case(b, d, gen, bf16)]),
+        "edge_message": on_both(lambda b: [batch_edge_message_case(b, w, d, gen, bf16)
+                                           for w in ("local m_kj", "local m_ji")]),
+        "edge_message_sum": on_both(lambda b: [message_sum_case(
+            b, "global message summed", d, gen, "source_to_target", bf16)]),
+        "edge_message_backward": on_both(
+            lambda b: [edge_backward_case(b, "global", d, gen, summed=True, dtype=bf16)]
+            + [edge_backward_case(b, w, d, gen, dtype=bf16) for w in ("local m_kj",
+                                                                        "local m_ji")]),
+        "group_sum": on_both(lambda b: [group_sum_case(b, k, d, gen, bf16)
+                                        for k in ("el_src", "eg_src", "el_dst", "eg_dst")]),
+        "row_gather": on_both(lambda b: [radial_gather_case(b, k, bf16) for k in ("t2", "t1")]
+                              + [row_gather_batch_case(b, "el_dst", d, gen, bf16)]),
+    }
+    emit_line({"phase": "bf16_kernels", "qm9_pads": dataclasses.asdict(qloader.pads),
+               "pdbbind_pads": dataclasses.asdict(ploader.pads), "qm9_valid": qgb.valid,
+               "pdbbind_valid": pgb.valid, "tolerance": BF16_RULE, **cases})
+
+    # ---- 15. QM9 training at the recipe in bfloat16, beside float32 ----
+    launches = {}
+    recipe = dict(dataset="QM9", dim=d, n_layer=6, cutoff_l=5.0, cutoff_g=5.0)
+    model32, _, _, _ = _qm9_recipe(args, PAMNetConfig(**recipe), qloader)
+    model16, opt16, ema16, _ = _qm9_recipe(
+        args, PAMNetConfig(**recipe, compute_dtype="bfloat16"), qloader)
+    res, launches["qm9"] = _bf16_step(
+        "QM9 bf16", "l1", model32, model16, opt16, ema16,
+        lambda m: Optimizer(m.parameters(), constant(1e-3), clip_norm=1000.0), qgb, qloader,
+        QM9_WANT, reset_counts, read_counts)
+    emit_line({"phase": "qm9_bf16_train", "molecules": len(qloader.structs), "batch_size": 32,
+               "dim": d, "n_layer": 6, "compute_dtype": "bfloat16",
+               "resident_batch_valid": qgb.valid, **res})
+    if args.profile:
+        _profile_step(lambda: train_step(model16, opt16, ema16, qgb, "l1"),
+                      "profile_qm9_bf16_train", res["ms_per_step"], emit_line)
+
+    # ---- 16. PDBbind training at the README recipe in bfloat16 ----
+    n_layer = 3
+    recipe = dict(dataset="PDBbind", dim=d, n_layer=n_layer, cutoff_l=2.0, cutoff_g=6.0)
+    model32 = PAMNet(PAMNetConfig(**recipe), torch.Generator().manual_seed(args.seed)).to("cuda")
+    model16 = PAMNet(PAMNetConfig(**recipe, compute_dtype="bfloat16")).to("cuda")
+    opt16 = Optimizer(model16.parameters(), multistep(1e-3, steps_per_epoch=len(ploader)))
+    res, launches["pdbbind"] = _bf16_step(
+        "PDBbind bf16", "mse", model32, model16, opt16, None,
+        lambda m: Optimizer(m.parameters(), constant(1e-3)), pgb, ploader,
+        _pdbbind_want(n_layer), reset_counts, read_counts, grad_batch=cgb)
+    emit_line({"phase": "pdbbind_bf16_train", "complexes": len(ploader.structs),
+               "batch_size": 32, "dim": d, "n_layer": n_layer, "compute_dtype": "bfloat16",
+               "resident_batch_valid": pgb.valid, "longest": pgb.longest,
+               "copies_batch_valid": cgb.valid, **res})
+    if args.profile:
+        _profile_step(lambda: train_step(model16, opt16, None, pgb, "mse"),
+                      "profile_pdbbind_bf16_train", res["ms_per_step"], emit_line)
+    return cases, launches["qm9"], launches["pdbbind"]
 
 
 def _check_names(res: dict, names: list[str]) -> dict:

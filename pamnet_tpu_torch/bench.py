@@ -3,6 +3,7 @@
 baselines it prints in the same order):
 
     python -m pamnet_tpu_torch.bench [--device cpu] [--small] [--geometry host]
+                                     [--dtype float32]
 
   {"metric": "qm9_pamnet_d128_L6_train_throughput", "value": N,
    "unit": "molecules/sec/chip", "vs_baseline": N, "baseline": 450.0,
@@ -36,10 +37,13 @@ gives the seconds its structures took to build on the host
 
 Each value is the median over timed windows (the host's spread is wide);
 the windows, the device ms per step (the profiler's kernel time) and the
-dtype go to stderr.  The port computes in float32 with TF32 off, where the
-JAX QM9 line trains in bfloat16.  Every line names the device it ran on;
-``--device cpu`` (and ``--small``: dim 16, 1 layer, a few small structures)
-runs the same code on the CPU for the tests, with no device time.
+dtype go to stderr.  The QM9 step line, the epoch wall and the PDBbind line
+train in bfloat16 mixed precision and the RNA scoring line runs in float32,
+as the JAX bench's lines do (its ``PAMNET_BENCH_DTYPE``); ``--dtype float32``
+trains the three in float32 with TF32 off.  Every line names the device it ran on;
+``--device cpu`` (and ``--small``: training at dim 32, which no dtype folds,
+1 layer, a few small structures) runs the same code on the CPU for the
+tests, with no device time.
 """
 
 from __future__ import annotations
@@ -54,7 +58,7 @@ import time
 
 import torch
 
-from pamnet_tpu_torch.config import PAMNetConfig, resolve_device
+from pamnet_tpu_torch.config import PAMNetConfig, resolve_device, set_matmul_precision
 from pamnet_tpu_torch.profiling import device_ms, time_ms
 
 # The JAX bench's estimated reference-GPU throughputs (bench.py:38-49 there).
@@ -69,7 +73,8 @@ def log(msg: str) -> None:
 
 def line(metric: str, value: float, unit: str, baseline: float, device: torch.device,
          **extra) -> dict:
-    record = {"metric": metric, "value": round(value, 1), "unit": unit,
+    value = round(value, 1)  # the ratio of the value as printed
+    record = {"metric": metric, "value": value, "unit": unit,
               "vs_baseline": round(value / baseline, 2), "baseline": baseline,
               "baseline_estimated": True,
               "device": (torch.cuda.get_device_name(0) if device.type == "cuda" else "cpu"),
@@ -108,11 +113,12 @@ def train_windows(device: torch.device, model, opt, ema, batches, loss_kind: str
     return times, kernel_ms(step, device, len(batches))
 
 
-def report(name: str, times: list[float], device_ms: float | None, unit: str) -> None:
+def report(name: str, times: list[float], device_ms: float | None, unit: str,
+           dtype: str) -> None:
     log(f"{name}: ms per {unit} by window {[round(t, 3) for t in times]}, median "
         f"{statistics.median(times):.3f}; device ms per {unit} "
-        f"{'not measured' if device_ms is None else f'{device_ms:.3f}'}; float32, TF32 off"
-        f"{' (the JAX QM9 line trains in bfloat16)' if name == 'qm9' else ''}")
+        f"{'not measured' if device_ms is None else f'{device_ms:.3f}'}; {dtype}"
+        f"{', TF32 off' if dtype == 'float32' else ' mixed precision'}")
 
 
 def bench_qm9(args, device: torch.device) -> float:
@@ -124,7 +130,8 @@ def bench_qm9(args, device: torch.device) -> float:
     from pamnet_tpu_torch.train.schedules import warmup_exponential
 
     bs = 32
-    cfg = PAMNetConfig(dataset="QM9", dim=args.dim, n_layer=args.qm9_layers)
+    cfg = PAMNetConfig(dataset="QM9", dim=args.dim, n_layer=args.qm9_layers,
+                       compute_dtype=args.dtype)
     mols = synthetic_qm9_dataset(16 * bs if not args.small else 2 * bs, seed=480)
     t0 = time.perf_counter()
     loader = GraphLoader(mols, "qm9", cfg.cutoff_l, cfg.cutoff_g, bs, drop_last=True,
@@ -137,11 +144,12 @@ def bench_qm9(args, device: torch.device) -> float:
                     clip_norm=1000.0)
     times, dev = train_windows(device, model, opt, ema_init(model.state_dict()), batches,
                                "l1", args.windows, args.steps)
-    report("qm9", times, dev, "step")
+    report("qm9", times, dev, "step", cfg.compute_dtype)
     ms = statistics.median(times)
     line(f"qm9_pamnet_d{cfg.dim}_L{cfg.n_layer}_train_throughput", bs / ms * 1e3,
          "molecules/sec/chip", REFERENCE_GPU_MOL_PER_SEC, device, ms_per_step=round(ms, 3),
-         device_ms_per_step=dev, geometry="host", structure_build_s=round(build_s, 3))
+         device_ms_per_step=dev, geometry="host", compute_dtype=cfg.compute_dtype,
+         structure_build_s=round(build_s, 3))
     return bs / ms * 1e3
 
 
@@ -169,11 +177,12 @@ def bench_rna(args, device: torch.device) -> None:
         dev = kernel_ms(fwd, device, 3)
         if not bool(torch.isfinite(model(gb)).all()):
             raise AssertionError("non-finite scores")
-    report("rna", times, dev, "batch")
+    report("rna", times, dev, "batch", cfg.compute_dtype)
     ms = statistics.median(times)
     line("rna_scoring_throughput", len(mols) / ms * 1e3, "graphs/sec/chip",
          REFERENCE_GPU_RNA_GRAPHS_PER_SEC, device, ms_per_batch=round(ms, 3),
-         device_ms_per_batch=dev, geometry="host", structure_build_s=round(build_s, 3))
+         device_ms_per_batch=dev, geometry="host", compute_dtype=cfg.compute_dtype,
+         structure_build_s=round(build_s, 3))
 
 
 def bench_epoch(args, device: torch.device, device_step_mol_s: float | None) -> None:
@@ -189,7 +198,8 @@ def bench_epoch(args, device: torch.device, device_step_mol_s: float | None) -> 
     bs = 32
     n_train = 2 * bs if args.small else 4096
     n_val = max(n_train // 8, bs)
-    cfg = PAMNetConfig(dataset="QM9", dim=args.dim, n_layer=args.qm9_layers)
+    cfg = PAMNetConfig(dataset="QM9", dim=args.dim, n_layer=args.qm9_layers,
+                       compute_dtype=args.dtype)
     mols = synthetic_qm9_dataset(n_train + n_val, seed=481)
     t0 = time.perf_counter()
     common = dict(dataset_kind="qm9", cutoff_l=cfg.cutoff_l, cutoff_g=cfg.cutoff_g,
@@ -217,10 +227,11 @@ def bench_epoch(args, device: torch.device, device_step_mol_s: float | None) -> 
     runs = [epoch() for _ in range(args.epoch_windows)]
     rates = [ng / s for s, ng, _ in runs]
     log(f"epoch-wall: {[round(s, 2) for s, _, _ in runs]} s per epoch, val MAE "
-        f"{[round(v, 3) for _, _, v in runs]}")
+        f"{[round(v, 3) for _, _, v in runs]}; {cfg.compute_dtype}")
     mol_s = float(np.median(rates))
     extra = {"epoch_seconds": round(statistics.median(s for s, _, _ in runs), 2),
-             "geometry": args.geometry, "structure_build_s": round(build_s, 3)}
+             "geometry": args.geometry, "compute_dtype": cfg.compute_dtype,
+             "structure_build_s": round(build_s, 3)}
     if device_step_mol_s:
         extra["ratio_to_device_step"] = round(mol_s / device_step_mol_s, 3)
     line("qm9_epoch_wall_throughput", mol_s, "molecules/sec/chip",
@@ -238,7 +249,7 @@ def bench_pdbbind(args, device: torch.device) -> None:
 
     bs = 32
     cfg = PAMNetConfig(dataset="PDBbind", dim=args.dim, n_layer=args.pdbbind_layers,
-                       cutoff_l=2.0, cutoff_g=6.0)
+                       cutoff_l=2.0, cutoff_g=6.0, compute_dtype=args.dtype)
     t0 = time.perf_counter()
     make = synthetic_pdbbind_dataset if args.small else synthetic_pdbbind_complex_dataset
     mols = [pdbbind_molecule(g) for g in make((1 if args.small else 4) * bs, seed=805)]
@@ -252,11 +263,12 @@ def bench_pdbbind(args, device: torch.device) -> None:
     opt = Optimizer(model.parameters(), multistep(1e-5, steps_per_epoch=len(loader)))
     times, dev = train_windows(device, model, opt, None, batches, "mse", args.windows,
                                args.pdbbind_steps // args.windows)
-    report("pdbbind", times, dev, "step")
+    report("pdbbind", times, dev, "step", cfg.compute_dtype)
     ms = statistics.median(times)
     line("pdbbind_train_throughput", bs / ms * 1e3, "graphs/sec/chip",
          REFERENCE_GPU_PDBBIND_GRAPHS_PER_SEC, device, ms_per_step=round(ms, 3),
-         device_ms_per_step=dev, geometry=args.geometry, structure_build_s=round(build_s, 3))
+         device_ms_per_step=dev, geometry=args.geometry, compute_dtype=cfg.compute_dtype,
+         structure_build_s=round(build_s, 3))
 
 
 def main(argv=None) -> None:
@@ -264,17 +276,19 @@ def main(argv=None) -> None:
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default; raises without a card) or cpu")
     parser.add_argument("--small", action="store_true",
-                        help="dim 16, 1 layer, a few small structures (tests)")
+                        help="dim 32, 1 layer, a few small structures (tests)")
     parser.add_argument("--geometry", choices=("derive", "host"), default="derive",
                         help="geometry of the epoch wall's training batches and the "
                              "PDBbind batches (derive: computed on the device)")
+    parser.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16",
+                        help="compute type of the QM9 step, epoch-wall and PDBbind lines "
+                             "(the JAX bench's default, bfloat16); RNA scoring runs float32")
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
     if device.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        set_matmul_precision()
     small = args.small
-    args.dim = 16 if small else 128
+    args.dim = 32 if small else 128
     args.qm9_layers = 1 if small else 6
     args.pdbbind_layers = 1 if small else 3
     args.windows = 2 if small else 4

@@ -8,6 +8,8 @@ import dataclasses
 
 import torch
 
+from pamnet_tpu_torch.ops.sbf_modulate import KERNEL_SHAPES
+
 
 @dataclasses.dataclass(frozen=True)
 class PAMNetConfig:
@@ -21,6 +23,11 @@ class PAMNetConfig:
     ``fuse_sbf_gather`` has no counterpart: a folded stage always runs fused.)
     ``device_graph`` rebuilds the graph from the positions on the device in
     every forward (``models/device_graph.py``; JAX ``config.py:85-87``).
+    ``compute_dtype`` is the type of the message-passing stack's activations
+    (JAX's mixed precision, ``models/pamnet.py``): "float32", or "bfloat16"
+    with float32 parameters, geometry, sums, fusion and pool.  A bfloat16
+    model that would fold raises: kernel B has no bfloat16 version, and a
+    model never changes route on its own.
     """
 
     dataset: str = "QM9"
@@ -44,11 +51,31 @@ class PAMNetConfig:
             raise ValueError(f"invalid flow: {self.flow}")
         if self.variant not in ("full", "s"):
             raise ValueError(f"invalid variant: {self.variant}")
-        if self.compute_dtype != "float32":
+        if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(
                 f"compute_dtype {self.compute_dtype!r}: the port computes in "
-                "float32 only"
+                "float32 or bfloat16"
             )
+        if self.compute_dtype == "bfloat16" and self.folds():
+            raise ValueError(
+                f"compute_dtype 'bfloat16' with the folded sbf stage ((num_spherical, dim) "
+                f"= {(self.num_spherical, self.dim)}): kernel B (ops/sbf_modulate.py) has "
+                "no bfloat16 version yet (ROADMAP queue 2, K13); train this model in "
+                "float32, or pass fold_sbf=False to run it unfolded"
+            )
+
+    def folds(self) -> bool:
+        """Whether the model folds the sbf MLP through the triplet gather and
+        runs the folded stage in kernel B: where ``fold_sbf`` says, else
+        wherever that kernel is built for ``(num_spherical, dim)``."""
+        if self.fold_sbf is not None:
+            return self.fold_sbf
+        return (self.num_spherical, self.dim) in KERNEL_SHAPES
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """``compute_dtype`` as a torch dtype."""
+        return getattr(torch, self.compute_dtype)
 
     @property
     def dataset_kind(self) -> str:
@@ -83,6 +110,15 @@ def embeds_atom_types(dataset_kind: str) -> bool:
     """Whether the forward gathers the atom-type embedding by ``z``, so a
     training batch needs the CSR of ``z``: every branch but PDBbind."""
     return dataset_kind != "pdbbind"
+
+
+def set_matmul_precision() -> None:
+    """Products as the JAX package's drivers take them on the card: float32
+    GEMMs in full float32 (TF32 off), bfloat16 GEMMs accumulated in float32
+    without reduced-precision reductions, as XLA's are."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:

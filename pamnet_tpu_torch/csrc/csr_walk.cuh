@@ -8,8 +8,10 @@
 // (row_gather.cu).  Included by both; each gets its own copy.
 //
 // Layout: a team of lanes x slots threads owns one output row.  Lane l takes
-// the float4 columns l, l + lanes, ... (lanes a power of two, so a D that is
-// not, such as D = 12, leaves a lane idle); slot s takes the group's rows
+// the vector columns l, l + lanes, ... (vec.cuh: 4 f32 or 8 bf16 values, 16
+// bytes, or 4 bf16 values where D % 8 != 0; lanes a power of two, so a row of
+// vectors that is not, such as D = 12, leaves a lane idle); slot s takes the
+// group's rows
 // off[e] + s, off[e] + s + slots, ..., fixed by position.  Each slot reads
 // the keys (indices, mask) of kWalkUnroll of its rows first, then issues
 // their row loads together, then adds them in row order: kWalkUnroll rows'
@@ -19,7 +21,9 @@
 // each warp, then, for a team of several warps, the warps' sums added in
 // warp order through shared memory; slot 0 stores the row.  No atomics, no
 // scratch in device memory: for a fixed team shape (lanes, slots) the order
-// of every sum is fixed, so two calls give the same bits.  The host picks
+// of every sum is fixed, so two calls give the same bits.  The row's values
+// and every partial sum are f32 whatever the stream's type (Row::E); the
+// stored row is rounded once.  The host picks
 // the shape (ops/triplet.py::walk_shape) from D and the mean group length;
 // a team is at most a block and divides it.
 //
@@ -37,6 +41,8 @@
 
 #include <type_traits>
 
+#include "vec.cuh"
+
 namespace {
 
 constexpr int kWalkThreads = 256;
@@ -45,18 +51,12 @@ constexpr unsigned kWalkAll = 0xffffffffu;
 
 __device__ __forceinline__ float silu(float x) { return x / (1.0f + expf(-x)); }
 
-__device__ __forceinline__ void add_to(float4& acc, const float4& v) {
-  acc.x += v.x;
-  acc.y += v.y;
-  acc.z += v.z;
-  acc.w += v.w;
-}
-
-// What a row loads per (summed row, column): a float4 that the walk adds,
-// or the row's own Value, which row.add() adds (and may store from).
+// What a row loads per (summed row, column): the f32 values of a vector
+// (Vf<N>), which the walk adds, or the row's own Value, which row.add()
+// adds (and may store from).
 template <class Row, class = void>
 struct WalkValue {
-  using type = float4;
+  using type = Vf<Row::E::N>;
   static constexpr bool kOwn = false;
 };
 template <class Row>
@@ -65,23 +65,26 @@ struct WalkValue<Row, std::void_t<typename Row::Value>> {
   static constexpr bool kOwn = true;
 };
 
-// Row must provide:
+// Row must provide (V = Vf<E::N>):
+//   using E;       the element type of its rows and of the output (vec.cuh)
 //   struct Key;    per summed row, loaded before the row's values (indices)
 //   struct Group;  per (output row, column), loaded once (e.g. xi[e])
 //   Group group(long long e, int c, bool ok) const;
 //   Key key(int r, bool ok) const;          ok false: r is past the group
-//   float4 value(const Group&, const Key&, int r, int c) const;
+//   V value(const Group&, const Key&, int r, int c) const;
 // or, declaring its own Value,
 //   Value value(const Group&, const Key&, int r, int c) const;
-//   void add(float4& acc, const Group&, const Key&, const Value&, int c) const;
+//   void add(V& acc, const Group&, const Key&, const Value&, int c) const;
 // and, with TAIL,
 //   void tail(long long k) const;           k in [0, tail)
 template <class Row, bool TAIL = false>
 __global__ void __launch_bounds__(kWalkThreads)
-csr_walk_kernel(Row row, const int* __restrict__ off, float4* __restrict__ out,
+csr_walk_kernel(Row row, const int* __restrict__ off, typename Row::E::Raw* __restrict__ out,
                 int num_out, int vecs, int lanes_log2, int slots_log2, long long tail) {
-  // One float4 per thread: each warp's sum, for teams of several warps.
-  __shared__ float4 warp_sums[kWalkThreads];
+  constexpr int N = Row::E::N;
+  // One vector of f32 sums per thread: each warp's sum, for teams of
+  // several warps.
+  __shared__ Vf<N> warp_sums[kWalkThreads];
   const int team_log2 = lanes_log2 + slots_log2;
   const int warp_team_log2 = min(team_log2, 5);
   const long long t = static_cast<long long>(blockIdx.x) * kWalkThreads + threadIdx.x;
@@ -107,7 +110,7 @@ csr_walk_kernel(Row row, const int* __restrict__ off, float4* __restrict__ out,
     const int c = c0 + lane;
     const bool col = live && c < vecs;
     const typename Row::Group grp = row.group(e, c, col);
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    Vf<N> acc = vzero<N>();
     for (int r0 = start + slot; r0 < stop; r0 += stride) {
       typename Row::Key key[kWalkUnroll];
 #pragma unroll
@@ -127,16 +130,14 @@ csr_walk_kernel(Row row, const int* __restrict__ off, float4* __restrict__ out,
           if constexpr (WalkValue<Row>::kOwn) {
             row.add(acc, grp, key[u], v[u], c);
           } else {
-            add_to(acc, v[u]);
+            vadd(acc, v[u]);
           }
         }
       }
     }
     for (int o = lanes; o < (1 << warp_team_log2); o <<= 1) {
-      acc.x += __shfl_xor_sync(kWalkAll, acc.x, o);
-      acc.y += __shfl_xor_sync(kWalkAll, acc.y, o);
-      acc.z += __shfl_xor_sync(kWalkAll, acc.z, o);
-      acc.w += __shfl_xor_sync(kWalkAll, acc.w, o);
+#pragma unroll
+      for (int i = 0; i < N; ++i) acc.v[i] += __shfl_xor_sync(kWalkAll, acc.v[i], o);
     }
     if (team_log2 > 5) {  // the same for the whole block
       const int warp_in_team = in_team >> 5;
@@ -145,11 +146,11 @@ csr_walk_kernel(Row row, const int* __restrict__ off, float4* __restrict__ out,
       __syncthreads();
       if (warp_in_team == 0) {
         for (int w = 1; w < (1 << (team_log2 - 5)); ++w) {
-          add_to(acc, warp_sums[threadIdx.x + (w << 5)]);
+          vadd(acc, warp_sums[threadIdx.x + (w << 5)]);
         }
       }
     }
-    if (col && slot == 0) out[e * vecs + c] = acc;
+    if (col && slot == 0) stv<typename Row::E>(out, e * vecs + c, acc);
   }
 }
 
@@ -161,12 +162,13 @@ int log2_of(int x) {
 
 // Checks the team shape and launches the walk on `stream`, with `tail`
 // threads of row.tail() past the teams where TAIL; returns the launch's
-// cudaError_t.
+// cudaError_t.  `out` holds num_out rows of d values of the row's type.
 template <class Row, bool TAIL = false>
-int launch_walk(const Row& row, const int* off, float* out, int num_out, int d, int lanes,
+int launch_walk(const Row& row, const int* off, void* out, int num_out, int d, int lanes,
                 int slots, cudaStream_t stream, long long tail = 0) {
+  constexpr int N = Row::E::N;
   const int lanes_log2 = log2_of(lanes), slots_log2 = log2_of(slots);
-  if (d <= 0 || d % 4 != 0 || num_out <= 0 || lanes_log2 < 0 || slots_log2 < 0 ||
+  if (d <= 0 || d % N != 0 || num_out <= 0 || lanes_log2 < 0 || slots_log2 < 0 ||
       lanes > 32 || lanes * slots > kWalkThreads || tail < 0 || (tail > 0 && !TAIL)) {
     return cudaErrorInvalidValue;
   }
@@ -174,7 +176,8 @@ int launch_walk(const Row& row, const int* off, float* out, int num_out, int d, 
       (static_cast<long long>(num_out) << (lanes_log2 + slots_log2)) + tail;
   const unsigned blocks = static_cast<unsigned>((threads + kWalkThreads - 1) / kWalkThreads);
   csr_walk_kernel<Row, TAIL><<<blocks, kWalkThreads, 0, stream>>>(
-      row, off, reinterpret_cast<float4*>(out), num_out, d / 4, lanes_log2, slots_log2, tail);
+      row, off, static_cast<typename Row::E::Raw*>(out), num_out, d / N, lanes_log2, slots_log2,
+      tail);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -57,7 +57,14 @@
 // 3.35 TB/s, two multiplies per 32 bytes.  Its outputs, read once by the
 // next kernels, go out with streaming stores (__stcs), so they do not evict
 // the g rows that neighbouring threads share.
+// edge_message_backward and gated_sum_backward take f32 or bf16 streams
+// (vec.cuh: every float operand in the stream's type, the masks too), with
+// the arithmetic in f32 and each output rounded once at its store; a bf16
+// lane moves 8 values (16 bytes) where D % 8 == 0.  gather_product, off every
+// main path since the fused role swap, takes f32 only.
 #include <cuda_runtime.h>
+
+#include "vec.cuh"
 
 namespace {
 
@@ -91,25 +98,28 @@ __global__ void gather_product_kernel(const float* __restrict__ x,
   reinterpret_cast<float4*>(out)[tid] = v;
 }
 
-__global__ void gated_sum_backward_kernel(const float4* __restrict__ a,
-                                          const float4* __restrict__ b,
-                                          const float4* __restrict__ g,
+template <class E>
+__global__ void gated_sum_backward_kernel(const typename E::Raw* __restrict__ a,
+                                          const typename E::Raw* __restrict__ b,
+                                          const typename E::Raw* __restrict__ g,
                                           const int* __restrict__ seg,
-                                          float4* __restrict__ d_a, float4* __restrict__ d_b,
-                                          int rows, int valid, int vecs) {
+                                          typename E::Raw* __restrict__ d_a,
+                                          typename E::Raw* __restrict__ d_b, int rows,
+                                          int valid, int vecs) {
+  constexpr int N = E::N;
   const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (tid >= static_cast<long long>(rows) * vecs) return;
   const int r = static_cast<int>(tid / vecs);
   const int c = static_cast<int>(tid - static_cast<long long>(r) * vecs);
-  float4 da = make_float4(0.f, 0.f, 0.f, 0.f);
-  float4 db = da;
+  Vf<N> da = vzero<N>();
+  Vf<N> db = da;
   if (r < valid) {
-    const float4 gr = __ldg(g + static_cast<long long>(__ldg(seg + r)) * vecs + c);
-    da = mul4(gr, __ldg(b + tid));
-    db = mul4(__ldg(a + tid), gr);
+    const Vf<N> gr = ldv<E>(g, static_cast<long long>(__ldg(seg + r)) * vecs + c);
+    da = vmul(gr, ldv<E>(b, tid));
+    db = vmul(ldv<E>(a, tid), gr);
   }
-  __stcs(d_a + tid, da);
-  __stcs(d_b + tid, db);
+  stv_cs<E>(d_a, tid, da);
+  stv_cs<E>(d_b, tid, db);
 }
 
 // One element: d_pre and (GATE) d_gate.
@@ -126,68 +136,106 @@ __device__ __forceinline__ void silu_backward(float p, float g, float gt,
   }
 }
 
-template <bool GATE, bool MASK, bool AT_I>
-__global__ void edge_message_backward_kernel(const float* __restrict__ xi,
-                                             const float* __restrict__ xj,
+template <class E, bool GATE, bool MASK, bool AT_I>
+__global__ void edge_message_backward_kernel(const typename E::Raw* __restrict__ xi,
+                                             const typename E::Raw* __restrict__ xj,
                                              const int* __restrict__ i_idx,
                                              const int* __restrict__ j_idx,
-                                             const float* __restrict__ base,
-                                             const float* __restrict__ gate,
-                                             const float* __restrict__ mask,
-                                             const float* __restrict__ grad,
-                                             float* __restrict__ d_pre,
-                                             float* __restrict__ d_gate, int rows,
+                                             const typename E::Raw* __restrict__ base,
+                                             const typename E::Raw* __restrict__ gate,
+                                             const typename E::T* __restrict__ mask,
+                                             const typename E::Raw* __restrict__ grad,
+                                             typename E::Raw* __restrict__ d_pre,
+                                             typename E::Raw* __restrict__ d_gate, int rows,
                                              int valid, int vecs) {
+  constexpr int N = E::N;
   const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (tid >= static_cast<long long>(rows) * vecs) return;
   const int r = static_cast<int>(tid / vecs);
   const int c = static_cast<int>(tid - static_cast<long long>(r) * vecs);
   if (r >= valid) {
-    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-    reinterpret_cast<float4*>(d_pre)[tid] = zero;
-    if (GATE) reinterpret_cast<float4*>(d_gate)[tid] = zero;
+    stv<E>(d_pre, tid, vzero<N>());
+    if (GATE) stv<E>(d_gate, tid, vzero<N>());
     return;
   }
   const long long ir = __ldg(i_idx + r);
-  const float4 u = __ldg(reinterpret_cast<const float4*>(xi) + ir * vecs + c);
-  const float4 v = __ldg(reinterpret_cast<const float4*>(xj)
-                         + static_cast<long long>(__ldg(j_idx + r)) * vecs + c);
-  const float4 w = __ldg(reinterpret_cast<const float4*>(base) + tid);
-  float4 g = __ldg(reinterpret_cast<const float4*>(grad) + (AT_I ? ir * vecs + c : tid));
+  const Vf<N> u = ldv<E>(xi, ir * vecs + c);
+  const Vf<N> v = ldv<E>(xj, static_cast<long long>(__ldg(j_idx + r)) * vecs + c);
+  const Vf<N> w = ldv<E>(base, tid);
+  Vf<N> g = ldv<E>(grad, AT_I ? ir * vecs + c : tid);
   if (MASK) {
-    const float k = __ldg(mask + r);
-    g = make_float4(g.x * k, g.y * k, g.z * k, g.w * k);
+    const float k = E::scalar(mask + r);
+#pragma unroll
+    for (int i = 0; i < N; ++i) g.v[i] *= k;
   }
-  float4 gt = make_float4(1.f, 1.f, 1.f, 1.f);
-  if (GATE) gt = __ldg(reinterpret_cast<const float4*>(gate) + tid);
-  float4 dp, dg;
-  silu_backward<GATE>(u.x + v.x + w.x, g.x, gt.x, &dp.x, &dg.x);
-  silu_backward<GATE>(u.y + v.y + w.y, g.y, gt.y, &dp.y, &dg.y);
-  silu_backward<GATE>(u.z + v.z + w.z, g.z, gt.z, &dp.z, &dg.z);
-  silu_backward<GATE>(u.w + v.w + w.w, g.w, gt.w, &dp.w, &dg.w);
-  reinterpret_cast<float4*>(d_pre)[tid] = dp;
-  if (GATE) reinterpret_cast<float4*>(d_gate)[tid] = dg;
+  Vf<N> gt;
+#pragma unroll
+  for (int i = 0; i < N; ++i) gt.v[i] = 1.f;
+  if (GATE) gt = ldv<E>(gate, tid);
+  Vf<N> dp, dg;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    silu_backward<GATE>(u.v[i] + v.v[i] + w.v[i], g.v[i], gt.v[i], &dp.v[i], &dg.v[i]);
+  }
+  stv<E>(d_pre, tid, dp);
+  if (GATE) stv<E>(d_gate, tid, dg);
 }
 
-template <bool AT_I>
-int launch_edge_backward(const float* xi, const float* xj, const int* i_idx, const int* j_idx,
-                         const float* base, const float* gate, const float* mask,
-                         const float* grad, float* d_pre, float* d_gate, int rows, int valid,
-                         int vecs, cudaStream_t s) {
+template <class E, bool AT_I>
+int launch_edge_backward(const void* xi, const void* xj, const int* i_idx, const int* j_idx,
+                         const void* base, const void* gate, const void* mask,
+                         const void* grad, void* d_pre, void* d_gate, int rows, int valid,
+                         int d, cudaStream_t s) {
+  using Raw = typename E::Raw;
+  using T = typename E::T;
+  const int vecs = d / E::N;
   const unsigned blocks = blocks_for(static_cast<long long>(rows) * vecs);
+  const Raw* xi_ = static_cast<const Raw*>(xi);
+  const Raw* xj_ = static_cast<const Raw*>(xj);
+  const Raw* base_ = static_cast<const Raw*>(base);
+  const Raw* gate_ = static_cast<const Raw*>(gate);
+  const T* mask_ = static_cast<const T*>(mask);
+  const Raw* grad_ = static_cast<const Raw*>(grad);
+  Raw* d_pre_ = static_cast<Raw*>(d_pre);
+  Raw* d_gate_ = static_cast<Raw*>(d_gate);
   if (gate && mask) {
-    edge_message_backward_kernel<true, true, AT_I><<<blocks, kThreads, 0, s>>>(
-        xi, xj, i_idx, j_idx, base, gate, mask, grad, d_pre, d_gate, rows, valid, vecs);
+    edge_message_backward_kernel<E, true, true, AT_I><<<blocks, kThreads, 0, s>>>(
+        xi_, xj_, i_idx, j_idx, base_, gate_, mask_, grad_, d_pre_, d_gate_, rows, valid, vecs);
   } else if (gate) {
-    edge_message_backward_kernel<true, false, AT_I><<<blocks, kThreads, 0, s>>>(
-        xi, xj, i_idx, j_idx, base, gate, mask, grad, d_pre, d_gate, rows, valid, vecs);
+    edge_message_backward_kernel<E, true, false, AT_I><<<blocks, kThreads, 0, s>>>(
+        xi_, xj_, i_idx, j_idx, base_, gate_, mask_, grad_, d_pre_, d_gate_, rows, valid, vecs);
   } else if (mask) {
-    edge_message_backward_kernel<false, true, AT_I><<<blocks, kThreads, 0, s>>>(
-        xi, xj, i_idx, j_idx, base, gate, mask, grad, d_pre, d_gate, rows, valid, vecs);
+    edge_message_backward_kernel<E, false, true, AT_I><<<blocks, kThreads, 0, s>>>(
+        xi_, xj_, i_idx, j_idx, base_, gate_, mask_, grad_, d_pre_, d_gate_, rows, valid, vecs);
   } else {
-    edge_message_backward_kernel<false, false, AT_I><<<blocks, kThreads, 0, s>>>(
-        xi, xj, i_idx, j_idx, base, gate, mask, grad, d_pre, d_gate, rows, valid, vecs);
+    edge_message_backward_kernel<E, false, false, AT_I><<<blocks, kThreads, 0, s>>>(
+        xi_, xj_, i_idx, j_idx, base_, gate_, mask_, grad_, d_pre_, d_gate_, rows, valid, vecs);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class E>
+int launch_edge_backward_of(const void* xi, const void* xj, const int* i_idx,
+                            const int* j_idx, const void* base, const void* gate,
+                            const void* mask, const void* grad, void* d_pre, void* d_gate,
+                            int rows, int valid, int d, int grad_at_i, cudaStream_t s) {
+  if (grad_at_i) {
+    return launch_edge_backward<E, true>(xi, xj, i_idx, j_idx, base, gate, mask, grad, d_pre,
+                                         d_gate, rows, valid, d, s);
+  }
+  return launch_edge_backward<E, false>(xi, xj, i_idx, j_idx, base, gate, mask, grad, d_pre,
+                                        d_gate, rows, valid, d, s);
+}
+
+template <class E>
+int launch_gated_backward(const void* a, const void* b, const void* g, const int* seg,
+                          void* d_a, void* d_b, int rows, int valid, int d, cudaStream_t s) {
+  using Raw = typename E::Raw;
+  const int vecs = d / E::N;
+  gated_sum_backward_kernel<E><<<blocks_for(static_cast<long long>(rows) * vecs), kThreads, 0,
+                                 s>>>(static_cast<const Raw*>(a), static_cast<const Raw*>(b),
+                                      static_cast<const Raw*>(g), seg, static_cast<Raw*>(d_a),
+                                      static_cast<Raw*>(d_b), rows, valid, vecs);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -209,46 +257,56 @@ extern "C" int pamnet_gather_product(const float* x, const int* xi, const float*
   return static_cast<int>(cudaGetLastError());
 }
 
-// a, b: (rows, d) f32; g: (num_out, d) f32; seg: (rows,) i32, the output
-// row of each row (read for r < valid); d_a, d_b: (rows, d) f32.  d % 4 ==
-// 0, 0 <= valid <= rows, all 16-byte aligned.  Returns the launch's
-// cudaError_t.
-extern "C" int pamnet_gated_sum_backward(const float* a, const float* b, const float* g,
-                                         const int* seg, float* d_a, float* d_b, int rows,
-                                         int valid, int d, void* stream) {
-  if (rows <= 0 || d <= 0 || d % 4 != 0 || valid < 0 || valid > rows || !a || !b || !g ||
-      !seg || !d_a || !d_b) {
+// a, b: (rows, d); g: (num_out, d); seg: (rows,) i32, the output row of
+// each row (read for r < valid); d_a, d_b: (rows, d).  The float operands
+// are f32 (bf16 = 0) or bf16 (bf16 = 1).  d % 4 == 0, 0 <= valid <= rows,
+// all 16-byte aligned.  Returns the launch's cudaError_t.
+extern "C" int pamnet_gated_sum_backward(const void* a, const void* b, const void* g,
+                                         const int* seg, void* d_a, void* d_b, int rows,
+                                         int valid, int d, int bf16, void* stream) {
+  if (rows <= 0 || valid < 0 || valid > rows || !a || !b || !g || !seg || !d_a || !d_b) {
     return cudaErrorInvalidValue;
   }
-  const int vecs = d / 4;
-  gated_sum_backward_kernel<<<blocks_for(static_cast<long long>(rows) * vecs), kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const float4*>(a), reinterpret_cast<const float4*>(b),
-      reinterpret_cast<const float4*>(g), seg, reinterpret_cast<float4*>(d_a),
-      reinterpret_cast<float4*>(d_b), rows, valid, vecs);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (elem_kind(bf16, d)) {
+    case kF32x4:
+      return launch_gated_backward<F32x4>(a, b, g, seg, d_a, d_b, rows, valid, d, s);
+    case kBf16x8:
+      return launch_gated_backward<Bf16x8>(a, b, g, seg, d_a, d_b, rows, valid, d, s);
+    case kBf16x4:
+      return launch_gated_backward<Bf16x4>(a, b, g, seg, d_a, d_b, rows, valid, d, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
-// xi, xj: (nodes, d) f32; i_idx, j_idx: (rows,) i32; base: (rows, d) f32;
-// grad: (rows, d) f32, or with grad_at_i (nodes of xi, d) f32 read at i;
-// gate: (rows, d) f32 or null; mask: (rows,) f32 or null; d_pre: (rows, d)
-// f32; d_gate: (rows, d) f32, written only with a gate; rows r >= valid get
-// zeros.  d % 4 == 0, all 16-byte aligned.  Returns the launch's cudaError_t.
-extern "C" int pamnet_edge_message_backward(const float* xi, const float* xj,
+// xi, xj: (nodes, d); i_idx, j_idx: (rows,) i32; base: (rows, d); grad:
+// (rows, d), or with grad_at_i (nodes of xi, d) read at i; gate: (rows, d)
+// or null; mask: (rows,) or null; d_pre: (rows, d); d_gate: (rows, d),
+// written only with a gate; rows r >= valid get zeros.  The float operands
+// are f32 (bf16 = 0) or bf16 (bf16 = 1).  d % 4 == 0, all 16-byte aligned.
+// Returns the launch's cudaError_t.
+extern "C" int pamnet_edge_message_backward(const void* xi, const void* xj,
                                             const int* i_idx, const int* j_idx,
-                                            const float* base, const float* gate,
-                                            const float* mask, const float* grad,
-                                            float* d_pre, float* d_gate, int rows,
-                                            int valid, int d, int grad_at_i, void* stream) {
-  if (rows <= 0 || d <= 0 || d % 4 != 0 || valid < 0 || valid > rows) {
-    return cudaErrorInvalidValue;
-  }
+                                            const void* base, const void* gate,
+                                            const void* mask, const void* grad,
+                                            void* d_pre, void* d_gate, int rows,
+                                            int valid, int d, int grad_at_i, int bf16,
+                                            void* stream) {
+  if (rows <= 0 || valid < 0 || valid > rows) return cudaErrorInvalidValue;
   if (gate != nullptr && d_gate == nullptr) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (grad_at_i) {
-    return launch_edge_backward<true>(xi, xj, i_idx, j_idx, base, gate, mask, grad, d_pre,
-                                      d_gate, rows, valid, d / 4, s);
+  switch (elem_kind(bf16, d)) {
+    case kF32x4:
+      return launch_edge_backward_of<F32x4>(xi, xj, i_idx, j_idx, base, gate, mask, grad,
+                                            d_pre, d_gate, rows, valid, d, grad_at_i, s);
+    case kBf16x8:
+      return launch_edge_backward_of<Bf16x8>(xi, xj, i_idx, j_idx, base, gate, mask, grad,
+                                             d_pre, d_gate, rows, valid, d, grad_at_i, s);
+    case kBf16x4:
+      return launch_edge_backward_of<Bf16x4>(xi, xj, i_idx, j_idx, base, gate, mask, grad,
+                                             d_pre, d_gate, rows, valid, d, grad_at_i, s);
+    default:
+      return cudaErrorInvalidValue;
   }
-  return launch_edge_backward<false>(xi, xj, i_idx, j_idx, base, gate, mask, grad, d_pre,
-                                     d_gate, rows, valid, d / 4, s);
 }

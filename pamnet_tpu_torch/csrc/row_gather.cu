@@ -47,53 +47,64 @@
 //   loaded 4 rows ahead; no (E, D) message is written.
 //   Registers (cuobjdump -res-usage, chip_smoke.py kernel_resources, sm_90a):
 //   64, with 8 bytes of stack where a mask is read; 4 KB of shared memory.
-// * One thread per (row, 4 columns): the D/4 threads of a row read a gathered
+// * One thread per (row, vector of 16 bytes): the threads of a row read a gathered
 //   row, and the row's base and gate, as consecutive 16-byte loads, and write
 //   the output the same way, so each transaction is whole.
 // * The sum, silu, gate and mask happen in registers: the plain version's
 //   two gathered (E, D) tensors, their sum and the silu output are never
 //   written, and the int32 indices are read as they are (no int64 copy).
-// * row_gather takes the 16-byte path, a thread per (row, 4 columns), when
-//   D % 4 == 0.
+// * row_gather takes the 16-byte path, a thread per (row, 16 bytes), when
+//   a row is a multiple of 16 bytes.
 // * Otherwise (the unfolded path's radial table has D = 42 columns, a
-//   168-byte row) a warp owns a tile of 32 consecutive output rows, which
-//   are 32 * D contiguous floats: lanes take its 8-byte (float2) columns
-//   when D is even (4-byte ones when it is odd) in order, so each step of
-//   the warp writes 256 contiguous bytes.  Each lane reads one row's index
+//   168-byte f32 row) a warp owns a tile of 32 consecutive output rows, which
+//   are contiguous: lanes take its 8-byte columns (float2 in f32) where a row
+//   is a multiple of 8 bytes, else 4- or 2-byte ones, in order, so each step
+//   of the warp writes 32 contiguous units.  Each lane reads one row's index
 //   and the lanes broadcast it with __shfl_sync; a lane's row and column
 //   advance by 32 elements a step with 32-bit adds (one division per thread,
 //   where a thread per element did a 64-bit division and remainder each),
 //   and each lane issues eight loads before its eight stores, which are
 //   marked streaming (evict first), so the output leaves the gathered table
 //   in L2.
+// * bf16 streams (vec.cuh): the edge messages compute in f32 and round once
+//   at the store, their masks in the stream's type.  The row gather is a
+//   copy and goes by the bytes of a row: 16-byte vectors where a row is a
+//   multiple of 16 bytes (f32 D % 4 == 0, bf16 D % 8 == 0), else the warp
+//   tiles in the widest unit that divides a row: 8 bytes (f32 D = 42), 4
+//   bytes (bf16 D = 42, an 84-byte row: bf16x2 columns) or 2.
 #include "csr_walk.cuh"
 
 namespace {
 
-__global__ void row_gather_vec4_kernel(const float4* __restrict__ src,
-                                       const int* __restrict__ idx,
-                                       float4* __restrict__ out, int rows, int valid,
-                                       int vecs) {
+template <typename U>
+__device__ __forceinline__ U zero_of();
+template <>
+__device__ __forceinline__ uint4 zero_of<uint4>() { return make_uint4(0u, 0u, 0u, 0u); }
+template <>
+__device__ __forceinline__ uint2 zero_of<uint2>() { return make_uint2(0u, 0u); }
+template <>
+__device__ __forceinline__ unsigned zero_of<unsigned>() { return 0u; }
+template <>
+__device__ __forceinline__ unsigned short zero_of<unsigned short>() { return 0; }
+
+// U is the 16-byte unit (uint4), vecs the units of a row.
+template <typename U>
+__global__ void row_gather_vec_kernel(const U* __restrict__ src, const int* __restrict__ idx,
+                                      U* __restrict__ out, int rows, int valid, int vecs) {
   // Rows past `valid` are written as zeros and their indices are not read.
   const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (tid >= static_cast<long long>(rows) * vecs) return;
   const int r = static_cast<int>(tid / vecs);
   const int c = static_cast<int>(tid - static_cast<long long>(r) * vecs);
   out[tid] = r < valid ? __ldg(src + static_cast<long long>(__ldg(idx + r)) * vecs + c)
-                       : make_float4(0.f, 0.f, 0.f, 0.f);
+                       : zero_of<U>();
 }
 
-template <typename T>
-__device__ __forceinline__ T zero_of();
-template <>
-__device__ __forceinline__ float zero_of<float>() { return 0.f; }
-template <>
-__device__ __forceinline__ float2 zero_of<float2>() { return make_float2(0.f, 0.f); }
-
-// T is float2 (D even, vecs = D / 2) or float (vecs = D).  A warp writes
-// output rows [32 w, 32 w + 32) as one run of 32 * vecs elements: element e
-// of the run is column e % vecs of row e / vecs.  Rows past `valid` are
-// written as zeros and their indices are not read.
+// T is the unit a lane moves (uint2, unsigned or unsigned short: 8, 4 or 2
+// bytes) and vecs the units of a row.  A warp writes output rows [32 w,
+// 32 w + 32) as one run of 32 * vecs units: unit e of the run is column
+// e % vecs of row e / vecs.  Rows past `valid` are written as zeros and
+// their indices are not read.
 template <typename T>
 __global__ void row_gather_tile_kernel(const T* __restrict__ src, const int* __restrict__ idx,
                                        T* __restrict__ out, int rows, int valid, int vecs) {
@@ -132,54 +143,49 @@ __global__ void row_gather_tile_kernel(const T* __restrict__ src, const int* __r
   }
 }
 
-template <bool GATE, bool MASK>
-__global__ void edge_message_kernel(const float* __restrict__ xi,
-                                    const float* __restrict__ xj,
+template <class E, bool GATE, bool MASK>
+__global__ void edge_message_kernel(const typename E::Raw* __restrict__ xi,
+                                    const typename E::Raw* __restrict__ xj,
                                     const int* __restrict__ i_idx,
                                     const int* __restrict__ j_idx,
-                                    const float* __restrict__ base,
-                                    const float* __restrict__ gate,
-                                    const float* __restrict__ mask,
-                                    float* __restrict__ out, int rows, int vecs) {
+                                    const typename E::Raw* __restrict__ base,
+                                    const typename E::Raw* __restrict__ gate,
+                                    const typename E::T* __restrict__ mask,
+                                    typename E::Raw* __restrict__ out, int rows, int vecs) {
+  constexpr int N = E::N;
   const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (tid >= static_cast<long long>(rows) * vecs) return;
   const int r = static_cast<int>(tid / vecs);
   const int c = static_cast<int>(tid - static_cast<long long>(r) * vecs);
-  const float4 u = __ldg(reinterpret_cast<const float4*>(xi)
-                         + static_cast<long long>(__ldg(i_idx + r)) * vecs + c);
-  const float4 v = __ldg(reinterpret_cast<const float4*>(xj)
-                         + static_cast<long long>(__ldg(j_idx + r)) * vecs + c);
-  const float4 w = __ldg(reinterpret_cast<const float4*>(base) + tid);
-  float4 m = make_float4(silu(u.x + v.x + w.x), silu(u.y + v.y + w.y),
-                         silu(u.z + v.z + w.z), silu(u.w + v.w + w.w));
-  if (GATE) {
-    const float4 g = __ldg(reinterpret_cast<const float4*>(gate) + tid);
-    m.x *= g.x;
-    m.y *= g.y;
-    m.z *= g.z;
-    m.w *= g.w;
-  }
+  const Vf<N> u = ldv<E>(xi, static_cast<long long>(__ldg(i_idx + r)) * vecs + c);
+  const Vf<N> v = ldv<E>(xj, static_cast<long long>(__ldg(j_idx + r)) * vecs + c);
+  const Vf<N> w = ldv<E>(base, tid);
+  Vf<N> m;
+#pragma unroll
+  for (int i = 0; i < N; ++i) m.v[i] = silu(u.v[i] + v.v[i] + w.v[i]);
+  if (GATE) m = vmul(m, ldv<E>(gate, tid));
   if (MASK) {
-    const float k = __ldg(mask + r);
-    m.x *= k;
-    m.y *= k;
-    m.z *= k;
-    m.w *= k;
+    const float k = E::scalar(mask + r);
+#pragma unroll
+    for (int i = 0; i < N; ++i) m.v[i] *= k;
   }
-  reinterpret_cast<float4*>(out)[tid] = m;
+  stv<E>(out, tid, m);
 }
 
 // The summed message's row: silu(xi[v] + xj[j[r]] + base[r]) * gate[r] *
 // mask[r], with the operations of edge_message_kernel in its order, so a
 // group of one row gives that kernel's row bit for bit.
-template <bool GATE, bool MASK>
+template <class Elem, bool GATE, bool MASK>
 struct MessageRow {
-  const float4* xi;
-  const float4* xj;
+  using E = Elem;
+  using V = Vf<E::N>;
+  using Raw = typename E::Raw;
+  const Raw* xi;
+  const Raw* xj;
   const int* j_idx;
-  const float4* base;
-  const float4* gate;
-  const float* mask;
+  const Raw* base;
+  const Raw* gate;
+  const typename E::T* mask;
   int vecs;
 
   struct Key {
@@ -187,49 +193,62 @@ struct MessageRow {
     float k;
   };
   struct Group {
-    float4 xi;
+    V xi;
   };
 
   __device__ __forceinline__ Group group(long long v, int c, bool ok) const {
-    return {ok ? __ldg(xi + v * vecs + c) : make_float4(0.f, 0.f, 0.f, 0.f)};
+    return {ok ? ldv<E>(xi, v * vecs + c) : vzero<E::N>()};
   }
 
   __device__ __forceinline__ Key key(int r, bool ok) const {
-    return {ok ? __ldg(j_idx + r) : 0, MASK && ok ? __ldg(mask + r) : 1.f};
+    return {ok ? __ldg(j_idx + r) : 0, MASK && ok ? E::scalar(mask + r) : 1.f};
   }
 
-  __device__ __forceinline__ float4 value(const Group& g, const Key& k, int r, int c) const {
-    const float4 u = g.xi;
-    const float4 v = __ldg(xj + static_cast<long long>(k.j) * vecs + c);
-    const float4 w = __ldg(base + static_cast<long long>(r) * vecs + c);
-    float4 m = make_float4(silu(u.x + v.x + w.x), silu(u.y + v.y + w.y),
-                           silu(u.z + v.z + w.z), silu(u.w + v.w + w.w));
-    if (GATE) {
-      const float4 gt = __ldg(gate + static_cast<long long>(r) * vecs + c);
-      m.x *= gt.x;
-      m.y *= gt.y;
-      m.z *= gt.z;
-      m.w *= gt.w;
-    }
+  __device__ __forceinline__ V value(const Group& g, const Key& k, int r, int c) const {
+    const V v = ldv<E>(xj, static_cast<long long>(k.j) * vecs + c);
+    const V w = ldv<E>(base, static_cast<long long>(r) * vecs + c);
+    V m;
+#pragma unroll
+    for (int i = 0; i < E::N; ++i) m.v[i] = silu(g.xi.v[i] + v.v[i] + w.v[i]);
+    if (GATE) m = vmul(m, ldv<E>(gate, static_cast<long long>(r) * vecs + c));
     if (MASK) {
-      m.x *= k.k;
-      m.y *= k.k;
-      m.z *= k.k;
-      m.w *= k.k;
+#pragma unroll
+      for (int i = 0; i < E::N; ++i) m.v[i] *= k.k;
     }
     return m;
   }
 };
 
-template <bool GATE, bool MASK>
-int launch_message_sum(const float* xi, const float* xj, const int* j_idx, const float* base,
-                       const float* gate, const float* mask, const int* off, float* out,
+template <class E, bool GATE, bool MASK>
+int launch_message_sum(const void* xi, const void* xj, const int* j_idx, const void* base,
+                       const void* gate, const void* mask, const int* off, void* out,
                        int num_out, int d, int lanes, int slots, cudaStream_t stream) {
-  const MessageRow<GATE, MASK> row{
-      reinterpret_cast<const float4*>(xi), reinterpret_cast<const float4*>(xj), j_idx,
-      reinterpret_cast<const float4*>(base), reinterpret_cast<const float4*>(gate), mask,
-      d / 4};
+  using Raw = typename E::Raw;
+  const MessageRow<E, GATE, MASK> row{
+      static_cast<const Raw*>(xi), static_cast<const Raw*>(xj), j_idx,
+      static_cast<const Raw*>(base), static_cast<const Raw*>(gate),
+      static_cast<const typename E::T*>(mask), d / E::N};
   return launch_walk(row, off, out, num_out, d, lanes, slots, stream);
+}
+
+template <class E>
+int launch_message_sum_of(const void* xi, const void* xj, const int* j_idx, const void* base,
+                          const void* gate, const void* mask, const int* off, void* out,
+                          int num_out, int d, int lanes, int slots, cudaStream_t s) {
+  if (gate && mask) {
+    return launch_message_sum<E, true, true>(xi, xj, j_idx, base, gate, mask, off, out,
+                                             num_out, d, lanes, slots, s);
+  }
+  if (gate) {
+    return launch_message_sum<E, true, false>(xi, xj, j_idx, base, gate, mask, off, out,
+                                              num_out, d, lanes, slots, s);
+  }
+  if (mask) {
+    return launch_message_sum<E, false, true>(xi, xj, j_idx, base, gate, mask, off, out,
+                                              num_out, d, lanes, slots, s);
+  }
+  return launch_message_sum<E, false, false>(xi, xj, j_idx, base, gate, mask, off, out,
+                                             num_out, d, lanes, slots, s);
 }
 
 constexpr int kThreads = 256;
@@ -238,83 +257,118 @@ unsigned blocks_for(long long total) {
   return static_cast<unsigned>((total + kThreads - 1) / kThreads);
 }
 
+template <class E, bool GATE, bool MASK>
+void launch_message_rows(const void* xi, const void* xj, const int* i_idx, const int* j_idx,
+                         const void* base, const void* gate, const void* mask, void* out,
+                         int rows, int vecs, cudaStream_t s) {
+  using Raw = typename E::Raw;
+  edge_message_kernel<E, GATE, MASK><<<blocks_for(static_cast<long long>(rows) * vecs),
+                                       kThreads, 0, s>>>(
+      static_cast<const Raw*>(xi), static_cast<const Raw*>(xj), i_idx, j_idx,
+      static_cast<const Raw*>(base), static_cast<const Raw*>(gate),
+      static_cast<const typename E::T*>(mask), static_cast<Raw*>(out), rows, vecs);
+}
+
+template <class E>
+int launch_message_rows_of(const void* xi, const void* xj, const int* i_idx, const int* j_idx,
+                           const void* base, const void* gate, const void* mask, void* out,
+                           int rows, int d, cudaStream_t s) {
+  const int vecs = d / E::N;
+  if (gate && mask) {
+    launch_message_rows<E, true, true>(xi, xj, i_idx, j_idx, base, gate, mask, out, rows,
+                                       vecs, s);
+  } else if (gate) {
+    launch_message_rows<E, true, false>(xi, xj, i_idx, j_idx, base, gate, mask, out, rows,
+                                        vecs, s);
+  } else if (mask) {
+    launch_message_rows<E, false, true>(xi, xj, i_idx, j_idx, base, gate, mask, out, rows,
+                                        vecs, s);
+  } else {
+    launch_message_rows<E, false, false>(xi, xj, i_idx, j_idx, base, gate, mask, out, rows,
+                                         vecs, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+void launch_tile(const void* src, const int* idx, void* out, int rows, int valid, int vecs,
+                 cudaStream_t s) {
+  row_gather_tile_kernel<T><<<blocks_for(rows), kThreads, 0, s>>>(
+      static_cast<const T*>(src), idx, static_cast<T*>(out), rows, valid, vecs);
+}
+
 }  // namespace
 
-// src: (rows of src, d) f32; idx: (rows,) i32; out: (rows, d) f32, rows
-// r >= valid zero; 16-byte aligned when d % 4 == 0.  Returns the launch's
-// cudaError_t.
-extern "C" int pamnet_row_gather(const float* src, const int* idx, float* out,
-                                 int rows, int valid, int d, void* stream) {
+// src: (rows of src, d); idx: (rows,) i32; out: (rows, d), rows r >= valid
+// zero; src and out f32 (bf16 = 0) or bf16 (bf16 = 1), 16-byte aligned.
+// Returns the launch's cudaError_t.
+extern "C" int pamnet_row_gather(const void* src, const int* idx, void* out, int rows,
+                                 int valid, int d, int bf16, void* stream) {
   if (rows <= 0 || d <= 0 || valid < 0 || valid > rows) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d % 4 == 0) {
-    const int vecs = d / 4;
-    row_gather_vec4_kernel<<<blocks_for(static_cast<long long>(rows) * vecs), kThreads, 0, s>>>(
-        reinterpret_cast<const float4*>(src), idx, reinterpret_cast<float4*>(out), rows, valid,
-        vecs);
-  } else if (d % 2 == 0) {
-    row_gather_tile_kernel<float2><<<blocks_for(rows), kThreads, 0, s>>>(
-        reinterpret_cast<const float2*>(src), idx, reinterpret_cast<float2*>(out), rows, valid,
-        d / 2);
+  const int row_bytes = d * (bf16 ? 2 : 4);
+  if (row_bytes % 16 == 0) {
+    const int vecs = row_bytes / 16;
+    row_gather_vec_kernel<uint4><<<blocks_for(static_cast<long long>(rows) * vecs), kThreads,
+                                   0, s>>>(static_cast<const uint4*>(src), idx,
+                                           static_cast<uint4*>(out), rows, valid, vecs);
+  } else if (row_bytes % 8 == 0) {
+    launch_tile<uint2>(src, idx, out, rows, valid, row_bytes / 8, s);
+  } else if (row_bytes % 4 == 0) {
+    launch_tile<unsigned>(src, idx, out, rows, valid, row_bytes / 4, s);
   } else {
-    row_gather_tile_kernel<float><<<blocks_for(rows), kThreads, 0, s>>>(src, idx, out, rows,
-                                                                        valid, d);
+    launch_tile<unsigned short>(src, idx, out, rows, valid, row_bytes / 2, s);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// xi, xj: (nodes, d) f32; i_idx, j_idx: (rows,) i32; base: (rows, d) f32;
-// gate: (rows, d) f32 or null; mask: (rows,) f32 or null; out: (rows, d)
-// f32.  d % 4 == 0, all 16-byte aligned.  Returns the launch's cudaError_t.
-extern "C" int pamnet_edge_message(const float* xi, const float* xj,
-                                   const int* i_idx, const int* j_idx,
-                                   const float* base, const float* gate,
-                                   const float* mask, float* out, int rows,
-                                   int d, void* stream) {
-  if (rows <= 0 || d <= 0 || d % 4 != 0) return cudaErrorInvalidValue;
+// xi, xj: (nodes, d); i_idx, j_idx: (rows,) i32; base: (rows, d); gate:
+// (rows, d) or null; mask: (rows,) or null; out: (rows, d).  The float
+// operands are f32 (bf16 = 0) or bf16 (bf16 = 1).  d % 4 == 0, all 16-byte
+// aligned.  Returns the launch's cudaError_t.
+extern "C" int pamnet_edge_message(const void* xi, const void* xj, const int* i_idx,
+                                   const int* j_idx, const void* base, const void* gate,
+                                   const void* mask, void* out, int rows, int d, int bf16,
+                                   void* stream) {
+  if (rows <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int vecs = d / 4;
-  const unsigned blocks = blocks_for(static_cast<long long>(rows) * vecs);
-  if (gate && mask) {
-    edge_message_kernel<true, true><<<blocks, kThreads, 0, s>>>(
-        xi, xj, i_idx, j_idx, base, gate, mask, out, rows, vecs);
-  } else if (gate) {
-    edge_message_kernel<true, false><<<blocks, kThreads, 0, s>>>(
-        xi, xj, i_idx, j_idx, base, gate, mask, out, rows, vecs);
-  } else if (mask) {
-    edge_message_kernel<false, true><<<blocks, kThreads, 0, s>>>(
-        xi, xj, i_idx, j_idx, base, gate, mask, out, rows, vecs);
-  } else {
-    edge_message_kernel<false, false><<<blocks, kThreads, 0, s>>>(
-        xi, xj, i_idx, j_idx, base, gate, mask, out, rows, vecs);
+  switch (elem_kind(bf16, d)) {
+    case kF32x4:
+      return launch_message_rows_of<F32x4>(xi, xj, i_idx, j_idx, base, gate, mask, out, rows,
+                                           d, s);
+    case kBf16x8:
+      return launch_message_rows_of<Bf16x8>(xi, xj, i_idx, j_idx, base, gate, mask, out,
+                                            rows, d, s);
+    case kBf16x4:
+      return launch_message_rows_of<Bf16x4>(xi, xj, i_idx, j_idx, base, gate, mask, out,
+                                            rows, d, s);
+    default:
+      return cudaErrorInvalidValue;
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
-// xi: (num_out, d) f32, the nodes the messages go to; xj: (nodes, d) f32;
-// j_idx: (rows,) i32; base: (rows, d) f32; gate: (rows, d) f32 or null;
-// mask: (rows,) f32 or null; off: (num_out + 1,) i32, the sorted CSR of the
-// rows by the node they go to; out: (num_out, d) f32.  d % 4 == 0, all
-// 16-byte aligned; lanes, slots: the walk's team shape.  Returns the
-// launch's cudaError_t.
-extern "C" int pamnet_edge_message_sum(const float* xi, const float* xj, const int* j_idx,
-                                       const float* base, const float* gate,
-                                       const float* mask, const int* off, float* out,
-                                       int num_out, int d, int lanes, int slots,
-                                       void* stream) {
+// xi: (num_out, d), the nodes the messages go to; xj: (nodes, d); j_idx:
+// (rows,) i32; base: (rows, d); gate: (rows, d) or null; mask: (rows,) or
+// null; off: (num_out + 1,) i32, the sorted CSR of the rows by the node they
+// go to; out: (num_out, d).  The float operands are f32 (bf16 = 0) or bf16
+// (bf16 = 1).  d % 4 == 0, all 16-byte aligned; lanes, slots: the walk's
+// team shape.  Returns the launch's cudaError_t.
+extern "C" int pamnet_edge_message_sum(const void* xi, const void* xj, const int* j_idx,
+                                       const void* base, const void* gate, const void* mask,
+                                       const int* off, void* out, int num_out, int d,
+                                       int lanes, int slots, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (gate && mask) {
-    return launch_message_sum<true, true>(xi, xj, j_idx, base, gate, mask, off, out, num_out,
+  switch (elem_kind(bf16, d)) {
+    case kF32x4:
+      return launch_message_sum_of<F32x4>(xi, xj, j_idx, base, gate, mask, off, out, num_out,
                                           d, lanes, slots, s);
-  }
-  if (gate) {
-    return launch_message_sum<true, false>(xi, xj, j_idx, base, gate, mask, off, out,
+    case kBf16x8:
+      return launch_message_sum_of<Bf16x8>(xi, xj, j_idx, base, gate, mask, off, out,
                                            num_out, d, lanes, slots, s);
-  }
-  if (mask) {
-    return launch_message_sum<false, true>(xi, xj, j_idx, base, gate, mask, off, out,
+    case kBf16x4:
+      return launch_message_sum_of<Bf16x4>(xi, xj, j_idx, base, gate, mask, off, out,
                                            num_out, d, lanes, slots, s);
+    default:
+      return cudaErrorInvalidValue;
   }
-  return launch_message_sum<false, false>(xi, xj, j_idx, base, gate, mask, off, out, num_out,
-                                          d, lanes, slots, s);
 }

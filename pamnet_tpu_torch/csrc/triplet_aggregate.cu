@@ -2,7 +2,9 @@
 //
 //   out[e, :] = sum_{r in [off[e], off[e+1])} a[idx[r], :] * b[bidx[r], :]
 //
-// accumulated in f32.  Template flags switch the gather off (idx = identity,
+// accumulated in f32, in f32 or bf16 streams (vec.cuh: a, b and out share
+// the stream's type; a bf16 row is summed in f32 and rounded once at the
+// store).  Template flags switch the gather off (idx = identity,
 // a has one row per summed row), the modulation off (b = 1) and the indexed
 // read of b off (bidx = identity), so the same kernel does every edge->node
 // and triplet->edge sum of the PAMNet forward (the global aggregation at
@@ -35,7 +37,8 @@
 // gather and modulation on (the T gathered 64-byte rows of a, the T rows of
 // b, idx, the output) and about 72 MB with both off -- 40 us and 22 us at
 // 3.35 TB/s.  It does 2 flops per 8 loaded bytes, far below the card's
-// ridge point.
+// ridge point.  A bf16 stream moves half the row bytes; a lane then takes 8
+// values (16 bytes) where D % 8 == 0, so a D=128 row is 16 lanes, not 32.
 //
 // What the design does about it (the walk itself is csr_walk.cuh, shared
 // with the summed edge message of row_gather.cu):
@@ -70,10 +73,12 @@ namespace {
 
 // Kernel A's row: a[idx[r]] * b[bidx[r]], the gather, the modulation and
 // the indexed read of b each switched off by its flag.
-template <bool GATHER, bool MODULATE, bool BIDX>
+template <class Elem, bool GATHER, bool MODULATE, bool BIDX>
 struct SumRow {
-  const float4* a;
-  const float4* b;
+  using E = Elem;
+  using V = Vf<E::N>;
+  const typename E::Raw* a;
+  const typename E::Raw* b;
   const int* idx;
   const int* bidx;
   int vecs;
@@ -92,32 +97,31 @@ struct SumRow {
     return k;
   }
 
-  __device__ __forceinline__ float4 value(const Group&, const Key& k, int, int c) const {
-    float4 v = __ldg(a + static_cast<long long>(k.a) * vecs + c);
-    if (MODULATE) {
-      const float4 w = __ldg(b + static_cast<long long>(k.b) * vecs + c);
-      v.x *= w.x;
-      v.y *= w.y;
-      v.z *= w.z;
-      v.w *= w.w;
-    }
+  __device__ __forceinline__ V value(const Group&, const Key& k, int, int c) const {
+    V v = ldv<E>(a, static_cast<long long>(k.a) * vecs + c);
+    if (MODULATE) v = vmul(v, ldv<E>(b, static_cast<long long>(k.b) * vecs + c));
     return v;
   }
 };
 
 // The fused role swap's row: kernel A's role swap (d_a[v] += g[seg[r]] *
-// b[perm[r]], SumRow<true, true, true> with a := g, idx := seg, bidx :=
+// b[perm[r]], SumRow<E, true, true, true> with a := g, idx := seg, bidx :=
 // perm, the product taken in value() and added in add() as that row's is)
 // that also stores d_b[perm[r]] = a[v] * g[seg[r]] for each row r it sums,
 // after the batch's loads, and zeros the rows perm[total..rows) in its
-// tail.
+// tail.  It keeps the gradient row g as loaded (a bf16 row in half the
+// registers) until add() needs it.
+template <class Elem>
 struct RoleSwapRow {
-  const float4* g;
-  const float4* b;
-  const float4* a;
+  using E = Elem;
+  using V = Vf<E::N>;
+  using Raw = typename E::Raw;
+  const Raw* g;
+  const Raw* b;
+  const Raw* a;
   const int* seg;
   const int* perm;
-  float4* d_b;
+  Raw* d_b;
   int vecs;
   int total;
 
@@ -125,15 +129,16 @@ struct RoleSwapRow {
     int a, b;
   };
   struct Group {
-    float4 a;
+    V a;
   };
   // The summed product g * b and the gradient row g it came from.
   struct Value {
-    float4 prod, g;
+    V prod;
+    Raw g;
   };
 
   __device__ __forceinline__ Group group(long long e, int c, bool ok) const {
-    return {ok ? __ldg(a + e * vecs + c) : make_float4(0.f, 0.f, 0.f, 0.f)};
+    return {ok ? ldv<E>(a, e * vecs + c) : vzero<E::N>()};
   }
 
   __device__ __forceinline__ Key key(int r, bool ok) const {
@@ -146,96 +151,127 @@ struct RoleSwapRow {
   __device__ __forceinline__ Value value(const Group&, const Key& k, int, int c) const {
     Value out;
     out.g = __ldg(g + static_cast<long long>(k.a) * vecs + c);
-    float4 v = out.g;
-    const float4 w = __ldg(b + static_cast<long long>(k.b) * vecs + c);
-    v.x *= w.x;
-    v.y *= w.y;
-    v.z *= w.z;
-    v.w *= w.w;
-    out.prod = v;
+    out.prod = vmul(E::unpack(out.g), ldv<E>(b, static_cast<long long>(k.b) * vecs + c));
     return out;
   }
 
-  __device__ __forceinline__ void add(float4& acc, const Group& grp, const Key& k,
-                                      const Value& v, int c) const {
-    d_b[static_cast<long long>(k.b) * vecs + c] =
-        make_float4(grp.a.x * v.g.x, grp.a.y * v.g.y, grp.a.z * v.g.z, grp.a.w * v.g.w);
-    add_to(acc, v.prod);
+  __device__ __forceinline__ void add(V& acc, const Group& grp, const Key& k, const Value& v,
+                                      int c) const {
+    stv<E>(d_b, static_cast<long long>(k.b) * vecs + c, vmul(grp.a, E::unpack(v.g)));
+    vadd(acc, v.prod);
   }
 
   // Thread k of the tail: column k % vecs of padded row perm[total + k / vecs].
   __device__ __forceinline__ void tail(long long k) const {
     const long long r = total + k / vecs;
-    d_b[static_cast<long long>(__ldg(perm + r)) * vecs + k % vecs] =
-        make_float4(0.f, 0.f, 0.f, 0.f);
+    stv<E>(d_b, static_cast<long long>(__ldg(perm + r)) * vecs + k % vecs, vzero<E::N>());
   }
 };
 
-template <bool GATHER, bool MODULATE, bool BIDX>
-int launch(const float* a, const float* b, const int* idx, const int* bidx, const int* off,
-           float* out, int num_out, int d, int lanes, int slots, cudaStream_t stream) {
-  const SumRow<GATHER, MODULATE, BIDX> row{reinterpret_cast<const float4*>(a),
-                                           reinterpret_cast<const float4*>(b), idx, bidx,
-                                           d / 4};
+template <class E, bool GATHER, bool MODULATE, bool BIDX>
+int launch(const void* a, const void* b, const int* idx, const int* bidx, const int* off,
+           void* out, int num_out, int d, int lanes, int slots, cudaStream_t stream) {
+  using Raw = typename E::Raw;
+  const SumRow<E, GATHER, MODULATE, BIDX> row{static_cast<const Raw*>(a),
+                                              static_cast<const Raw*>(b), idx, bidx, d / E::N};
   return launch_walk(row, off, out, num_out, d, lanes, slots, stream);
 }
 
-template <bool GATHER>
-int launch_modulation(const float* a, const float* b, const int* idx, const int* bidx,
-                      const int* off, float* out, int num_out, int d, int lanes, int slots,
+template <class E, bool GATHER>
+int launch_modulation(const void* a, const void* b, const int* idx, const int* bidx,
+                      const int* off, void* out, int num_out, int d, int lanes, int slots,
                       cudaStream_t s) {
   if (b == nullptr) {
-    return launch<GATHER, false, false>(a, b, idx, bidx, off, out, num_out, d, lanes, slots, s);
+    return launch<E, GATHER, false, false>(a, b, idx, bidx, off, out, num_out, d, lanes, slots,
+                                           s);
   }
   if (bidx == nullptr) {
-    return launch<GATHER, true, false>(a, b, idx, bidx, off, out, num_out, d, lanes, slots, s);
+    return launch<E, GATHER, true, false>(a, b, idx, bidx, off, out, num_out, d, lanes, slots,
+                                          s);
   }
-  return launch<GATHER, true, true>(a, b, idx, bidx, off, out, num_out, d, lanes, slots, s);
+  return launch<E, GATHER, true, true>(a, b, idx, bidx, off, out, num_out, d, lanes, slots, s);
+}
+
+template <class E>
+int launch_sum(const void* a, const void* b, const int* idx, const int* bidx, const int* off,
+               void* out, int num_out, int d, int lanes, int slots, cudaStream_t s) {
+  if (idx != nullptr) {
+    return launch_modulation<E, true>(a, b, idx, bidx, off, out, num_out, d, lanes, slots, s);
+  }
+  return launch_modulation<E, false>(a, b, idx, bidx, off, out, num_out, d, lanes, slots, s);
+}
+
+template <class E>
+int launch_grad_ab(const void* g, const void* b, const void* a, const int* seg, const int* perm,
+                   const int* off, void* d_a, void* d_b, int num_out, int rows, int total,
+                   int d, int lanes, int slots, cudaStream_t s) {
+  using Raw = typename E::Raw;
+  const int vecs = d / E::N;
+  const RoleSwapRow<E> row{static_cast<const Raw*>(g), static_cast<const Raw*>(b),
+                           static_cast<const Raw*>(a), seg, perm, static_cast<Raw*>(d_b),
+                           vecs, total};
+  return launch_walk<RoleSwapRow<E>, true>(row, off, d_a, num_out, d, lanes, slots, s,
+                                           static_cast<long long>(rows - total) * vecs);
 }
 
 }  // namespace
 
-// a: (rows of a, d) f32; b: (rows of b, d) f32 or null; idx: (rows,) i32 or
-// null (no gather); bidx: (rows,) i32 or null (b read by row; needs b);
-// off: (num_out + 1,) i32; out: (num_out, d) f32.  d % 4 == 0, all 16-byte
-// aligned.  lanes, slots: the team shape (powers of two, lanes * slots <=
-// 32).  Returns the launch's cudaError_t.
-extern "C" int pamnet_triplet_aggregate(const float* a, const float* b,
-                                        const int* idx, const int* bidx,
-                                        const int* off, float* out, int num_out,
-                                        int d, int lanes, int slots, void* stream) {
+// a: (rows of a, d); b: (rows of b, d) or null; idx: (rows,) i32 or null
+// (no gather); bidx: (rows,) i32 or null (b read by row; needs b); off:
+// (num_out + 1,) i32; out: (num_out, d).  a, b and out are f32 (bf16 = 0)
+// or bf16 (bf16 = 1).  d % 4 == 0, all 16-byte aligned.  lanes, slots: the
+// team shape (powers of two, lanes * slots <= 256).  Returns the launch's
+// cudaError_t.
+extern "C" int pamnet_triplet_aggregate(const void* a, const void* b, const int* idx,
+                                        const int* bidx, const int* off, void* out,
+                                        int num_out, int d, int lanes, int slots, int bf16,
+                                        void* stream) {
   if (bidx != nullptr && b == nullptr) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (idx != nullptr) {
-    return launch_modulation<true>(a, b, idx, bidx, off, out, num_out, d, lanes, slots, s);
+  switch (elem_kind(bf16, d)) {
+    case kF32x4:
+      return launch_sum<F32x4>(a, b, idx, bidx, off, out, num_out, d, lanes, slots, s);
+    case kBf16x8:
+      return launch_sum<Bf16x8>(a, b, idx, bidx, off, out, num_out, d, lanes, slots, s);
+    case kBf16x4:
+      return launch_sum<Bf16x4>(a, b, idx, bidx, off, out, num_out, d, lanes, slots, s);
+    default:
+      return cudaErrorInvalidValue;
   }
-  return launch_modulation<false>(a, b, idx, bidx, off, out, num_out, d, lanes, slots, s);
 }
 
-// The fused role swap.  g: (rows of g, d) f32, the forward's output
-// gradient; b: (rows, d) f32; a: (num_out, d) f32, the forward's gathered
-// table; seg: (rows,) i32, seg[perm[r]] of the forward's rows in the CSR's
-// order; perm: (rows,) i32, a permutation of the rows grouped by the
-// forward's idx, the padded rows perm[total..rows) after the groups; off:
-// (num_out + 1,) i32 with off[num_out] = total; d_a: (num_out, d) f32;
-// d_b: (rows, d) f32, every row written.  d % 4 == 0, all 16-byte aligned;
-// lanes, slots: the team shape.  Returns the launch's cudaError_t.
-extern "C" int pamnet_triplet_aggregate_grad_ab(const float* g, const float* b,
-                                                const float* a, const int* seg,
-                                                const int* perm, const int* off, float* d_a,
-                                                float* d_b, int num_out, int rows, int total,
-                                                int d, int lanes, int slots, void* stream) {
-  if (d <= 0 || d % 4 != 0 || total < 0 || total > rows || !g || !b || !a || !seg ||
-      !perm || !d_b) {
+// The fused role swap.  g: (rows of g, d), the forward's output gradient;
+// b: (rows, d); a: (num_out, d), the forward's gathered table; seg: (rows,)
+// i32, seg[perm[r]] of the forward's rows in the CSR's order; perm: (rows,)
+// i32, a permutation of the rows grouped by the forward's idx, the padded
+// rows perm[total..rows) after the groups; off: (num_out + 1,) i32 with
+// off[num_out] = total; d_a: (num_out, d); d_b: (rows, d), every row
+// written.  g, b, a, d_a and d_b are f32 (bf16 = 0) or bf16 (bf16 = 1).
+// d % 4 == 0, all 16-byte aligned; lanes, slots: the team shape.  Returns
+// the launch's cudaError_t.
+extern "C" int pamnet_triplet_aggregate_grad_ab(const void* g, const void* b, const void* a,
+                                                const int* seg, const int* perm,
+                                                const int* off, void* d_a, void* d_b,
+                                                int num_out, int rows, int total, int d,
+                                                int lanes, int slots, int bf16,
+                                                void* stream) {
+  if (total < 0 || total > rows || !g || !b || !a || !seg || !perm || !d_b) {
     return cudaErrorInvalidValue;
   }
-  const int vecs = d / 4;
-  const RoleSwapRow row{reinterpret_cast<const float4*>(g), reinterpret_cast<const float4*>(b),
-                        reinterpret_cast<const float4*>(a), seg, perm,
-                        reinterpret_cast<float4*>(d_b), vecs, total};
-  return launch_walk<RoleSwapRow, true>(row, off, d_a, num_out, d, lanes, slots,
-                                        static_cast<cudaStream_t>(stream),
-                                        static_cast<long long>(rows - total) * vecs);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (elem_kind(bf16, d)) {
+    case kF32x4:
+      return launch_grad_ab<F32x4>(g, b, a, seg, perm, off, d_a, d_b, num_out, rows, total, d,
+                                   lanes, slots, s);
+    case kBf16x8:
+      return launch_grad_ab<Bf16x8>(g, b, a, seg, perm, off, d_a, d_b, num_out, rows, total,
+                                    d, lanes, slots, s);
+    case kBf16x4:
+      return launch_grad_ab<Bf16x4>(g, b, a, seg, perm, off, d_a, d_b, num_out, rows, total,
+                                    d, lanes, slots, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* pamnet_cuda_error_string(int code) {

@@ -8,7 +8,8 @@ cutoffs 2.0/6.0 A, seed 805; the README's recipe trains 3 layers): the full
 PAMNet on the PDBbind branch (18 atom features through ``init_linear``, the
 signed pool E(complex) - E(pocket) - E(ligand)), MSE, Adam with the
 MultiStepLR schedule (x0.2 every 50 epochs), no clip, no EMA, in float32 with
-TF32 off.  Data: the TU splits ``train_val`` and ``test`` of ``--data_root``
+TF32 off (``--compute_dtype bfloat16``: mixed precision, as the JAX bench's
+PDBbind line trains).  Data: the TU splits ``train_val`` and ``test`` of ``--data_root``
 (default ``./data/<dataset>``), or ``--synthetic N`` generated complexes at
 the scale of preprocessed PDBbind graphs (260-420 atoms; the last quarter
 tests).  ``train_val`` is shuffled with the seed and split 90/10, the
@@ -35,7 +36,7 @@ import time
 import numpy as np
 import torch
 
-from pamnet_tpu_torch.config import PAMNetConfig, resolve_device
+from pamnet_tpu_torch.config import PAMNetConfig, resolve_device, set_matmul_precision
 from pamnet_tpu_torch.data.loader import add_geometry_flags, geometry_options
 
 
@@ -65,6 +66,10 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Checkpoint to resume the full training state from")
     parser.add_argument("--metrics_csv", type=str, default="",
                         help="Append per-epoch metrics to this CSV file")
+    parser.add_argument("--compute_dtype", type=str, default="float32",
+                        choices=["float32", "bfloat16"],
+                        help="float32 or bfloat16 (mixed precision: float32 parameters, geometry, "
+                             "sums and pool)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default; raises without a card) or cpu")
     add_geometry_flags(parser)
@@ -109,10 +114,7 @@ def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
     if device.type == "cuda":
-        # f32 products throughout, as main_pdbbind.py of the JAX package at
-        # --compute_dtype float32 --precision float32.
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        set_matmul_precision()
 
     from pamnet_tpu_torch.data.loader import GraphLoader
     from pamnet_tpu_torch.metrics import mae, pearson, rmse, sd
@@ -125,7 +127,8 @@ def main(argv=None) -> dict:
     t_load = time.time()
     train_mols, val_mols, test_mols = load_complexes(args)
     cfg = PAMNetConfig(dataset="PDBbind", dim=args.dim, n_layer=args.n_layer,
-                       cutoff_l=args.cutoff_l, cutoff_g=args.cutoff_g)
+                       cutoff_l=args.cutoff_l, cutoff_g=args.cutoff_g,
+                       compute_dtype=args.compute_dtype)
     common = dict(dataset_kind="pdbbind", cutoff_l=cfg.cutoff_l, cutoff_g=cfg.cutoff_g,
                   batch_size=args.batch_size)
     train_geometry, eval_geometry = geometry_options(args)

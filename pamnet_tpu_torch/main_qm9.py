@@ -5,9 +5,10 @@ repository's ``main_qm9.py``; reference: main_qm9.py).
 
 The reference's flags and recipe (README.md:95 of the reference: PAMNet,
 target 7, dim 128, 6 layers, batch 32, lr 1e-4; L1 loss, Adam with global
-norm clip 1000, EMA 0.999, the warmup-exponential schedule) in float32 with
-TF32 off; ``--model PAMNet_s`` trains the one-hop variant at the same
-recipe.  ``--synthetic`` trains on generated molecules when the QM9 raw
+norm clip 1000, EMA 0.999, the warmup-exponential schedule) in bfloat16
+mixed precision by default, as the JAX ``main_qm9.py`` trains
+(``--compute_dtype float32``: float32 with TF32 off); ``--model PAMNet_s``
+trains the one-hop variant at the same recipe.  ``--synthetic`` trains on generated molecules when the QM9 raw
 files are not staged under ``./data/<dataset>/raw``; ``--limit`` keeps the
 first N molecules.  ``--device`` defaults to ``cuda`` and raises without a
 card.  Training batches carry positions and integer tables only and the
@@ -33,7 +34,7 @@ import time
 import numpy as np
 import torch
 
-from pamnet_tpu_torch.config import PAMNetConfig, resolve_device
+from pamnet_tpu_torch.config import PAMNetConfig, resolve_device, set_matmul_precision
 from pamnet_tpu_torch.data.loader import add_geometry_flags, geometry_options
 
 
@@ -65,6 +66,10 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Checkpoint to resume the full training state from")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default; raises without a card) or cpu")
+    parser.add_argument("--compute_dtype", type=str, default="bfloat16",
+                        choices=["float32", "bfloat16"],
+                        help="float32 or bfloat16 (mixed precision: float32 parameters, geometry, "
+                             "sums and pool)")
     parser.add_argument("--device_graph", action="store_true",
                         help="Rebuild the radius graph from the positions on the device "
                              "in every forward (the reference's per-forward "
@@ -99,10 +104,7 @@ def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
     if device.type == "cuda":
-        # f32 products throughout, as main_qm9.py of the JAX package at
-        # --compute_dtype float32.
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        set_matmul_precision()
 
     from pamnet_tpu_torch.data.loader import GraphLoader
     from pamnet_tpu_torch.models.pamnet import PAMNet
@@ -116,7 +118,7 @@ def main(argv=None) -> dict:
     cfg = PAMNetConfig(dataset="QM9", dim=args.dim, n_layer=args.n_layer,
                        cutoff_l=args.cutoff_l, cutoff_g=args.cutoff_g,
                        variant="s" if args.model == "PAMNet_s" else "full",
-                       device_graph=args.device_graph)
+                       compute_dtype=args.compute_dtype, device_graph=args.device_graph)
     train_mols = mols[:n_train]
     val_mols = mols[n_train:n_train + n_val]
     test_mols = mols[n_train + n_val:]

@@ -6,7 +6,9 @@ repository's ``main_rna_puzzles.py``; reference: main_rna_puzzles.py:44-111).
 
 SmoothL1 on the per-structure RMSD score, ``flow='target_to_source'``, Adam
 at a constant learning rate with no clip and no EMA, in float32 with TF32
-off.  At the published width (dim 16) the spherical-basis MLP trains folded
+off (``--compute_dtype bfloat16``: mixed precision where the model is
+unfolded, as at the default dim 64; the folded dim-16 model raises, kernel
+B having no bfloat16 version).  At the published width (dim 16) the spherical-basis MLP trains folded
 through the triplet gather, in ``sbf_modulate`` and its backward kernel.
 Data: the TU files of ``--data_root`` (default ``./data/<dataset>``, splits
 ``train`` and ``val``) where they are there, or ``--synthetic N`` generated
@@ -31,7 +33,7 @@ import time
 
 import torch
 
-from pamnet_tpu_torch.config import PAMNetConfig, resolve_device
+from pamnet_tpu_torch.config import PAMNetConfig, resolve_device, set_matmul_precision
 from pamnet_tpu_torch.data.loader import add_geometry_flags, geometry_options
 
 BEST_NAME = "pamnet_rna_best.pt"
@@ -66,6 +68,10 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Checkpoint to resume the full training state from")
     parser.add_argument("--metrics_csv", type=str, default="",
                         help="Append per-epoch metrics to this CSV file")
+    parser.add_argument("--compute_dtype", type=str, default="float32",
+                        choices=["float32", "bfloat16"],
+                        help="float32 or bfloat16 (mixed precision: float32 parameters, geometry, "
+                             "sums and pool)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default; raises without a card) or cpu")
     add_geometry_flags(parser)
@@ -104,10 +110,7 @@ def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
     if device.type == "cuda":
-        # f32 products throughout, as the JAX package's main_rna_puzzles.py at
-        # --precision float32.
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        set_matmul_precision()
 
     from pamnet_tpu_torch.data.loader import GraphLoader
     from pamnet_tpu_torch.models.pamnet import PAMNet
@@ -121,7 +124,8 @@ def main(argv=None) -> dict:
     cfg = PAMNetConfig(dataset=args.dataset if args.dataset[:3].lower() == "rna"
                        else "rna_train",
                        dim=args.dim, n_layer=args.n_layer, cutoff_l=args.cutoff_l,
-                       cutoff_g=args.cutoff_g, flow=args.flow)
+                       cutoff_g=args.cutoff_g, flow=args.flow,
+                       compute_dtype=args.compute_dtype)
     common = dict(dataset_kind="rna", cutoff_l=cfg.cutoff_l, cutoff_g=cfg.cutoff_g,
                   batch_size=args.batch_size)
     train_geometry, eval_geometry = geometry_options(args)

@@ -13,7 +13,10 @@ those autograd Functions the batch's backward arrays (``GraphBatch.groups``,
 ``triplet_grad``), so a loss differentiates through the backward kernels.
 ``plain=True`` calls the plain PyTorch versions of the kernels on any
 device, which PyTorch's own autograd differentiates: the reference route
-that checks the kernels and their backwards on the card.  Layers return ``(x, out, att)``: the new node
+that checks the kernels and their backwards on the card.  The layers run in
+their input's type (float32 or bfloat16, ``config.py``); the masks come in
+that type too (``models/pamnet.py``), and weights are cast at each use
+(``nn.as_dtype``).  Layers return ``(x, out, att)``: the new node
 state, the per-node scalar head and the attention logit of the fusion.
 """
 
@@ -25,11 +28,11 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from pamnet_tpu_torch.nn import Linear, Res, mlp
+from pamnet_tpu_torch.nn import Linear, Res, as_dtype, mlp
 from pamnet_tpu_torch.ops.gather import (edge_message, edge_message_plain, row_gather,
                                          row_gather_plain)
 from pamnet_tpu_torch.ops.sbf_modulate import sbf_modulate, sbf_modulate_plain
-from pamnet_tpu_torch.ops.triplet import (AggregateGrad, Groups, triplet_aggregate,
+from pamnet_tpu_torch.ops.triplet import (AggregateGrad, Groups, acc_dtype, triplet_aggregate,
                                           triplet_aggregate_plain)
 
 
@@ -111,7 +114,7 @@ class GlobalMP(nn.Module):
         x = self.res1(x) + res_x
         x = self.res3(self.res2(x))
         out = self.mlp_out(x)
-        return x, self.W_out(out), out @ self.W
+        return x, self.W_out(out), out @ as_dtype(self.W, out.dtype)
 
 
 def _edge_message(mlp_m: nn.Sequential, x, e, i, j, gate=None, mask=None,
@@ -125,9 +128,9 @@ def _edge_message(mlp_m: nn.Sequential, x, e, i, j, gate=None, mask=None,
     the sorted CSR of ``i``, the (N, D) sums of the messages by ``i``."""
     dim = x.shape[1]
     lin = mlp_m[0][0]
-    w = lin.weight  # (dim, 3*dim) = [x_i | x_j | e]
+    w = as_dtype(lin.weight, x.dtype)  # (dim, 3*dim) = [x_i | x_j | e]
     args = (x @ w[:, :dim].T, x @ w[:, dim:2 * dim].T, i, j,
-            F.linear(e, w[:, 2 * dim:], lin.bias), gate, mask)
+            F.linear(e, w[:, 2 * dim:], as_dtype(lin.bias, x.dtype)), gate, mask)
     if plain:
         return edge_message_plain(*args, None if out_groups is None else out_groups.off)
     return edge_message(*args, i_groups=i_groups, j_groups=j_groups, out_groups=out_groups)
@@ -222,17 +225,22 @@ class LocalMP(nn.Module):
         then sum, as the reference does: ``aggregate(..., b=gate)`` would
         give the same sums there, but the branch keeps the plain route a
         transcription of the reference that does not rest on that
-        invariant, so it can check the kernel route that does."""
+        invariant, so it can check the kernel route that does.  The plain
+        route multiplies in float32, as the kernel does, and rounds once
+        after the sum (a bfloat16 product per edge would round where the
+        kernel does not)."""
         gate = self.lin_rbf_out(rbf)
         if g.el_dst_off is not None and not plain:
             s = aggregate(m, g.el_dst_off, g.el_dst, g.el_mask, x.shape[0], b=gate,
                           total=g.valid["el"])
         else:
-            s = aggregate(gate * m * g.el_mask[:, None], g.el_dst_off, g.el_dst, g.el_mask,
-                          x.shape[0], total=g.valid["el"], plain=plain)
+            acc = acc_dtype(m.dtype) if plain else m.dtype
+            s = aggregate(gate.to(acc) * m.to(acc) * g.el_mask[:, None].to(acc), g.el_dst_off,
+                          g.el_dst, g.el_mask, x.shape[0], total=g.valid["el"],
+                          plain=plain).to(m.dtype)
         x = x + s
         x = self.mlp_x2(x)
         x = self.res1(x) + res_x
         x = self.res3(self.res2(x))
         out = self.mlp_out(x)
-        return x, self.W_out(out), out @ self.W
+        return x, self.W_out(out), out @ as_dtype(self.W, out.dtype)

@@ -20,10 +20,22 @@ its 18 atom features through ``init_linear`` and pools the signed sum
 E(complex) - E(pocket) - E(ligand), the sign -1 where x > 40 A.
 ``variant="s"`` (PAMNet_s) runs the one-hop triplet stream alone, through
 one model-level sbf MLP (``mlp_sbf``) and ``mlp_m_jj`` local layers.
+
+``compute_dtype="bfloat16"`` is the JAX package's mixed precision
+(``pamnet_tpu/models/pamnet.py:158-168, 241-289, 367-397``): the parameters
+stay float32; the geometry (distances, the Bessel basis with its trainable
+frequencies, ``mlp_rbf_g``/``mlp_rbf_l``, the embedding or ``init_linear``,
+the spherical tables on the card) runs in float32; the radial table and the
+angular terms are cast before the triplet gather and the sbf MLPs run in
+bfloat16; the node state, the edge attributes and the four masks cross into
+bfloat16 before the layers, whose kernels sum in float32 and round once; the
+heads go back to float32 before the fusion's softmax, and the pool runs in
+float32.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -34,10 +46,9 @@ from pamnet_tpu_torch.config import PAMNetConfig, embeds_atom_types
 from pamnet_tpu_torch.data.batch import GraphBatch
 from pamnet_tpu_torch.models.device_graph import rebuild_structure
 from pamnet_tpu_torch.models.layers import FoldedSBF, GlobalMP, LocalMP
-from pamnet_tpu_torch.nn import Linear, init_, mlp
+from pamnet_tpu_torch.nn import Linear, cast_parameters, init_, mlp
 from pamnet_tpu_torch.ops.basis import BesselRBF, legendre_cbf, spherical_basis_edge_rbf
 from pamnet_tpu_torch.ops.gather import row_gather, row_gather_plain
-from pamnet_tpu_torch.ops.sbf_modulate import KERNEL_SHAPES
 from pamnet_tpu_torch.ops.segment import segment_mean, segment_sum
 
 
@@ -127,6 +138,7 @@ class PAMNet(nn.Module):
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         init_(self, generator)
+        self._stack_params: list[nn.Parameter] | None = None
 
     def fold_sbf(self) -> bool:
         """Fold the sbf MLP through the gather and run the folded stage in
@@ -134,26 +146,42 @@ class PAMNet(nn.Module):
         batches included, as the JAX package folds every batch without ELL
         tables (``_fold_gate``; its main_rna_puzzles.py builds none), and the port
         builds no ELL tables."""
-        cfg = self.cfg
-        if cfg.fold_sbf is not None:
-            return cfg.fold_sbf
-        return (cfg.num_spherical, cfg.dim) in KERNEL_SHAPES
+        return self.cfg.folds()
 
-    def _triplet_basis(self, g: GraphBatch, plain: bool):
-        """(edge_attr_sbf2, edge_attr_sbf1): (T, dim) tensors, or
-        ``FoldedSBF`` inputs of the fused folded stage; PAMNet_s has no
-        two-hop stream (None) and one sbf MLP."""
+    def _compute_parameters(self, dtype: torch.dtype):
+        """The block in which the stack reads its parameters in ``dtype``:
+        one batched cast where that is not their float32
+        (``nn.cast_parameters``) of the parameters the stack reads, the sbf
+        MLPs' and the layers' (not the embedding, the Bessel frequencies,
+        ``mlp_rbf_*`` or ``init_linear``, which the float32 geometry side
+        reads)."""
+        if dtype == torch.float32:
+            return contextlib.nullcontext()
+        if self._stack_params is None:  # the same Parameter objects for the module's life
+            sbf = ((self.mlp_sbf,) if self.cfg.variant == "s"
+                   else (self.mlp_sbf2, self.mlp_sbf1))
+            self._stack_params = [p for m in (*sbf, self.global_layer, self.local_layer)
+                                  for p in m.parameters()]
+        return cast_parameters(self._stack_params, dtype)
+
+    def _triplet_basis(self, g: GraphBatch, plain: bool, dtype: torch.dtype):
+        """(edge_attr_sbf2, edge_attr_sbf1): (T, dim) tensors in ``dtype``,
+        or ``FoldedSBF`` inputs of the fused folded stage (float32 only);
+        PAMNet_s has no two-hop stream (None) and one sbf MLP."""
         ns, nr = self.cfg.num_spherical, self.cfg.num_radial
         if self.cfg.variant == "s":
             mlp_sbf2, mlp_sbf1 = None, self.mlp_sbf
         else:
             mlp_sbf2, mlp_sbf1 = self.mlp_sbf2, self.mlp_sbf1
         if not self.fold_sbf():
-            # Geometry only: the radial table's gather has no backward.
+            # Geometry only: the radial table's gather has no backward.  The
+            # table and the angular terms take the stack's type before the
+            # gather (JAX casts them there: half the gathered bytes).
             gather = row_gather_plain if plain else row_gather
+            table = g.sbf_radial.to(dtype)
 
             def expand(mlp_sbf, idx, cbf):
-                sbf = gather(g.sbf_radial, idx) * torch.repeat_interleave(cbf, nr, dim=1)
+                sbf = gather(table, idx) * torch.repeat_interleave(cbf.to(dtype), nr, dim=1)
                 return mlp_sbf(sbf)
 
             return (None if mlp_sbf2 is None else expand(mlp_sbf2, g.t2_kj, g.cbf2),
@@ -190,18 +218,26 @@ class PAMNet(nn.Module):
         dist_l = torch.where(g.el_mask > 0, g.dist_l, 2.0 * cfg.cutoff_l)
         rbf_l = self.mlp_rbf_l(self.rbf_l(dist_l, cfg.cutoff_l, cfg.envelope_exponent))
         rbf_g = self.mlp_rbf_g(self.rbf_g(dist_g, cfg.cutoff_g, cfg.envelope_exponent))
-        sbf2, sbf1 = self._triplet_basis(g, plain)
 
+        cdt = cfg.dtype
         outs, atts = [], []
-        for glayer, llayer in zip(self.global_layer, self.local_layer):
-            x, out_g, att_g = glayer(x, rbf_g, g, cfg.flow, plain)
-            x, out_l, att_l = llayer(x, rbf_l, sbf2, sbf1, g, plain)
-            outs.append(torch.cat([out_g, out_l], dim=1))
-            atts.append(torch.cat([att_g, att_l], dim=1))
+        with self._compute_parameters(cdt):
+            sbf2, sbf1 = self._triplet_basis(g, plain, cdt)
+            # The mixed-precision boundary: the geometry above stays float32.
+            x, rbf_g, rbf_l = x.to(cdt), rbf_g.to(cdt), rbf_l.to(cdt)
+            if cdt != torch.float32:
+                g = dataclasses.replace(g, **{k: getattr(g, k).to(cdt) for k in (
+                    "eg_mask", "el_mask", "t2_mask", "t1_mask")})
+            for glayer, llayer in zip(self.global_layer, self.local_layer):
+                x, out_g, att_g = glayer(x, rbf_g, g, cfg.flow, plain)
+                x, out_l, att_l = llayer(x, rbf_l, sbf2, sbf1, g, plain)
+                outs.append(torch.cat([out_g, out_l], dim=1))
+                atts.append(torch.cat([att_g, att_l], dim=1))
         # Two-plex fusion per (layer, node), summed over layers, in f32
-        # (reference: models.py:206-213).
-        att = torch.softmax(F.leaky_relu(torch.stack(atts), 0.2), dim=-1)
-        node_out = (torch.stack(outs) * att).sum(-1).sum(0)  # (N,)
+        # whatever the stack's type (reference: models.py:206-213; JAX: a
+        # bfloat16 softmax here biased RNA scores by about 2.5%).
+        att = torch.softmax(F.leaky_relu(torch.stack(atts).float(), 0.2), dim=-1)
+        node_out = (torch.stack(outs).float() * att).sum(-1).sum(0)  # (N,)
         node_out = node_out * g.node_mask
         num_graphs = g.y.shape[0]
         if kind == "qm9":  # sum pool (reference: models.py:215-216)

@@ -5,19 +5,73 @@
 
 Parameters are created uninitialized; ``init_`` fills a module tree with
 the JAX package's init distributions from a ``torch.Generator``.
+
+Mixed precision (JAX ``pamnet_tpu/nn.py:39-45``): parameters stay float32
+and a Linear follows its input's type, its weight and bias cast at each use,
+so gradients reach the float32 parameters through the cast.  Inside
+``cast_parameters`` the casts of a forward's parameters come from one
+batched cast (a concatenation, one cast and views, and the same in the
+backward) instead of a cast and a cast-back launch per tensor: the same
+values and gradients in a handful of launches.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 from torch import nn
 from torch.nn import functional as F
 
+# id(parameter) -> its copy in the compute type, inside ``cast_parameters``.
+_casts = threading.local()
+
+
+def as_dtype(p: torch.Tensor | None, dtype: torch.dtype) -> torch.Tensor | None:
+    """``p`` in ``dtype``: unchanged where it has that type, else the copy
+    ``cast_parameters`` made for this forward, else a cast."""
+    if p is None or p.dtype == dtype:
+        return p
+    cast = (getattr(_casts, "by_id", None) or {}).get(id(p))
+    return cast if cast is not None and cast.dtype == dtype else p.to(dtype)
+
+
+class _CastAll(torch.autograd.Function):
+    """Every tensor of ``params`` cast to ``dtype`` through one flat buffer;
+    the backward casts the gradients back the same way."""
+
+    @staticmethod
+    def forward(ctx, dtype, *params):
+        ctx.src_dtype = params[0].dtype
+        ctx.shapes = [p.shape for p in params]
+        flat = torch.cat([p.reshape(-1) for p in params]).to(dtype)
+        return tuple(v.view(shape) for v, shape in
+                     zip(flat.split([p.numel() for p in params]), ctx.shapes))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        flat = torch.cat([g.reshape(-1) for g in grads]).to(ctx.src_dtype)
+        sizes = [math.prod(shape) for shape in ctx.shapes]
+        return (None, *(v.view(shape) for v, shape in zip(flat.split(sizes), ctx.shapes)))
+
+
+@contextlib.contextmanager
+def cast_parameters(params: list[torch.Tensor], dtype: torch.dtype):
+    """Within the block, ``as_dtype(p, dtype)`` of each of ``params`` (one
+    type) is its view of one batched cast, differentiable in ``p``."""
+    prev = getattr(_casts, "by_id", None)
+    casts = _CastAll.apply(dtype, *params)
+    _casts.by_id = {**(prev or {}), **{id(p): c for p, c in zip(params, casts)}}
+    try:
+        yield
+    finally:
+        _casts.by_id = prev
+
 
 class Linear(nn.Module):
-    """y = x @ weight.T + bias, weight (out, in)."""
+    """y = x @ weight.T + bias, weight (out, in), in ``x``'s type."""
 
     def __init__(self, d_in: int, d_out: int, bias: bool = True):
         super().__init__()
@@ -25,7 +79,7 @@ class Linear(nn.Module):
         self.bias = nn.Parameter(torch.empty(d_out)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight, self.bias)
+        return F.linear(x, as_dtype(self.weight, x.dtype), as_dtype(self.bias, x.dtype))
 
 
 def mlp(channels: list[int]) -> nn.Sequential:

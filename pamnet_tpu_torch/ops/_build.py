@@ -19,6 +19,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_ext"
@@ -28,17 +30,19 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signature of each exported function: (argtypes, restype).
+# The functions that take bf16 streams have an int flag (``dtype_flag``)
+# before the stream.
 _SIGNATURES = {
-    "pamnet_triplet_aggregate": ([_P] * 6 + [_I] * 4 + [_P], _I),
+    "pamnet_triplet_aggregate": ([_P] * 6 + [_I] * 5 + [_P], _I),
     "pamnet_sbf_modulate": ([_P] * 12 + [_I] * 5 + [_P], _I),
     "pamnet_sbf_modulate_backward": ([_P] * 17 + [_I] * 5 + [_P], _I),
-    "pamnet_row_gather": ([_P, _P, _P, _I, _I, _I, _P], _I),
-    "pamnet_edge_message": ([_P] * 8 + [_I, _I, _P], _I),
-    "pamnet_edge_message_sum": ([_P] * 8 + [_I] * 4 + [_P], _I),
-    "pamnet_triplet_aggregate_grad_ab": ([_P] * 8 + [_I] * 6 + [_P], _I),
+    "pamnet_row_gather": ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "pamnet_edge_message": ([_P] * 8 + [_I] * 3 + [_P], _I),
+    "pamnet_edge_message_sum": ([_P] * 8 + [_I] * 5 + [_P], _I),
+    "pamnet_triplet_aggregate_grad_ab": ([_P] * 8 + [_I] * 7 + [_P], _I),
     "pamnet_gather_product": ([_P] * 5 + [_I, _I, _I, _P], _I),
-    "pamnet_gated_sum_backward": ([_P] * 6 + [_I] * 3 + [_P], _I),
-    "pamnet_edge_message_backward": ([_P] * 10 + [_I] * 4 + [_P], _I),
+    "pamnet_gated_sum_backward": ([_P] * 6 + [_I] * 4 + [_P], _I),
+    "pamnet_edge_message_backward": ([_P] * 10 + [_I] * 5 + [_P], _I),
     "pamnet_group_sum_split": ([_P] * 4 + [_I, _I, _I, _P], _I),
     "pamnet_cuda_error_string": ([_I], ctypes.c_char_p),
 }
@@ -116,6 +120,24 @@ def library() -> ctypes.CDLL:
             fn.restype = restype
         _lib = lib
     return _lib
+
+
+def dtype_flag(what: str, dtype: torch.dtype) -> int:
+    """The ``bf16`` flag of a kernel that takes f32 or bf16 streams
+    (``csrc/vec.cuh``): 0 for float32, 1 for bfloat16; raises on any other
+    type."""
+    if dtype == torch.float32:
+        return 0
+    if dtype == torch.bfloat16:
+        return 1
+    raise ValueError(f"{what}: takes float32 or bfloat16 rows, got {dtype}")
+
+
+def f32_only(what: str, *tensors) -> None:
+    """Raise where a kernel without a bf16 version is handed a bf16 tensor
+    (on any device: no route changes type on its own)."""
+    if any(t is not None and t.dtype == torch.bfloat16 for t in tensors):
+        raise ValueError(f"{what} has no bfloat16 version; its operands must be float32")
 
 
 def check_operand(what: str, name: str, t, dtype, device, shape=None) -> None:

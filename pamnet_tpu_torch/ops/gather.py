@@ -25,6 +25,11 @@ of ``d_pre`` by ``i`` and by ``j``.  Summed, the backward kernel reads the
 valid count zeros.  A CSR holds the valid rows only, so these
 are exact when the padded rows' gradient is zero, which the model makes
 sure of by masking every padded row before any sum or pool.
+
+Types: float32 or bfloat16 rows, every float operand of a call (the mask
+too) in one type and the outputs in it (``csrc/vec.cuh``); the arithmetic is
+float32 and each output is rounded once, in the kernels as in the plain
+versions.  The row gather is a copy of either type.
 """
 
 from __future__ import annotations
@@ -33,17 +38,20 @@ import torch
 from torch.nn import functional as F
 
 from pamnet_tpu_torch.ops import _build
-from pamnet_tpu_torch.ops.triplet import (Groups, group_sum, triplet_aggregate_plain,
-                                          walk_shape)
+from pamnet_tpu_torch.ops.triplet import (Groups, acc_dtype, group_sum,
+                                          triplet_aggregate_plain, walk_shape)
 
 
 def row_gather_plain(src: torch.Tensor, idx: torch.Tensor,
                      valid: int | None = None) -> torch.Tensor:
-    """Reference version: advanced indexing; rows past ``valid`` are 0."""
+    """Reference version: advanced indexing of a float32 copy of bfloat16
+    rows (its backward sums a row's uses in float32 and rounds once); rows
+    past ``valid`` are 0."""
+    rows = src.to(acc_dtype(src.dtype))
     if valid is None or valid == idx.shape[0]:
-        return src[idx.long()]
+        return rows[idx.long()].to(src.dtype)
     out = src.new_zeros((idx.shape[0], src.shape[1]))
-    out[:valid] = src[idx[:valid].long()]
+    out[:valid] = rows[idx[:valid].long()]
     return out
 
 
@@ -51,7 +59,8 @@ def _row_gather(src, idx, valid):
     if src.device.type == "cpu":
         return row_gather_plain(src, idx, valid)
     dev = src.device
-    _build.check_operand("row_gather", "src", src, torch.float32, dev, (None, None))
+    bf16 = _build.dtype_flag("row_gather", src.dtype)
+    _build.check_operand("row_gather", "src", src, src.dtype, dev, (None, None))
     _build.check_operand("row_gather", "idx", idx, torch.int32, dev, (None,))
     rows = idx.shape[0]
     valid = rows if valid is None else valid
@@ -64,7 +73,7 @@ def _row_gather(src, idx, valid):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.pamnet_row_gather(src.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                                     rows, valid, src.shape[1], stream)
+                                     rows, valid, src.shape[1], bf16, stream)
     _build.check(code, "row_gather")
     row_gather.launches += 1
     return out
@@ -111,38 +120,43 @@ row_gather.launches = 0
 def edge_message_plain(xi, xj, i_idx, j_idx, base, gate=None, mask=None,
                        out_off: torch.Tensor | None = None):
     """Reference version: two gathers, sum, silu, then the factors; with
-    ``out_off``, kernel A's plain sum of those rows over that CSR.  The
-    gathers are ``index_select``s, whose backward (``index_add_``) sums in
-    one order on the CPU."""
-    m = F.silu(xi.index_select(0, i_idx.long()) + xj.index_select(0, j_idx.long()) + base)
+    ``out_off``, kernel A's plain sum of those rows over that CSR; in
+    float32 for bfloat16 rows, rounded once to ``base``'s type.  The
+    gathers are ``index_select``s of float32 copies, whose backward
+    (``index_add_``) sums in float32, in one order on the CPU."""
+    acc = acc_dtype(base.dtype)
+    m = F.silu(xi.to(acc).index_select(0, i_idx.long())
+               + xj.to(acc).index_select(0, j_idx.long()) + base.to(acc))
     if gate is not None:
-        m = m * gate
+        m = m * gate.to(acc)
     if mask is not None:
-        m = m * mask[:, None]
-    return m if out_off is None else triplet_aggregate_plain(m, out_off)
+        m = m * mask[:, None].to(acc)
+    return (m if out_off is None else triplet_aggregate_plain(m, out_off)).to(base.dtype)
 
 
 def _edge_operands(what, xi, xj, i_idx, j_idx, base, gate, mask, extra=None):
-    dev = base.device
+    dev, dt = base.device, base.dtype
     rows, d = base.shape
     if d % 4:
         raise ValueError(f"{what}: needs D % 4 == 0, got D = {d}")
-    f32, i32 = torch.float32, torch.int32
-    operands = {"xi": (xi, f32, (None, d)), "xj": (xj, f32, (xi.shape[0], d)),
+    bf16 = _build.dtype_flag(what, dt)
+    i32 = torch.int32
+    operands = {"xi": (xi, dt, (None, d)), "xj": (xj, dt, (xi.shape[0], d)),
                 "i_idx": (i_idx, i32, (rows,)), "j_idx": (j_idx, i32, (rows,)),
-                "base": (base, f32, (rows, d)), "gate": (gate, f32, (rows, d)),
-                "mask": (mask, f32, (rows,)), **(extra or {})}
+                "base": (base, dt, (rows, d)), "gate": (gate, dt, (rows, d)),
+                "mask": (mask, dt, (rows,)), **(extra or {})}
     for name, (t, dtype, shape) in operands.items():
         if t is not None:
             _build.check_operand(what, name, t, dtype, dev, shape)
-    return dev, rows, d
+    return dev, rows, d, bf16
 
 
 def _edge_message(xi, xj, i_idx, j_idx, base, gate, mask):
     if base.device.type == "cpu":
         return edge_message_plain(xi, xj, i_idx, j_idx, base, gate, mask)
-    dev, rows, d = _edge_operands("edge_message", xi, xj, i_idx, j_idx, base, gate, mask)
-    out = torch.empty((rows, d), dtype=torch.float32, device=dev)
+    dev, rows, d, bf16 = _edge_operands("edge_message", xi, xj, i_idx, j_idx, base, gate,
+                                        mask)
+    out = torch.empty((rows, d), dtype=base.dtype, device=dev)
     if rows == 0:
         return out
     lib = _build.library()
@@ -151,7 +165,7 @@ def _edge_message(xi, xj, i_idx, j_idx, base, gate, mask):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.pamnet_edge_message(
             xi.data_ptr(), xj.data_ptr(), i_idx.data_ptr(), j_idx.data_ptr(),
-            base.data_ptr(), ptr(gate), ptr(mask), out.data_ptr(), rows, d, stream,
+            base.data_ptr(), ptr(gate), ptr(mask), out.data_ptr(), rows, d, bf16, stream,
         )
     _build.check(code, "edge_message")
     edge_message.launches += 1
@@ -205,14 +219,14 @@ def edge_message_sum(xi: torch.Tensor, xj: torch.Tensor, i_idx: torch.Tensor,
     _check_out_groups(out_groups, xi.shape[0], base.shape[0])
     if base.device.type == "cpu":
         return edge_message_plain(xi, xj, i_idx, j_idx, base, gate, mask, out_groups.off)
-    dev, rows, d = _edge_operands("edge_message_sum", xi, xj, i_idx, j_idx, base, gate, mask,
-                                  {"out_groups.off": (out_groups.off, torch.int32,
-                                                      (xi.shape[0] + 1,))})
+    dev, rows, d, bf16 = _edge_operands(
+        "edge_message_sum", xi, xj, i_idx, j_idx, base, gate, mask,
+        {"out_groups.off": (out_groups.off, torch.int32, (xi.shape[0] + 1,))})
     num_out = xi.shape[0]
-    out = torch.empty((num_out, d), dtype=torch.float32, device=dev)
+    out = torch.empty((num_out, d), dtype=base.dtype, device=dev)
     if num_out == 0:
         return out
-    lanes, slots = walk_shape(d, num_out, out_groups.total)
+    lanes, slots = walk_shape(d, num_out, out_groups.total, base.dtype)
     lib = _build.library()
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(dev):
@@ -220,7 +234,7 @@ def edge_message_sum(xi: torch.Tensor, xj: torch.Tensor, i_idx: torch.Tensor,
         code = lib.pamnet_edge_message_sum(
             xi.data_ptr(), xj.data_ptr(), j_idx.data_ptr(), base.data_ptr(), ptr(gate),
             ptr(mask), out_groups.off.data_ptr(), out.data_ptr(), num_out, d, lanes, slots,
-            stream)
+            bf16, stream)
     _build.check(code, "edge_message_sum")
     edge_message_sum.launches += 1
     edge_message.launches += 1
@@ -295,20 +309,21 @@ edge_message.launches = 0
 
 def edge_message_backward_plain(xi, xj, i_idx, j_idx, base, gate, mask, g,
                                 at_i: bool = False, valid: int | None = None):
-    """Reference version of ``edge_message_backward``."""
-    pre = xi[i_idx.long()] + xj[j_idx.long()] + base
+    """Reference version of ``edge_message_backward`` (in float32 for
+    bfloat16 rows, each output rounded once to ``base``'s type)."""
+    acc, dt = acc_dtype(base.dtype), base.dtype
+    pre = xi[i_idx.long()].to(acc) + xj[j_idx.long()].to(acc) + base.to(acc)
     s = torch.sigmoid(pre)
-    if at_i:
-        g = g[i_idx.long()]
+    g = (g[i_idx.long()] if at_i else g).to(acc)
     if mask is not None:
-        g = g * mask[:, None]
+        g = g * mask[:, None].to(acc)
     d_gate = None if gate is None else g * (pre * s)
-    d_pre = (g if gate is None else g * gate) * (s * (1.0 + pre * (1.0 - s)))
+    d_pre = (g if gate is None else g * gate.to(acc)) * (s * (1.0 + pre * (1.0 - s)))
     if valid is not None and valid < base.shape[0]:
         d_pre[valid:] = 0.0
         if d_gate is not None:
             d_gate[valid:] = 0.0
-    return d_pre, d_gate
+    return d_pre.to(dt), None if d_gate is None else d_gate.to(dt)
 
 
 def edge_message_backward(xi: torch.Tensor, xj: torch.Tensor, i_idx: torch.Tensor,
@@ -328,12 +343,12 @@ def edge_message_backward(xi: torch.Tensor, xj: torch.Tensor, i_idx: torch.Tenso
         return edge_message_backward_plain(xi, xj, i_idx, j_idx, base, gate, mask, g,
                                            at_i, valid)
     g_shape = (xi.shape[0], base.shape[1]) if at_i else tuple(base.shape)
-    dev, rows, d = _edge_operands("edge_message_backward", xi, xj, i_idx, j_idx,
-                                  base, gate, mask, {"g": (g, torch.float32, g_shape)})
+    dev, rows, d, bf16 = _edge_operands("edge_message_backward", xi, xj, i_idx, j_idx,
+                                        base, gate, mask, {"g": (g, base.dtype, g_shape)})
     valid = rows if valid is None else valid
     if not 0 <= valid <= rows:
         raise ValueError(f"edge_message_backward: valid = {valid} outside [0, {rows}]")
-    d_pre = torch.empty((rows, d), dtype=torch.float32, device=dev)
+    d_pre = torch.empty((rows, d), dtype=base.dtype, device=dev)
     d_gate = None if gate is None else torch.empty_like(d_pre)
     if rows == 0:
         return d_pre, d_gate
@@ -344,7 +359,7 @@ def edge_message_backward(xi: torch.Tensor, xj: torch.Tensor, i_idx: torch.Tenso
         code = lib.pamnet_edge_message_backward(
             xi.data_ptr(), xj.data_ptr(), i_idx.data_ptr(), j_idx.data_ptr(),
             base.data_ptr(), ptr(gate), ptr(mask), g.data_ptr(), d_pre.data_ptr(),
-            ptr(d_gate), rows, valid, d, int(at_i), stream,
+            ptr(d_gate), rows, valid, d, int(at_i), bf16, stream,
         )
     _build.check(code, "edge_message_backward")
     edge_message_backward.launches += 1

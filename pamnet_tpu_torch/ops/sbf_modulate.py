@@ -175,7 +175,8 @@ def sbf_modulate_backward(proj, m_neighbor, cbf, bias, w1, b1, w2, b2, idx, mask
     through ``groups`` that recomputes the forward, then a fixed-order sum
     of the blocks' weight gradients) and counts the call in
     ``sbf_modulate_backward.launches``.  The plain version of this function
-    is PyTorch's autograd of ``sbf_modulate_plain``."""
+    is PyTorch's autograd of ``sbf_modulate_plain``.  float32 only."""
+    _build.f32_only("sbf_modulate_backward", proj, m_neighbor, g)
     t_count = idx.shape[0]
     _check_out_groups(out_groups, out_ids, t_count, needs_ids=True)
     g_rows = t_count if out_groups is None else out_groups.off.shape[0] - 1
@@ -257,8 +258,10 @@ def sbf_modulate(proj: torch.Tensor, m_neighbor: torch.Tensor,
     ``out_ids``, the center edge of each triplet (needed, with ``total``,
     when any of them requires grad; the mask must be 0 past
     ``groups.total``).  The plain version for CPU tensors, the CUDA kernels
-    for CUDA tensors.  Counts its forward kernel launches in
+    for CUDA tensors; float32 only (no bfloat16 version yet: a bfloat16
+    model never folds, ``config.py``).  Counts its forward kernel launches in
     ``sbf_modulate.launches``."""
+    _build.f32_only("sbf_modulate", proj, m_neighbor, cbf, mask)
     needs_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (proj, m_neighbor, cbf, bias, w1, b1, w2, b2, mask))
     _check_out_groups(out_groups, out_ids, idx.shape[0], needs_ids=needs_grad)

@@ -32,6 +32,13 @@ the backward of every row gather (``ops/gather.py``): kernel A where the
 groups are short, ``csrc/group_sum.cu`` (``group_sum_split``) where one is
 long (``group_sum_route``).
 
+Types: the kernels take float32 or bfloat16 rows (``csrc/vec.cuh``; every
+float operand of a call in one type, the output in it too) and compute in
+float32: a bfloat16 sum accumulates in float32 and rounds once, as the plain
+versions do (a bfloat16 running sum stalls past about 256).  The one-gradient
+routes (``triplet_aggregate_grad_a``, ``gather_product``) and the split group
+sum take float32 only and raise on bfloat16.
+
 Padded rows: a CSR's last offset is the batch's valid row count, so padded
 rows never enter a sum, forward or backward.  The sums of this module are
 exact with padding.  The row gathers' backward is exact because the model
@@ -73,23 +80,34 @@ class AggregateGrad(NamedTuple):
     seg_by_idx: torch.Tensor | None = None
 
 
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The type a plain version computes in: float32 for bfloat16 rows (the
+    kernels' registers), the rows' own type otherwise."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def triplet_aggregate_plain(a: torch.Tensor, off: torch.Tensor,
                             idx: torch.Tensor | None = None,
                             b: torch.Tensor | None = None,
                             bidx: torch.Tensor | None = None) -> torch.Tensor:
-    """Reference version: gather, multiply, ``index_add_``.  ``bidx`` reads
-    the modulation ``b[bidx[r]]`` instead of ``b[r]``."""
+    """Reference version: gather, multiply, ``index_add_``, in float32 for
+    bfloat16 rows, rounded once to ``a``'s type; the gathers read float32
+    copies, so their backward sums a row's uses in float32 too.  ``bidx``
+    reads the modulation ``b[bidx[r]]`` instead of ``b[r]``."""
     num_out = off.shape[0] - 1
     rows = int(off[-1])
     seg = torch.repeat_interleave(
         torch.arange(num_out, device=a.device), (off[1:] - off[:-1]).long(),
         output_size=rows,
     )
+    dt, acc = a.dtype, acc_dtype(a.dtype)
+    a = a.to(acc)
     vals = a[idx[:rows].long()] if idx is not None else a[:rows]
     if b is not None:
+        b = b.to(acc)
         vals = vals * (b[bidx[:rows].long()] if bidx is not None else b[:rows])
-    out = a.new_zeros((num_out, a.shape[1]))
-    return out.index_add_(0, seg, vals)
+    out = vals.new_zeros((num_out, a.shape[1]))
+    return out.index_add_(0, seg, vals).to(dt)
 
 
 # Rows whose loads one slot of the walk issues together (``kWalkUnroll`` of
@@ -100,10 +118,19 @@ WALK_MAX_TEAM = 256
 WALK_THREADS = 2 * 132 * 2048
 
 
-def walk_shape(d: int, num_out: int, total: int | None) -> tuple[int, int]:
+def vector_width(d: int, dtype: torch.dtype = torch.float32) -> int:
+    """Values a lane of a kernel moves as one vector (``csrc/vec.cuh``):
+    16 bytes (4 float32, 8 bfloat16 values), or for bfloat16 rows whose
+    ``d`` is not a multiple of 8, 8 bytes (4 values)."""
+    return 8 if dtype == torch.bfloat16 and d % 8 == 0 else 4
+
+
+def walk_shape(d: int, num_out: int, total: int | None,
+               dtype: torch.dtype = torch.float32) -> tuple[int, int]:
     """``(lanes, slots)`` of the team of threads that walks one output row
     of a CSR sum (``csrc/csr_walk.cuh``), from what the host knows: ``lanes``
-    covers the ``d / 4`` float4 columns, rounded up to a power of two (D=12
+    covers the row's vectors (``vector_width``: a D=128 row is 32 float32
+    vectors, 16 bfloat16 ones), rounded up to a power of two (D=12
     leaves a lane idle) and at most 32 (wider rows loop over their columns);
     ``slots`` is the power of two that gives each slot about ``WALK_UNROLL``
     rows of a group of the mean length ``total / num_out``, but no more
@@ -113,7 +140,7 @@ def walk_shape(d: int, num_out: int, total: int | None) -> tuple[int, int]:
     work; within them a long group gains from more.)  Where ``total`` is
     unknown the shape is one slot, right for any CSR.  A function of its
     arguments alone, so a fixed input keeps one summation order."""
-    vecs = max(1, -(-d // 4))
+    vecs = max(1, -(-d // vector_width(d, dtype)))
     lanes = min(32, 1 << (vecs - 1).bit_length())
     if total is None or num_out <= 0:
         return lanes, 1
@@ -126,16 +153,19 @@ def _kernel_a(what: str, a, off, idx, b, bidx, total, split: bool = False,
               longest: int | None = None):
     """Check the operands and launch kernel A on the current stream, or with
     ``split`` the split group sum (no ``b``; ``longest`` picks its grid)."""
-    dev = a.device
+    dev, dt = a.device, a.dtype
     d = a.shape[1] if a.dim() == 2 else -1
     if d % 4 or d <= 0:
         raise ValueError(f"{what}: a must be (rows, D) with D % 4 == 0, "
                          f"got {tuple(a.shape)}")
+    if split:
+        _build.f32_only(what, a)
+    bf16 = _build.dtype_flag(what, dt)
     rows = next(t for t in (idx, bidx, b, a) if t is not None).shape[0]
-    f32, i32 = torch.float32, torch.int32
-    operands = {"a": (a, f32, (None, d)), "off": (off, i32, (None,)),
+    i32 = torch.int32
+    operands = {"a": (a, dt, (None, d)), "off": (off, i32, (None,)),
                 "idx": (idx, i32, (rows,)), "bidx": (bidx, i32, (rows,)),
-                "b": (b, f32, (None if bidx is not None else rows, d))}
+                "b": (b, dt, (None if bidx is not None else rows, d))}
     for name, (t, dtype, shape) in operands.items():
         if t is not None:
             _build.check_operand(what, name, t, dtype, dev, shape)
@@ -156,10 +186,10 @@ def _kernel_a(what: str, a, off, idx, b, bidx, total, split: bool = False,
                                               out.data_ptr(), num_out, d,
                                               -1 if longest is None else longest, stream)
         else:
-            lanes, slots = walk_shape(d, num_out, total)
+            lanes, slots = walk_shape(d, num_out, total, dt)
             code = lib.pamnet_triplet_aggregate(ptr(a), ptr(b), ptr(idx), ptr(bidx),
                                                 off.data_ptr(), out.data_ptr(), num_out,
-                                                d, lanes, slots, stream)
+                                                d, lanes, slots, bf16, stream)
     _build.check(code, what)
     return out
 
@@ -251,7 +281,8 @@ triplet_aggregate.launches = 0
 
 
 def triplet_aggregate_grad_a_plain(g, by_idx: Groups, seg_by_idx, b=None) -> torch.Tensor:
-    """Reference version of ``triplet_aggregate_grad_a``."""
+    """Reference version of ``triplet_aggregate_grad_a`` (in any type: the
+    fused role swap's plain version sums its ``d_a`` so)."""
     return triplet_aggregate_plain(g, by_idx.off, seg_by_idx, b,
                                    None if b is None else by_idx.perm)
 
@@ -261,8 +292,9 @@ def triplet_aggregate_grad_a(g: torch.Tensor, by_idx: Groups,
                              b: torch.Tensor | None = None) -> torch.Tensor:
     """d_a of a gathered sum: kernel A with roles swapped,
     ``d_a[v] = sum_{r in [off[v], off[v+1])} g[seg_by_idx[r]] * b[perm[r]]``
-    over ``by_idx`` = (perm, off), the CSR of the forward's ``idx``.  Counts
-    its kernel launches in ``triplet_aggregate_grad_a.launches``."""
+    over ``by_idx`` = (perm, off), the CSR of the forward's ``idx``; float32
+    only.  Counts its kernel launches in ``triplet_aggregate_grad_a.launches``."""
+    _build.f32_only("triplet_aggregate_grad_a", g, b)
     if g.device.type == "cpu":
         return triplet_aggregate_grad_a_plain(g, by_idx, seg_by_idx, b)
     out = _kernel_a("triplet_aggregate_grad_a", g, by_idx.off, seg_by_idx, b,
@@ -284,8 +316,10 @@ def triplet_aggregate_grad_ab_plain(g, by_idx: Groups, seg_by_idx, b, a):
     sizes = (by_idx.off[1:] - by_idx.off[:-1]).long()
     v = torch.repeat_interleave(torch.arange(a.shape[0], device=a.device), sizes,
                                 output_size=total)
+    acc = acc_dtype(b.dtype)
     d_b = b.new_zeros((by_idx.perm.shape[0], a.shape[1]))
-    d_b[by_idx.perm[:total].long()] = a[v] * g[seg_by_idx[:total].long()]
+    d_b[by_idx.perm[:total].long()] = (a[v].to(acc)
+                                       * g[seg_by_idx[:total].long()].to(acc)).to(b.dtype)
     return d_a, d_b
 
 
@@ -302,34 +336,35 @@ def triplet_aggregate_grad_ab(g: torch.Tensor, by_idx: Groups, seg_by_idx: torch
     ``triplet_aggregate_grad_ab.launches``."""
     if g.device.type == "cpu":
         return triplet_aggregate_grad_ab_plain(g, by_idx, seg_by_idx, b, a)
-    what, dev = "triplet_aggregate_grad_ab", g.device
+    what, dev, dt = "triplet_aggregate_grad_ab", g.device, g.dtype
     d = g.shape[1] if g.dim() == 2 else -1
     if d % 4 or d <= 0:
         raise ValueError(f"{what}: g must be (rows, D) with D % 4 == 0, got {tuple(g.shape)}")
     if by_idx.perm is None or by_idx.total is None:
         raise ValueError(f"{what}: by_idx must be a permuted CSR with its valid row count")
+    bf16 = _build.dtype_flag(what, dt)
     rows, num_out, total = by_idx.perm.shape[0], by_idx.off.shape[0] - 1, by_idx.total
-    f32, i32 = torch.float32, torch.int32
-    operands = {"g": (g, f32, (None, d)), "b": (b, f32, (rows, d)),
-                "a": (a, f32, (num_out, d)), "seg_by_idx": (seg_by_idx, i32, (rows,)),
+    i32 = torch.int32
+    operands = {"g": (g, dt, (None, d)), "b": (b, dt, (rows, d)),
+                "a": (a, dt, (num_out, d)), "seg_by_idx": (seg_by_idx, i32, (rows,)),
                 "by_idx.perm": (by_idx.perm, i32, (rows,)),
                 "by_idx.off": (by_idx.off, i32, (num_out + 1,))}
     for name, (t, dtype, shape) in operands.items():
         _build.check_operand(what, name, t, dtype, dev, shape)
     if not 0 <= total <= rows:
         raise ValueError(f"{what}: off[-1] = {total}, but perm holds {rows} rows")
-    d_a = torch.empty((num_out, d), dtype=f32, device=dev)
-    d_b = torch.empty((rows, d), dtype=f32, device=dev)
+    d_a = torch.empty((num_out, d), dtype=dt, device=dev)
+    d_b = torch.empty((rows, d), dtype=dt, device=dev)
     if num_out == 0 or rows == 0:  # nothing to walk: every group and row is empty
         return d_a.zero_(), d_b.zero_()
-    lanes, slots = walk_shape(d, num_out, total)
+    lanes, slots = walk_shape(d, num_out, total, dt)
     lib = _build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.pamnet_triplet_aggregate_grad_ab(
             g.data_ptr(), b.data_ptr(), a.data_ptr(), seg_by_idx.data_ptr(),
             by_idx.perm.data_ptr(), by_idx.off.data_ptr(), d_a.data_ptr(), d_b.data_ptr(),
-            num_out, rows, total, d, lanes, slots, stream)
+            num_out, rows, total, d, lanes, slots, bf16, stream)
     _build.check(code, what)
     triplet_aggregate_grad_ab.launches += 1
     return d_a, d_b
@@ -386,8 +421,10 @@ def group_sum_split(x: torch.Tensor, groups: Groups) -> torch.Tensor:
     """``group_sum`` by ``csrc/group_sum.cu``: each group's rows spread over
     a block per 16 columns, or over a cluster of 8 such blocks where
     ``groups.longest`` is beyond one batch of a block's lanes or unknown;
-    summed in a fixed order (bitwise repeatable).  The plain version for CPU
-    tensors.  Counts its kernel launches in ``group_sum_split.launches``."""
+    summed in a fixed order (bitwise repeatable); float32 only.  The plain
+    version for CPU tensors.  Counts its kernel launches in
+    ``group_sum_split.launches``."""
+    _build.f32_only("group_sum_split", x)
     if x.device.type == "cpu":
         return group_sum_plain(x, groups)
     out = _kernel_a("group_sum_split", x, groups.off, groups.perm, None, None, groups.total,
@@ -412,7 +449,9 @@ def gather_product(x: torch.Tensor, xi: torch.Tensor, y: torch.Tensor,
     """(rows, D): ``out[r] = x[xi[r]] * y[yi[r]]`` for ``r < valid``, zero
     after: the d_b of kernel A's gathered sum, ``a[idx] * g[seg]``.  The
     plain version for CPU tensors, ``csrc/gather_backward.cu`` for CUDA
-    tensors; counts its kernel launches in ``gather_product.launches``."""
+    tensors; float32 only.  Counts its kernel launches in
+    ``gather_product.launches``."""
+    _build.f32_only("gather_product", x, y)
     if x.device.type == "cpu":
         return gather_product_plain(x, xi, y, yi, valid)
     dev = x.device
@@ -445,11 +484,13 @@ gather_product.launches = 0
 
 
 def gated_sum_backward_plain(a, b, g, seg, valid: int):
-    """Reference version of ``gated_sum_backward``."""
-    gs = g[seg[:valid].long()]
+    """Reference version of ``gated_sum_backward`` (the products in float32
+    for bfloat16 rows, each rounded once)."""
+    acc = acc_dtype(g.dtype)
+    gs = g[seg[:valid].long()].to(acc)
     d_a, d_b = b.new_zeros(b.shape), a.new_zeros(a.shape)
-    d_a[:valid] = gs * b[:valid]
-    d_b[:valid] = a[:valid] * gs
+    d_a[:valid] = (gs * b[:valid].to(acc)).to(b.dtype)
+    d_b[:valid] = (a[:valid].to(acc) * gs).to(a.dtype)
     return d_a, d_b
 
 
@@ -463,19 +504,19 @@ def gated_sum_backward(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor, seg: t
     ones.  Counts its kernel launches in ``gated_sum_backward.launches``."""
     if a.device.type == "cpu":
         return gated_sum_backward_plain(a, b, g, seg, valid)
-    what, dev = "gated_sum_backward", a.device
+    what, dev, dt = "gated_sum_backward", a.device, a.dtype
     rows = a.shape[0]
     d = a.shape[1] if a.dim() == 2 else -1
     if d % 4 or d <= 0:
         raise ValueError(f"{what}: a must be (rows, D) with D % 4 == 0, got {tuple(a.shape)}")
-    f32 = torch.float32
-    operands = {"a": (a, f32, (rows, d)), "b": (b, f32, (rows, d)), "g": (g, f32, (None, d)),
+    bf16 = _build.dtype_flag(what, dt)
+    operands = {"a": (a, dt, (rows, d)), "b": (b, dt, (rows, d)), "g": (g, dt, (None, d)),
                 "seg": (seg, torch.int32, (rows,))}
     for name, (t, dtype, shape) in operands.items():
         _build.check_operand(what, name, t, dtype, dev, shape)
     if not 0 <= valid <= rows:
         raise ValueError(f"{what}: valid = {valid} outside [0, {rows}]")
-    d_a = torch.empty((rows, d), dtype=f32, device=dev)
+    d_a = torch.empty((rows, d), dtype=dt, device=dev)
     d_b = torch.empty_like(d_a)
     if rows == 0:
         return d_a, d_b
@@ -484,7 +525,7 @@ def gated_sum_backward(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor, seg: t
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.pamnet_gated_sum_backward(a.data_ptr(), b.data_ptr(), g.data_ptr(),
                                              seg.data_ptr(), d_a.data_ptr(), d_b.data_ptr(),
-                                             rows, valid, d, stream)
+                                             rows, valid, d, bf16, stream)
     _build.check(code, what)
     gated_sum_backward.launches += 1
     return d_a, d_b

@@ -26,7 +26,7 @@ import threading
 import numpy as np
 import torch
 
-from pamnet_tpu_torch.config import PAMNetConfig, resolve_device
+from pamnet_tpu_torch.config import PAMNetConfig, resolve_device, set_matmul_precision
 from pamnet_tpu_torch.data.loader import GraphLoader
 from pamnet_tpu_torch.data.pdb import parse_pdb_atoms
 from pamnet_tpu_torch.models.pamnet import PAMNet
@@ -54,8 +54,7 @@ class RNAScoringService:
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # The JAX service scores at float32 matmul precision.
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+            set_matmul_precision()
         self.cfg = cfg
         self.batch_size = batch_size
         self.ladder_pads = ladder_pads
@@ -160,7 +159,7 @@ def make_server(service: RNAScoringService, host: str, port: int,
     return ThreadingHTTPServer((host, port), Handler)
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--host", type=str, default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8040)
@@ -176,13 +175,21 @@ def main(argv=None):
     weights.add_argument("--seed", type=int, help="random weights from this seed")
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--fixed_pads", action="store_true")
-    args = parser.parse_args(argv)
+    parser.add_argument("--compute_dtype", type=str, default="float32",
+                        choices=["float32", "bfloat16"],
+                        help="float32 (the JAX service's default) or bfloat16; the "
+                             "folded dim-16 model takes float32 only")
+    return parser
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
 
     from pamnet_tpu_torch.weights import init_params, load_reference_checkpoint
 
     cfg = PAMNetConfig(dataset="rna_serve", dim=args.dim, n_layer=args.n_layer,
                        cutoff_l=args.cutoff_l, cutoff_g=args.cutoff_g,
-                       flow=args.flow)
+                       flow=args.flow, compute_dtype=args.compute_dtype)
     if args.saved_model is not None:
         state, source = load_reference_checkpoint(args.saved_model), args.saved_model
     else:

@@ -525,15 +525,16 @@ _WALK_ROUTES = ("sum", "gather", "modulate", "gather+modulate", "role swap", "gr
                 "message", "message (gate, mask)")
 
 
-def _walk_case(cuda, route, d, seed):
+def _walk_case(cuda, route, d, seed, dtype=torch.float32):
     """(kernel call, plain call, off) of one walk route at D=d on 36 groups
-    that cycle through ``_WALK_SIZES``, with a padded tail past off[-1]."""
+    that cycle through ``_WALK_SIZES``, with a padded tail past off[-1], in
+    rows of ``dtype``."""
     g = torch.Generator(device=cuda).manual_seed(seed)
     sizes = [_WALK_SIZES[k % len(_WALK_SIZES)] for k in range(36)]
     num_out, valid = len(sizes), sum(sizes)
     rows = valid + 29
     off = torch.tensor(np.concatenate([[0], np.cumsum(sizes)]), dtype=torch.int32, device=cuda)
-    r = lambda *s: torch.randn(*s, device=cuda, generator=g)  # noqa: E731
+    r = lambda *s: torch.randn(*s, device=cuda, generator=g).to(dtype)  # noqa: E731
     ri = lambda n, hi: torch.randint(0, hi, (n,), device=cuda,  # noqa: E731
                                      generator=g).to(torch.int32)
     if route in ("sum", "gather", "modulate", "gather+modulate"):
@@ -563,7 +564,7 @@ def _walk_case(cuda, route, d, seed):
         torch.zeros(rows - valid, dtype=torch.long, device=cuda)]).to(torch.int32)
     args = (r(num_out, d), r(num_out, d), i_idx, ri(rows, num_out), r(rows, d),
             r(rows, d) if gated else None,
-            (torch.arange(rows, device=cuda) < valid).float() if gated else None)
+            (torch.arange(rows, device=cuda) < valid).to(dtype) if gated else None)
     out_groups = Groups(off, None, valid, max(sizes))
     return (lambda: edge_message_sum(*args, out_groups),
             lambda: edge_message_plain(*args, out_off=off), off)
@@ -878,3 +879,178 @@ def test_device_graph_on_the_card(cuda, kind):
         got = model(derive)
         torch.testing.assert_close(got, model(derive, plain=True), atol=2e-5, rtol=2e-4)
         torch.testing.assert_close(got, plain_host(host), atol=2e-5, rtol=2e-4)
+
+
+# ---- bfloat16 versions of the kernels ----
+
+BF16 = torch.bfloat16
+
+
+def _assert_bf16_ulp(got, want):
+    """One bfloat16 ulp against the plain version, which computes in f32 and
+    rounds once: |got - want| <= 2^-7 |want| + 1e-5 max|want|."""
+    assert got.dtype == want.dtype == BF16 and got.shape == want.shape
+    g, w = got.double(), want.double()
+    assert bool(torch.isfinite(g).all())
+    bad = (g - w).abs() > 2.0 ** -7 * w.abs() + 1e-5 * float(w.abs().max())
+    assert not bool(bad.any()), float((g - w).abs().max())
+
+
+@pytest.mark.parametrize("d", [8, 12, 16, 128])
+@pytest.mark.parametrize("route", [r for r in _WALK_ROUTES if r != "role swap"])
+def test_walk_bf16_every_route_and_team_shape(cuda, monkeypatch, route, d):
+    """The CSR walk on bfloat16 rows (16-byte vectors where D % 8 == 0,
+    8-byte ones at D = 12), every route with a bfloat16 version, at the
+    shape the host picks and every team shape up to a block: within one ulp
+    of the plain version, empty groups zero, two calls bitwise equal."""
+    lanes = walk_shape(d, 1, None, BF16)[0]
+    assert lanes == min(32, 1 << ((d // (8 if d % 8 == 0 else 4)) - 1).bit_length())
+    picked = walk_shape(d, 36, sum(_WALK_SIZES) * 6, BF16)
+    for shape in [picked] + [(lanes, s) for s in (1, 2, 4, 8, 16, 32, 64) if lanes * s <= 256]:
+        monkeypatch.setattr(triplet_ops, "walk_shape", lambda *a, _s=shape: _s)
+        monkeypatch.setattr(gather_ops, "walk_shape", lambda *a, _s=shape: _s)
+        fn, plain_fn, off = _walk_case(cuda, route, d, seed=d + len(route), dtype=BF16)
+        got = fn()
+        torch.cuda.synchronize()
+        _assert_bf16_ulp(got, plain_fn())
+        assert torch.all(got[off[1:] == off[:-1]] == 0.0)
+        assert torch.equal(got, fn()), shape
+
+
+@pytest.mark.parametrize("d", [12, 16, 128])
+def test_fused_role_swap_bf16_kernel(cuda, d):
+    """The fused role swap on bfloat16 rows: within one ulp of the plain
+    version, the padded d_b rows zero in poisoned memory, one launch, two
+    calls bitwise equal."""
+    x = _role_swap_case(cuda, d, seed=31 + d)
+    args = (x["grad"].to(BF16), x["by_idx"], x["seg_by_idx"], x["b"].to(BF16), x["a"].to(BF16))
+    _poison(cuda, 4 * 1000 * d)
+    before = triplet_aggregate_grad_ab.launches
+    d_a, d_b = triplet_aggregate_grad_ab(*args)
+    torch.cuda.synchronize()
+    assert triplet_aggregate_grad_ab.launches == before + 1
+    w_a, w_b = triplet_aggregate_grad_ab_plain(*args)
+    _assert_bf16_ulp(d_a, w_a)
+    assert torch.equal(d_b, w_b) and torch.all(d_b[x["valid"]:] == 0.0)
+    again = triplet_aggregate_grad_ab(*args)
+    assert torch.equal(d_a, again[0]) and torch.equal(d_b, again[1])
+
+
+@pytest.mark.parametrize("d", [12, 16, 128])
+def test_gated_sum_backward_bf16_kernel(cuda, d):
+    """Each gradient one product of two bfloat16 values, rounded once: the
+    plain version's bits; the rows past ``valid`` zero."""
+    g = torch.Generator(device=cuda).manual_seed(d)
+    rows, valid, num_out = 5003, 4711, 613
+    r = lambda *s: torch.randn(*s, device=cuda, generator=g).to(BF16)  # noqa: E731
+    seg = torch.sort(torch.randint(0, num_out, (rows,), device=cuda, generator=g))[0]
+    seg = seg.to(torch.int32)
+    seg[valid:] = 0
+    a, b, grad = r(rows, d), r(rows, d), r(num_out, d)
+    _poison(cuda, 2 * rows * d)
+    got = gated_sum_backward(a, b, grad, seg, valid)
+    for t, w in zip(got, gated_sum_backward_plain(a, b, grad, seg, valid)):
+        assert t.dtype == BF16 and torch.equal(t, w) and torch.all(t[valid:] == 0.0)
+
+
+@pytest.mark.parametrize("d", [42, 128, 12, 7])
+def test_row_gather_bf16_kernel(cuda, d):
+    """bfloat16 rows copied exactly: 16-byte vectors (D=128), the warp tile
+    in bf16x2 columns (D=42, an 84-byte row), 8-byte (D=12) and 2-byte
+    (D=7) units; rows past ``valid`` zero."""
+    g = torch.Generator(device=cuda).manual_seed(d)
+    src = torch.randn(313, d, device=cuda, generator=g).to(BF16)
+    idx = torch.randint(0, 313, (2049,), device=cuda, generator=g).to(torch.int32)
+    for valid in (None, 2000):
+        got = row_gather(src, idx, valid=valid)
+        assert got.dtype == BF16 and torch.equal(got, row_gather_plain(src, idx, valid))
+
+
+@pytest.mark.parametrize("gated,masked", [(True, True), (True, False), (False, False)])
+@pytest.mark.parametrize("d", [16, 128])
+def test_edge_message_bf16_kernels(cuda, gated, masked, d):
+    """The edge message as rows and its backward (rows and the summed
+    form's, the node gradient read at ``i``) on bfloat16 operands, the mask
+    too: within one ulp of the plain versions."""
+    g = torch.Generator(device=cuda).manual_seed(d + 2 * gated + masked)
+    nodes, rows, valid = 211, 3001, 2900
+    r = lambda *s: torch.randn(*s, device=cuda, generator=g).to(BF16)  # noqa: E731
+    i_idx = torch.sort(torch.randint(0, nodes, (rows,), device=cuda, generator=g))[0]
+    i_idx = i_idx.to(torch.int32)
+    j_idx = torch.randint(0, nodes, (rows,), device=cuda, generator=g).to(torch.int32)
+    mask = (torch.arange(rows, device=cuda) < valid).to(BF16) if masked else None
+    args = (r(nodes, d), r(nodes, d), i_idx, j_idx, r(rows, d), r(rows, d) if gated else None,
+            mask)
+    _assert_bf16_ulp(edge_message(*args), edge_message_plain(*args))
+    for at_i, grad in ((False, r(rows, d)), (True, r(nodes, d))):
+        kw = dict(at_i=at_i, valid=valid)
+        got = edge_message_backward(*args, grad, **kw)
+        want = edge_message_backward_plain(*args, grad, **kw)
+        for t, w in zip(got, want):
+            if w is not None:
+                _assert_bf16_ulp(t, w)
+                assert torch.all(t[valid:] == 0.0)
+
+
+def test_kernels_without_bf16_version_raise(cuda):
+    """The one-gradient routes, the split group sum and kernel B take float32
+    only: a bfloat16 operand raises rather than running another route."""
+    x = _role_swap_case(cuda, 16, seed=3)
+    g16, b16, a16 = x["grad"].to(BF16), x["b"].to(BF16), x["a"].to(BF16)
+    with pytest.raises(ValueError, match="no bfloat16 version"):
+        triplet_aggregate_grad_a(g16, x["by_idx"], x["seg_by_idx"], b16)
+    with pytest.raises(ValueError, match="no bfloat16 version"):
+        gather_product(a16, x["idx"], g16, x["seg"], x["valid"])
+    groups = x["by_idx"]._replace(longest=None)  # the split route
+    assert group_sum_route(groups) == "split"
+    with pytest.raises(ValueError, match="no bfloat16 version"):
+        group_sum(b16, groups)
+    args, groups, _ = _sbf_case(cuda, 16, 300, 2049, 1949, seed=5)
+    with pytest.raises(ValueError, match="no bfloat16 version"):
+        sbf_modulate(*[t.to(BF16) if t.is_floating_point() else t for t in args])
+
+
+def test_bf16_training_step_kernels_vs_plain_and_repeat(cuda):
+    """A bfloat16 QM9 step (dim 32, 2 layers): its parameter gradients (float32)
+    through the kernels against PyTorch's autograd of the plain bfloat16
+    route, per tensor within 2e-2 * max|g| + 1e-6 or twice the tensor's
+    distance between the bfloat16 and float32 plain routes; the same
+    kernel launches as the float32 step; two steps from one state bitwise
+    equal."""
+    from pamnet_tpu_torch.train.loop import Optimizer, train_step
+    from pamnet_tpu_torch.train.schedules import constant
+
+    mols = synthetic_qm9_dataset(8, seed=2)
+    gb = next(iter(GraphLoader(mols, "qm9", 5.0, 5.0, 8, build_perms=True))).to(cuda)
+    m32 = PAMNet(PAMNetConfig(dataset="QM9", dim=32, n_layer=2)).to(cuda)
+    m16 = PAMNet(PAMNetConfig(dataset="QM9", dim=32, n_layer=2,
+                              compute_dtype="bfloat16")).to(cuda)
+    m16.load_state_dict(m32.state_dict())
+    counters = (triplet_aggregate, triplet_aggregate_grad_ab, gated_sum_backward,
+                edge_message, edge_message_sum, edge_message_backward, group_sum, row_gather)
+
+    def grads(model, plain):
+        model.zero_grad()
+        before = [f.launches for f in counters]
+        batch_loss(model, gb, "l1", plain=plain).backward()
+        launched = [f.launches - b for f, b in zip(counters, before)]
+        return {n: p.grad.clone() for n, p in model.named_parameters()
+                if p.grad is not None}, launched
+
+    (k16, n16), (p16, _), (p32, _), (_, n32) = (grads(m16, False), grads(m16, True),
+                                                grads(m32, True), grads(m32, False))
+    assert n16 == n32 and min(n16) > 0
+    for name, w in p16.items():
+        assert k16[name].dtype == torch.float32
+        bound = max(2e-2 * float(w.abs().max()) + 1e-6, 2 * float((w - p32[name]).abs().max()))
+        assert float((k16[name] - w).abs().max()) <= bound, name
+    start = [p.detach().clone() for p in m16.parameters()]
+    runs = []
+    for _ in range(2):
+        with torch.no_grad():
+            for p, s in zip(m16.parameters(), start):
+                p.copy_(s)
+        opt = Optimizer(m16.parameters(), constant(1e-3))
+        runs.append([train_step(m16, opt, None, gb, "l1")]
+                    + [p.detach().clone() for p in m16.parameters()])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))

@@ -243,8 +243,19 @@ def test_device_graph_forward_matches_jax_and_host(name):
 def test_main_qm9_device_graph_in_process(capsys, tmp_path):
     main_qm9.main(["--synthetic", "--limit", "48", "--dim", "16", "--n_layer", "1",
                    "--epochs", "1", "--batch_size", "8", "--device", "cpu", "--device_graph",
-                   "--save_dir", str(tmp_path)])
+                   "--compute_dtype", "float32", "--save_dir", str(tmp_path)])
     out = capsys.readouterr().out
     maes = re.findall(r"(?:Train|Val|Test) MAE: ([^,\s]+)", out)
     assert len(maes) == 3 and all(math.isfinite(float(v)) for v in maes), out
     assert re.search(r"Testing MAE: \S+", out)
+
+
+def test_main_qm9_device_graph_bf16_in_process(capsys, tmp_path):
+    """The driver's default bfloat16 with the graph rebuilt every forward (at
+    dim 32: the port folds at dim 16, which bfloat16 refuses)."""
+    main_qm9.main(["--synthetic", "--limit", "48", "--dim", "32", "--n_layer", "1",
+                   "--epochs", "1", "--batch_size", "8", "--device", "cpu", "--device_graph",
+                   "--save_dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    maes = re.findall(r"(?:Train|Val|Test) MAE: ([^,\s]+)", out)
+    assert len(maes) == 3 and all(math.isfinite(float(v)) for v in maes), out

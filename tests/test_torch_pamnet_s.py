@@ -180,7 +180,8 @@ def test_s_three_adam_steps_match_jax():
 def test_main_qm9_trains_pamnet_s_in_process(capsys, tmp_path):
     res = main_qm9.main(["--synthetic", "--limit", "40", "--model", "PAMNet_s", "--dim", "16",
                          "--n_layer", "1", "--epochs", "1", "--batch_size", "8",
-                         "--device", "cpu", "--save_dir", str(tmp_path)])
+                         "--device", "cpu", "--compute_dtype", "float32",
+                         "--save_dir", str(tmp_path)])
     out = capsys.readouterr().out
     maes = re.findall(r"(Train|Val|Test) MAE: (\S+?),? ", out)
     maes += re.findall(r"(Best Validation|Testing) MAE: (\S+)", out)
@@ -189,3 +190,16 @@ def test_main_qm9_trains_pamnet_s_in_process(capsys, tmp_path):
     best = load_reference_checkpoint(str(tmp_path / "QM9" / "best_model.pt"))
     assert "mlp_sbf.0.0.weight" in best and "local_layer.0.mlp_m_jj.0.0.weight" in best
     assert not any("mlp_sbf1" in k or "mlp_m_kj" in k or "init_linear" in k for k in best)
+
+
+def test_main_qm9_trains_pamnet_s_bf16_in_process(capsys, tmp_path):
+    """PAMNet_s at the driver's default bfloat16 (dim 32: the port folds at
+    dim 16, which bfloat16 refuses)."""
+    res = main_qm9.main(["--synthetic", "--limit", "40", "--model", "PAMNet_s", "--dim", "32",
+                         "--n_layer", "1", "--epochs", "1", "--batch_size", "8",
+                         "--device", "cpu", "--save_dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    maes = re.findall(r"(Train|Val|Test) MAE: (\S+?),? ", out)
+    maes += re.findall(r"(Best Validation|Testing) MAE: (\S+)", out)
+    assert len(maes) == 5 and all(math.isfinite(float(v)) for _, v in maes)
+    assert res["test_mae"] == float(maes[-1][1])

@@ -323,7 +323,7 @@ def test_bench_prints_the_four_contract_lines(monkeypatch):
         bench.main(["--device", "cpu", "--small"])
     lines = [json.loads(ln) for ln in out.getvalue().splitlines()]
     assert [ln["metric"] for ln in lines] == [
-        "qm9_pamnet_d16_L1_train_throughput", "rna_scoring_throughput",
+        "qm9_pamnet_d32_L1_train_throughput", "rna_scoring_throughput",
         "qm9_epoch_wall_throughput", "pdbbind_train_throughput"]
     assert [ln["unit"] for ln in lines] == ["molecules/sec/chip", "graphs/sec/chip",
                                            "molecules/sec/chip", "graphs/sec/chip"]

@@ -130,6 +130,7 @@ def test_main_qm9_runs_in_process(capsys, tmp_path):
     csv = tmp_path / "metrics.csv"
     res = main_qm9.main(["--synthetic", "--limit", "64", "--dim", "16", "--n_layer", "1",
                          "--epochs", "2", "--batch_size", "8", "--device", "cpu",
+                         "--compute_dtype", "float32",
                          "--metrics_csv", str(csv), "--save_dir", str(tmp_path / "save")])
     out = capsys.readouterr().out
     assert "Data loaded! train=51 val=6 test=7" in out and "Start training!" in out
@@ -143,6 +144,21 @@ def test_main_qm9_runs_in_process(capsys, tmp_path):
     assert csv.read_text().splitlines()[0] == \
         "epoch,train_mae,val_mae,test_mae,seconds,mol_per_sec"
     assert len(csv.read_text().splitlines()) == 3
+
+
+def test_main_qm9_trains_bf16_by_default_in_process(capsys, tmp_path):
+    """bfloat16 is the driver's default, as the JAX ``main_qm9.py``'s.  At dim
+    16 the port's model folds the sbf stage into kernel B, which has no
+    bfloat16 version: that run raises, and the bfloat16 run is at dim 32."""
+    base = ["--synthetic", "--limit", "64", "--n_layer", "1", "--epochs", "1",
+            "--batch_size", "8", "--device", "cpu", "--save_dir", str(tmp_path)]
+    res = main_qm9.main(base + ["--dim", "32"])
+    epochs = _EPOCH.findall(capsys.readouterr().out)
+    assert [int(e[0]) for e in epochs] == [1]
+    assert all(math.isfinite(float(v)) for v in epochs[0][1:])
+    assert math.isfinite(res["test_mae"])
+    with pytest.raises(ValueError, match="no bfloat16 version"):
+        main_qm9.main(base + ["--dim", "16"])
 
 
 def test_main_qm9_needs_a_card_unless_told(monkeypatch):
