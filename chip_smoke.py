@@ -10,7 +10,8 @@ Phases, each printing one JSON line:
      build time (nvcc, sm_90a, from the sources in the checkout);
   2. kernels: each CUDA kernel against its plain PyTorch version on the card
      at the RNA batch-16 shapes, with kernel, plain, library and bound times
-     (kernel B on random triplets as (T, D) rows and summed by center edge);
+     (kernel B on random triplets summed by center edge and as (T, D) rows,
+     which are its sums over identity groups: the kernel has one form);
   3. slice: RNAScoringService(device="cuda") scores a batch of synthetic
      RNA-scale structures with seeded weights (the serving main path; every
      forward kernel's launch count must rise), then the folded, unfolded and
@@ -19,7 +20,8 @@ Phases, each printing one JSON line:
      message summed by node once and kernel A once (the el_dst sum; the
      unfolded one adds its two triplet sums); then
      sbf_kernels: kernel B on that batch's own t2/t1 arrays, summed by
-     center edge and as rows, against its plain version, two calls bitwise;
+     center edge and as rows (identity groups), against its plain version,
+     two calls bitwise;
      walk_kernels: kernel A's global and el_dst sums on that batch's own
      CSRs, and the global message summed by node on them against its plain
      version, timed beside the rows + kernel A sum of the same arrays, and
@@ -51,7 +53,8 @@ Phases, each printing one JSON line:
      device ms per step on a resident batch, host enqueue time and peak
      memory; then
      ``python -m pamnet_tpu_torch.main_qm9`` in-process for one epoch;
-  7. rna_train_kernels: kernel B's backward, summed by center edge and not,
+  7. rna_train_kernels: kernel B's backward, summed by center edge and over
+     identity groups,
      against PyTorch's autograd of its plain version at the pads of an RNA
      training batch of 8, for (7, 16) and (7, 8), on the t2 and t1 arrays of
      that batch, two calls bitwise; kernel B forward on the same arrays and
@@ -141,10 +144,28 @@ Phases, each printing one JSON line:
      plain bfloat16 route's distance from it, their predictions within
      3e-2 * max|pred_f32| or twice that route's (per-tensor ratios
      reported);
- 17. kernels: one line listing every kernel with its numbers (the role
+ 17. sbf_bf16_kernels: kernel B forward and backward in bfloat16 on the t2
+     and t1 arrays of the scoring batch, of the RNA training batch of 8 and
+     of the scoring batch with every triplet on edge 0, each within one
+     bfloat16 ulp of its plain bfloat16 version, bitwise repeatable, timed
+     beside its bound at 2 bytes a value and the float32 kernel on the same
+     values;
+ 18. rna_bf16: the published RNA model in bfloat16, folded through kernel
+     B's bfloat16 version, beside the float32 model in turns: the scoring
+     batch's scores (1e-2 * max of the plain bfloat16 route, 3e-2 * max of
+     float32), launches and ms a batch; the training step as phases 15-16
+     check theirs (``_bf16_step``, RNA's mean pool in the pool's terms);
+     ``main_rna_puzzles --compute_dtype bfloat16`` for an epoch and the
+     bfloat16 service over HTTP, kernel B seen on bfloat16 operands;
+ 19. rna_csv: ``python -m pamnet_tpu_torch.inference_rna_puzzles`` in
+     float32 and bfloat16 on TU files of the scoring structures: the CSV's
+     header, tags and puzzle number, the scores against the scoring
+     service's on the same structures, one device-to-host copy a run, and
+     seconds per structure;
+ 20. kernels: one line listing every kernel with its numbers (the role
      swap alone and gather_product are off the main paths since the fused
-     role swap: 0 launches, asserted; they and the split group sum and
-     kernel B have no bfloat16 version).
+     role swap: 0 launches, asserted; they and the split group sum have no
+     bfloat16 version).
 With ``--profile`` each phase also lists its device time by kernel and, for
 the scoring forward and a QM9, an RNA, a PDBbind and a PAMNet_s training
 step, every kernel launch
@@ -387,27 +408,39 @@ def batch_triplets(gb, kind: str) -> dict:
             "valid": gb.valid[kind], "out_groups": gb.groups(kind + "_ji")}
 
 
-def kernel_b_case(name, num_edges, ns, d, gen, trip: dict, summed: bool) -> dict:
+def kernel_b_case(name, num_edges, ns, d, gen, trip: dict, summed: bool,
+                  dtype=None) -> dict:
     """Kernel B on the triplet arrays ``trip`` with random tables and
     weights: summed by center edge (over ``trip["out_groups"]``) or the
-    (T, D) rows; against its plain version (kernel A's plain sum of the plain
-    rows where summed) within atol 1e-4 + rtol 1e-4, two calls bitwise
+    (T, D) rows, which are its sums over identity groups; against its plain
+    version (kernel A's plain sum of the plain rows) within atol 1e-4 + rtol
+    1e-4, or in bfloat16 (``dtype``: every float operand) within one ulp
+    (``bf16_tolerance``), and then the float32 kernel on the same values
+    timed beside it (``f32_ms``, ``f32_device_ms``); two calls bitwise
     equal.  No one PyTorch call computes the function."""
     import torch
 
-    from pamnet_tpu_torch.ops.sbf_modulate import sbf_modulate, sbf_modulate_plain
+    from pamnet_tpu_torch.ops.sbf_modulate import (identity_groups, sbf_modulate,
+                                                   sbf_modulate_plain)
 
+    dtype, vb = _stream(dtype)
     dev = torch.device("cuda")
     r = lambda *s: torch.randn(*s, device=dev, generator=gen)  # noqa: E731
     idx, triplets = trip["idx"], trip["idx"].shape[0]
     args = (r(num_edges, ns * d), r(num_edges, d), trip["cbf"], r(d),
             r(d, d) / d**0.5, r(d), r(d, d) / d**0.5, r(d), idx, trip["mask"])
-    out_groups = trip["out_groups"] if summed else None
+    args = tuple(a.to(dtype) if a.is_floating_point() else a for a in args)
+    out_groups = trip["out_groups"] if summed else identity_groups(triplets, dev)
     fn = lambda: sbf_modulate(*args, out_groups=out_groups)  # noqa: E731
-    off = None if out_groups is None else out_groups.off
+    off = out_groups.off
     got, want = fn(), sbf_modulate_plain(*args, out_off=off)
     torch.cuda.synchronize()
-    err = compare(f"sbf_modulate[{name}]", got, want, atol=1e-4, rtol=1e-4)
+    if dtype == torch.float32:
+        err = compare(f"sbf_modulate[{name}]", got, want, atol=1e-4, rtol=1e-4)
+    else:
+        atol, rtol = bf16_tolerance([want])
+        err = {**compare(f"sbf_modulate[{name}]", got, want, atol=atol, rtol=rtol),
+               "tolerance_rule": BF16_RULE}
     if not torch.equal(got, fn()):
         raise AssertionError(f"sbf_modulate[{name}] is not bitwise repeatable")
     ms_first = time_ms(fn)
@@ -418,19 +451,34 @@ def kernel_b_case(name, num_edges, ns, d, gen, trip: dict, summed: bool) -> dict
     # The triplets the kernel reads: the valid ones where summed, every row
     # of the (T, D) output otherwise.
     rows = trip["valid"] if summed else triplets
-    out_bytes = ((off.shape[0] * 4 + (off.shape[0] - 1) * d * 4) if summed
-                 else triplets * d * 4)
-    nbytes = (_unique(idx, rows) * (ns + 1) * d * 4 + rows * (ns + 2) * 4
-              + (2 * d * d + 3 * d) * 4 + out_bytes)
+    edges_read = _unique(idx, rows)
+
+    def nbytes_at(v: int) -> int:
+        """Each neighbour edge's rows once, per triplet its index (4 bytes),
+        basis row and mask, the weights, the sums (and the CSR where
+        summed), at ``v`` bytes a value."""
+        out_bytes = ((off.shape[0] * 4 + (off.shape[0] - 1) * d * v) if summed
+                     else triplets * d * v)
+        return (edges_read * (ns + 1) * d * v + rows * (4 + (ns + 1) * v)
+                + (2 * d * d + 3 * d) * v + out_bytes)
+
+    nbytes = nbytes_at(vb)
     # Per triplet: ns*d multiply-adds, two d x d products, 3*d silu (4 ops
     # each), the mask and the modulation, and the sum where summed.
     flops = rows * (2 * ns * d + 4 * d * d + 12 * d + 2 * d + (d if summed else 0))
     bms, by = bound_ms(nbytes, flops)
-    return {"case": name, "summed": summed, "edges": num_edges, "triplets": triplets,
-            "valid": trip["valid"], "ns": ns, "d": d, **err, "bitwise_repeat": True,
-            "ms": ms, "ms_first": ms_first, "device_ms": dev_ms, "library_device_ms": None,
-            "enqueue_ms": enq, "plain_ms": plain, "library_ms": None, "bound_ms": bms,
-            "bound_by": by}
+    res = {"case": name, "summed": summed, "groups": "center edges" if summed else "identity",
+           "dtype": str(dtype)[6:], "edges": num_edges, "triplets": triplets,
+           "valid": trip["valid"], "ns": ns, "d": d, **err, "bitwise_repeat": True,
+           "ms": ms, "ms_first": ms_first, "device_ms": dev_ms, "library_device_ms": None,
+           "enqueue_ms": enq, "plain_ms": plain, "library_ms": None, "bound_ms": bms,
+           "bound_by": by}
+    if dtype != torch.float32:
+        a32 = tuple(a.float() if a.is_floating_point() else a for a in args)
+        f32_fn = lambda: sbf_modulate(*a32, out_groups=out_groups)  # noqa: E731
+        res.update(f32_ms=time_ms(f32_fn), f32_device_ms=device_ms(f32_fn),
+                   f32_bound_ms=bound_ms(nbytes_at(4), flops)[0])
+    return res
 
 
 def row_gather_case(name, table_rows, rows, d, gen):
@@ -1032,86 +1080,121 @@ def radial_gather_case(gb, kind: str, dtype=None) -> dict:
 
 
 def sbf_backward_bytes(ns: int, d: int, edges: int, valid: int, edges_read: int,
-                       g_rows_read: int, summed: bool) -> tuple[int, int]:
-    """Bytes kernel B's backward must move: each input read once (the
-    ``edges_read`` edges' rows once however many triplets share them, the
-    ``g_rows_read`` rows of G once however many triplets read them), each
-    output written once; and the same with the edge rows read per triplet,
-    what a cold cache with no reuse would move."""
-    per_triplet = (ns + 2 + int(summed)) * 4  # cbf, mask, perm, center id where summed
-    fixed = ((2 * d * d + 3 * d) * 4 * 2 + (edges + 1) * 4 + edges * (ns + 1) * d * 4
-             + g_rows_read * d * 4)
-    return (edges_read * (ns + 1) * d * 4 + valid * per_triplet + fixed,
-            valid * ((ns + 1) * d * 4 + per_triplet) + fixed)
+                       g_rows_read: int, value_bytes: int = 4) -> tuple[int, int]:
+    """Bytes kernel B's backward must move at ``value_bytes`` a float value:
+    each input read once (the ``edges_read`` edges' rows once however many
+    triplets share them, the ``g_rows_read`` rows of G once however many
+    triplets read them), each output written once; and the same with the
+    edge rows read per triplet, what a cold cache with no reuse would move.
+    Per triplet it reads its place in the neighbour edge's CSR and its
+    center edge (4 bytes each), its basis row and mask."""
+    vb = value_bytes
+    per_triplet = 8 + (ns + 1) * vb
+    fixed = ((2 * d * d + 3 * d) * vb * 2 + (edges + 1) * 4 + edges * (ns + 1) * d * vb
+             + g_rows_read * d * vb)
+    return (edges_read * (ns + 1) * d * vb + valid * per_triplet + fixed,
+            valid * ((ns + 1) * d * vb + per_triplet) + fixed)
 
 
-def sbf_backward_case(gb, kind: str, d: int, gen, summed: bool = True) -> dict:
+def sbf_backward_case(gb, kind: str, d: int, gen, summed: bool = True, dtype=None,
+                      trip: dict | None = None, calls: int | None = None) -> dict:
     """Kernel B's backward on the ``kind`` ("t2" or "t1") arrays of the RNA
-    training batch ``gb`` (index and its CSR, mask, cbf and, ``summed``, the
-    center edges' CSR and ids; random tables, weights and output gradient),
-    each of its seven outputs against PyTorch's autograd of the plain version
-    within 1e-4 * max|g_plain| + 1e-6; two calls bitwise equal.
+    batch ``gb`` (index and its CSR, mask, cbf and, ``summed``, the center
+    edges' CSR and ids, else identity groups; random tables, weights and
+    output gradient; ``trip`` replaces the index and its CSR), each of its
+    seven outputs against PyTorch's autograd of the plain version within
+    1e-4 * max|g_plain| + 1e-6, or in bfloat16 (``dtype``: every float
+    operand and the output gradient) within one ulp (``bf16_tolerance``),
+    and then the float32 kernel on the same values timed beside it; two
+    calls bitwise equal; each time a mean over the timing helpers' default
+    calls, or over ``calls`` where given (a slow case).
     ``plain_ms`` times that autograd backward alone; no one PyTorch call
     computes the function."""
     import torch
 
-    from pamnet_tpu_torch.ops.sbf_modulate import sbf_modulate_backward, sbf_modulate_plain
+    from pamnet_tpu_torch.ops.sbf_modulate import (identity_groups, sbf_modulate_backward,
+                                                   sbf_modulate_plain)
 
+    dtype, vb = _stream(dtype)
     ns = 7
     key, cbf = ("t2_kj", gb.cbf2) if kind == "t2" else ("t1_jj", gb.cbf1)
     idx, groups, mask = getattr(gb, key), gb.groups(key), getattr(gb, kind + "_mask")
-    out_groups, out_ids = (gb.groups(kind + "_ji"), getattr(gb, kind + "_ji")) if summed else (
-        None, None)
+    if trip is not None:
+        idx, groups = trip["idx"], trip["groups"]
     edges, rows, valid = gb.el_src.shape[0], idx.shape[0], gb.valid[kind]
+    if summed:
+        out_groups, out_ids = gb.groups(kind + "_ji"), getattr(gb, kind + "_ji")
+    else:
+        out_groups = identity_groups(rows, idx.device)
+        out_ids = out_groups.off[:-1]
     r = lambda *s: torch.randn(*s, device="cuda", generator=gen)  # noqa: E731
     args = [r(edges, ns * d), r(edges, d), cbf, r(d), r(d, d) / d**0.5, r(d),
             r(d, d) / d**0.5, r(d), idx, mask]
-    g_rows = out_groups.off.shape[0] - 1 if summed else rows
-    cot = r(g_rows, d)
+    g_rows = out_groups.off.shape[0] - 1
+    cot = r(g_rows, d).to(dtype)
+    args = [a.to(dtype) if a.is_floating_point() else a for a in args]
     grad_at = (0, 1, 3, 4, 5, 6, 7)  # proj, m_neighbor, bias, w1, b1, w2, b2
     leaves = [a.clone().requires_grad_() if i in grad_at else a for i, a in enumerate(args)]
-    out = sbf_modulate_plain(*leaves, out_off=None if out_groups is None else out_groups.off)
+    out = sbf_modulate_plain(*leaves, out_off=out_groups.off)
     wanted = [leaves[i] for i in grad_at]
     plain_fn = lambda: torch.autograd.grad(out, wanted, cot, retain_graph=True)  # noqa: E731
     fn = lambda: sbf_modulate_backward(*args, groups, cot, out_groups, out_ids)  # noqa: E731
     got, want = fn(), plain_fn()
     torch.cuda.synchronize()
-    what = f"sbf_modulate_backward[{kind}, d={d}{', summed' if summed else ''}]"
+    what = f"sbf_modulate_backward[{kind}, d={d}{', summed' if summed else ''}, {dtype}]"
     names = ("d_proj", "d_m_neighbor", "d_bias", "d_w1", "d_b1", "d_w2", "d_b2")
     errs = {}
     for name, g, w in zip(names, got, want):
-        if not bool(torch.isfinite(g).all()):
-            raise AssertionError(f"{what} {name}: non-finite")
-        err, tol = float((g - w).abs().max()), 1e-4 * float(w.abs().max()) + 1e-6
-        errs[name] = {"max_abs_err": err, "err_over_tolerance": err / tol}
-        if err > tol:
-            raise AssertionError(f"{what} {name}: {err} > {tol}")
+        if not bool(torch.isfinite(g).all()) or g.dtype != dtype:
+            raise AssertionError(f"{what} {name}: non-finite or {g.dtype}")
+        diff = (g.double() - w.double()).abs()
+        if dtype == torch.float32:
+            allowed = 1e-4 * float(w.abs().max()) + 1e-6
+        else:  # one ulp of each value
+            atol, rtol = bf16_tolerance([w])
+            allowed = atol + rtol * w.double().abs()
+        errs[name] = {"max_abs_err": float(diff.max()),
+                      "err_over_tolerance": float((diff / allowed).max())}
+        if errs[name]["err_over_tolerance"] > 1.0:
+            raise AssertionError(f"{what} {name}: {errs[name]}")
     again = fn()
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"{what} is not bitwise repeatable")
-    ms_first = time_ms(fn)
-    plain = time_ms(plain_fn)
-    ms = time_ms(fn)
-    enq = enqueue_ms(fn)
-    dev = device_ms(fn)
-    nbytes, gathered = sbf_backward_bytes(
-        ns, d, edges, valid, _unique(idx, valid),
-        _unique(out_ids, valid) if summed else valid, summed)
+    reps = {} if calls is None else {"iters": calls}
+    ms_first = time_ms(fn, **reps, warmup=1 if calls else 3)
+    plain = time_ms(plain_fn, **reps)
+    ms = time_ms(fn, **reps, warmup=1 if calls else 3)
+    enq = enqueue_ms(fn, **reps)
+    dev = device_ms(fn, **reps)
+    edges_read = _unique(idx, valid)
+    g_read = _unique(out_ids, valid) if summed else valid
+    nbytes, gathered = sbf_backward_bytes(ns, d, edges, valid, edges_read, g_read, vb)
     # Per triplet: the slice multiply-adds and their transpose, two products
     # recomputed and two transposed, two outer products, silu and silu' on
     # three vectors (about 10 operations each).
     flops = valid * (4 * ns * d + 8 * d * d + 4 * d * d + 30 * d)
     bms, by = bound_ms(nbytes, flops)
     worst = max(errs.values(), key=lambda e: e["err_over_tolerance"])
-    return {"case": f"{kind} backward{' summed' if summed else ''}, d={d}", "summed": summed,
-            "edges": edges, "rows": rows, "valid": valid,
-            "ns": ns, "d": d, "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
-            "worst_err_over_tolerance": worst["err_over_tolerance"], "errors": errs,
-            "tolerance": "1e-4 * max|g_plain| + 1e-6 per output", "bitwise_repeat": True,
-            "ms": ms, "ms_first": ms_first, "enqueue_ms": enq, "device_ms": dev,
-            "library_device_ms": None, "plain_ms": plain, "library_ms": None,
-            "bound_ms": bms, "bound_by": by,
-            "bound_ms_rows_gathered_per_triplet": gathered / HBM_BYTES_PER_S * 1e3}
+    res = {"case": f"{kind} backward{' summed' if summed else ''}, d={d}", "summed": summed,
+           "groups": "center edges" if summed else "identity", "dtype": str(dtype)[6:],
+           "edges": edges, "rows": rows, "valid": valid,
+           "ns": ns, "d": d, "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+           "worst_err_over_tolerance": worst["err_over_tolerance"], "errors": errs,
+           "tolerance": ("1e-4 * max|g_plain| + 1e-6 per output" if dtype == torch.float32
+                         else BF16_RULE + " per output"), "bitwise_repeat": True,
+           "ms": ms, "ms_first": ms_first, "enqueue_ms": enq, "device_ms": dev,
+           "library_device_ms": None, "plain_ms": plain, "library_ms": None,
+           "bound_ms": bms, "bound_by": by,
+           "bound_ms_rows_gathered_per_triplet": gathered / HBM_BYTES_PER_S * 1e3}
+    if dtype != torch.float32:
+        a32 = [a.float() if a.is_floating_point() else a for a in args]
+        f32_fn = lambda: sbf_modulate_backward(*a32, groups, cot.float(), out_groups,  # noqa: E731
+                                               out_ids)
+        nbytes32, _ = sbf_backward_bytes(ns, d, edges, valid, edges_read, g_read, 4)
+        res.update(f32_ms=time_ms(f32_fn, **reps, warmup=1 if calls else 3),
+                   f32_device_ms=device_ms(f32_fn, **reps),
+                   f32_bound_ms=bound_ms(nbytes32, flops)[0])
+    return res
 
 
 def post(url: str, data: bytes, ctype: str) -> dict:
@@ -1195,10 +1278,12 @@ def main() -> int:
         kernel_a_case("eg_src global sum", p["n"], p["eg"], 16, False, False, gen),
         kernel_a_case("t2 gather+modulate D=128", p["el"], p["t2"], 128, True, True, gen),
     ]
-    # Kernel B on random triplets at the t2 pads: the (T, D) rows and their
-    # sum by center edge (kernel B and kernel A's t2 sum in one launch).
+    # Kernel B on random triplets at the t2 pads: the (T, D) rows (its sums
+    # over identity groups) and their sum by center edge (kernel B and
+    # kernel A's t2 sum in one launch).
     rand_t2 = random_triplets(p["el"], p["t2"], 7, gen)
-    b_cases = [kernel_b_case("t2 fused folded gather", p["el"], 7, 16, gen, rand_t2, False),
+    b_cases = [kernel_b_case("t2 fused folded gather, rows (identity groups)", p["el"], 7, 16,
+                             gen, rand_t2, False),
                kernel_b_case("t2 fused folded gather, summed", p["el"], 7, 16, gen, rand_t2,
                              True)]
     e_cases = [
@@ -1331,7 +1416,8 @@ def main() -> int:
     # Kernel B on the scoring batch's own triplet arrays, both modes; then
     # with every triplet on edge 0 (its rows always cached), which shows
     # how much of the time the row gather takes.
-    sbf_batch = [kernel_b_case(f"{k} fused folded gather, {'summed' if summed else 'rows'}, batch",
+    sbf_batch = [kernel_b_case(f"{k} fused folded gather, "
+                               f"{'summed' if summed else 'rows (identity groups)'}, batch",
                                pads["el"], 7, cfg.dim, gen, batch_triplets(gb, k), summed)
                  for summed in (True, False) for k in ("t2", "t1")]
     cached = {**batch_triplets(gb, "t2"), "idx": torch.zeros_like(gb.t2_kj)}
@@ -1411,7 +1497,7 @@ def main() -> int:
                                                       emit)
 
     # ---- 7-8. RNA training: the kernels at its shapes and the folded training path ----
-    rna_cases, rna_launches = rna_train_phase(
+    rna_cases, rna_launches, rna_data = rna_train_phase(
         args, rna_mols[:args.rna_structures], gen, reset_counts, read_counts, emit)
 
     # ---- 9-10. PDBbind training: the kernels at its shapes and its training path ----
@@ -1429,7 +1515,15 @@ def main() -> int:
     bf16_cases, qm9_bf16_launches, pdb_bf16_launches = bf16_phase(
         args, gen, qm9_data, pdbbind_data, reset_counts, read_counts, emit)
 
-    # ---- 17. every kernel of the paths, with its numbers ----
+    # ---- 17-19. kernel B in bfloat16, the folded RNA model in bfloat16 and
+    # the RNA-Puzzles CSV driver ----
+    scoring_perms = loader.collate(list(range(len(mols))), build_perms=True).to("cuda")
+    bf16_cases.update(sbf_bf16_phase(gen, scoring_perms, rna_data[1], emit))
+    rna_bf16_launches = rna_bf16_phase(args, mols, gb, rna_data, reset_counts, read_counts,
+                                       emit)
+    csv_launches = rna_csv_phase(args, mols, state, reset_counts, read_counts, emit)
+
+    # ---- 20. every kernel of the paths, with its numbers ----
     # Each kernel's top-level numbers are those of one main-path case: the
     # folded t2 triplet sum (kernel A's, on random data), kernel B's t2 sum
     # by center edge on the scoring batch, the global message, its sum by
@@ -1442,9 +1536,10 @@ def main() -> int:
     # numbers of the kernel's first case at the RNA training shapes (null for
     # the kernels that path does not run), "pdbbind" those at the PDBbind
     # training shapes, "bf16" those of its first bfloat16 case (null for the
-    # kernels without a bfloat16 version).  Launches add the serving, the
-    # QM9, RNA, PDBbind and PAMNet_s training main paths, the derive and
-    # device_graph steps and the QM9 and PDBbind bfloat16 training paths;
+    # kernels without a bfloat16 version; kernel B's: its t2 sum on the
+    # scoring batch).  Launches add the serving, the QM9, RNA, PDBbind and
+    # PAMNet_s training main paths, the derive and device_graph steps, the
+    # QM9, PDBbind and RNA bfloat16 training paths and the CSV driver's runs;
     # group_sum counts its calls, of either kernel, and group_sum_split the
     # split kernel's.
     table = [
@@ -1482,7 +1577,8 @@ def main() -> int:
     by_path = {"serve": launches, "train": train_launches, "rna_train": rna_launches,
                "pdbbind_train": pdb_launches, "qm9_s_train": s_launches,
                "derive_train": derive_launches, "device_graph_train": graph_launches,
-               "qm9_bf16_train": qm9_bf16_launches, "pdbbind_bf16_train": pdb_bf16_launches}
+               "qm9_bf16_train": qm9_bf16_launches, "pdbbind_bf16_train": pdb_bf16_launches,
+               "rna_bf16": rna_bf16_launches, "rna_csv": csv_launches}
 
     def first_case(path_cases, name):
         if name not in path_cases:
@@ -1699,10 +1795,24 @@ def _worst_gradient(got: dict, want: dict, what: str) -> dict:
             "tolerance": "1e-4 * max|g| + 1e-6 per tensor"}
 
 
-def rna_train_phase(args, mols, gen, reset_counts, read_counts, emit_line) -> tuple[list, dict]:
+# Launches of an RNA step at the recipe (None: at least one).  Kernel B
+# sums the t2/t1 streams by center edge itself and the global message sums
+# itself by node: the forward's kernel A launch is the el_dst sum alone (the
+# unfolded forward adds its two gathered sums), and its two gradients are one
+# gated backward: no row gather in the backward (none by t2_ji/t1_ji, eg_src
+# or el_dst).
+RNA_WANT = ({"sbf_modulate": 2, "triplet_aggregate": 1, "edge_message_sum": 1,
+             "edge_message": None, "row_gather": None},
+            {"sbf_modulate_backward": 2, "gated_sum_backward": 1, "row_gather": 0,
+             "group_sum": None, "group_sum_split": None, "edge_message_backward": None})
+
+
+def rna_train_phase(args, mols, gen, reset_counts, read_counts,
+                    emit_line) -> tuple[list, dict, tuple]:
     """Phases 7 and 8: the kernel cases at the RNA training shapes and RNA
     training at the published recipe.  Returns (kernel cases by kernel,
-    launches of the RNA training main path)."""
+    launches of the RNA training main path, (its loader, its resident batch
+    of 8))."""
     import torch
 
     from pamnet_tpu_torch import main_rna_puzzles
@@ -1746,11 +1856,13 @@ def rna_train_phase(args, mols, gen, reset_counts, read_counts, emit_line) -> tu
                                       for summed in (True, False) for dd in (16, 8)
                                       for k in ("t2", "t1")],
             "sbf_modulate": [
-                kernel_b_case(f"{k} fused folded gather, {'summed' if summed else 'rows'}, batch",
+                kernel_b_case(f"{k} fused folded gather, "
+                              f"{'summed' if summed else 'rows (identity groups)'}, batch",
                               pd.el, 7, d, gen, batch_triplets(gb, k), summed)
                 for summed in (True, False) for k in ("t2", "t1")] + [
-                kernel_b_case(f"{k} fused folded gather{', summed' if summed else ''}", pd.el, 7,
-                              d, gen, rand[k], summed)
+                kernel_b_case(f"{k} fused folded gather"
+                              f"{', summed' if summed else ', rows (identity groups)'}", pd.el,
+                              7, d, gen, rand[k], summed)
                 for summed in (False, True) for k in ("t2", "t1")],
             "triplet_aggregate": [
                 kernel_a_case(name, num_out, rows, d, False, False, gen)
@@ -1798,16 +1910,7 @@ def rna_train_phase(args, mols, gen, reset_counts, read_counts, emit_line) -> tu
         grad_checks = {"kernels_vs_plain": _step_checks(model, opt, None, gb, kind),
                        "folded_vs_unfolded": folded_vs_unfolded}
 
-        # Launches per step (None: at least one).  Kernel B sums the t2/t1
-        # streams by center edge itself and the global message sums itself
-        # by node: the forward's kernel A launch is the el_dst sum alone (the
-        # unfolded forward adds its two gathered sums), and its two gradients
-        # are one gated backward: no row gather in the backward (none by
-        # t2_ji/t1_ji, eg_src or el_dst).
-        want_fwd = {"sbf_modulate": 2, "triplet_aggregate": 1, "edge_message_sum": 1,
-                    "edge_message": None, "row_gather": None}
-        want_bwd = {"sbf_modulate_backward": 2, "gated_sum_backward": 1, "row_gather": 0,
-                    "group_sum": None, "group_sum_split": None, "edge_message_backward": None}
+        want_fwd, want_bwd = RNA_WANT
         fwd, bwd = _step_launches(model, gb, kind, reset_counts, read_counts, want_fwd,
                                   want_bwd, "RNA")
         reset_counts()
@@ -1875,7 +1978,7 @@ def rna_train_phase(args, mols, gen, reset_counts, read_counts, emit_line) -> tu
                    "served_structures": len(val_mols),
                    "served_scores_head": [float(v) for v in scores[:4]],
                    "served_vs_predict": served})
-    return cases, launches
+    return cases, launches, (loader, gb)
 
 
 def _step_checks(model, opt, ema, gb, kind: str) -> dict:
@@ -2593,9 +2696,10 @@ def _pool_terms(model, gb, plain: bool = False):
     per-node energies over the atoms its pool adds (column 0) and over those
     it subtracts (column 1: PDBbind's pocket and ligand copies, x > 40 A; none
     elsewhere), fused from the layers' heads (read by forward hooks) as
-    ``PAMNet.forward`` fuses them.  PDBbind's prediction is the difference of
-    two near-equal sums; each column is a sum without that cancellation.
-    Raises where column 0 - column 1 is not the model's prediction."""
+    ``PAMNet.forward`` fuses them; RNA's mean pool divides both by the
+    graph's atoms.  PDBbind's prediction is the difference of two near-equal
+    sums; each column is a sum without that cancellation.  Raises where
+    column 0 - column 1 is not the model's prediction."""
     import torch
     from torch.nn import functional as F
 
@@ -2617,6 +2721,9 @@ def _pool_terms(model, gb, plain: bool = False):
         minus = torch.zeros_like(minus)
     cols = torch.stack([torch.where(minus, 0.0, node), torch.where(minus, node, 0.0)], 1)
     terms = cols.new_zeros((pred.shape[0], 2)).index_add_(0, gb.node_graph.long(), cols)
+    if model.cfg.dataset_kind == "rna":
+        atoms = torch.zeros_like(pred).index_add_(0, gb.node_graph.long(), gb.node_mask.float())
+        terms = terms / atoms.clamp_min(1.0)[:, None]
     terms = terms * gb.graph_mask[:, None]
     if not bool(((terms[:, 0] - terms[:, 1] - pred).abs()
                  <= 1e-5 * float(terms.abs().max()) + 1e-6).all()):
@@ -2982,6 +3089,319 @@ def bf16_phase(args, gen, qm9_data: tuple, pdbbind_data: tuple, reset_counts, re
         _profile_step(lambda: train_step(model16, opt16, None, pgb, "mse"),
                       "profile_pdbbind_bf16_train", res["ms_per_step"], emit_line)
     return cases, launches["qm9"], launches["pdbbind"]
+
+
+def _cached_triplets(gb, kind: str) -> dict:
+    """Stream ``kind`` of ``gb`` with every triplet on neighbour edge 0 (its
+    rows always cached) and that index's CSR: edge 0 holds the valid
+    triplets in order, the other edges none."""
+    import torch
+
+    from pamnet_tpu_torch.ops.triplet import Groups
+
+    trip = batch_triplets(gb, kind)
+    idx, valid = torch.zeros_like(trip["idx"]), trip["valid"]
+    off = torch.full((gb.el_src.shape[0] + 1,), valid, dtype=torch.int32, device=idx.device)
+    off[0] = 0
+    perm = torch.arange(idx.shape[0], dtype=torch.int32, device=idx.device)
+    return {**trip, "idx": idx, "groups": Groups(off, perm, valid)}
+
+
+def sbf_bf16_phase(gen, scoring_gb, rna_gb, emit_line) -> dict:
+    """Phase 17, sbf_bf16_kernels: kernel B forward and backward in bfloat16
+    on the t2 and t1 arrays of the scoring batch (``scoring_gb``, with the
+    backward's permutations), of the RNA training batch of 8 (``rna_gb``)
+    and of the scoring batch with every triplet on edge 0 (``_cached_triplets``),
+    summed by center edge: each within one bfloat16 ulp of its plain
+    bfloat16 version, bitwise repeatable, timed (event and device) with its
+    bound at 2 bytes a value and the float32 kernel's time on the same values
+    beside it.  The backward walks each neighbour edge's triplets with one
+    group of lanes, so with every triplet on edge 0 it is one serial walk of
+    ~0.4 s, timed over 2 calls.  Returns the cases by kernel."""
+    import torch
+
+    bf16, d = torch.bfloat16, 16
+    batches = (("scoring", scoring_gb, False), ("RNA training batch of 8", rna_gb, False),
+               ("scoring, every triplet on edge 0", scoring_gb, True))
+    cases = {"sbf_modulate": [], "sbf_modulate_backward": []}
+    for name, b, cached in batches:
+        for kind in ("t2", "t1"):
+            trip = _cached_triplets(b, kind) if cached else batch_triplets(b, kind)
+            cases["sbf_modulate"].append(dict(kernel_b_case(
+                f"{kind} fused folded gather, summed, {name}", b.el_src.shape[0], 7, d, gen,
+                trip, True, bf16), batch=name))
+            cases["sbf_modulate_backward"].append(dict(sbf_backward_case(
+                b, kind, d, gen, True, bf16, trip if cached else None, 2 if cached else None),
+                batch=name))
+    emit_line({"phase": "sbf_bf16_kernels", "tolerance": BF16_RULE,
+               "scoring_valid": scoring_gb.valid, "rna_train_valid": rna_gb.valid, **cases})
+    return cases
+
+
+def _kernel_b_dtypes(fn) -> dict:
+    """The operand types kernel B's forward and backward kernels were
+    launched on (their ``m_neighbor``) during ``fn()``, read by wrapping the
+    operand check that each launch makes (``ops/sbf_modulate.py``
+    ``_check_operands``) for the call."""
+    from pamnet_tpu_torch.ops import sbf_modulate as sm
+
+    seen = {"sbf_modulate": set(), "sbf_modulate_backward": set()}
+    orig = sm._check_operands
+
+    def check(what, proj, m_neighbor, *a, **k):
+        seen[what].add(str(m_neighbor.dtype))
+        return orig(what, proj, m_neighbor, *a, **k)
+
+    sm._check_operands = check
+    try:
+        fn()
+    finally:
+        sm._check_operands = orig
+    return {"forward": sorted(seen["sbf_modulate"]),
+            "backward": sorted(seen["sbf_modulate_backward"])}
+
+
+def rna_bf16_phase(args, scoring_mols, scoring_gb, rna_data: tuple, reset_counts, read_counts,
+                   emit_line) -> dict:
+    """Phase 18, rna_bf16: the published RNA model (dim 16, 1 layer) in
+    bfloat16, folded through kernel B's bfloat16 version, beside the float32
+    model of the same weights, in turns.  On the resident scoring batch: the
+    scores within 1e-2 * max|score| of the plain bfloat16 route and 3e-2 *
+    max|score| of float32, kernel B launched 2 a layer as in float32, ms and
+    device ms a batch in both types.  On the RNA training batch of 8 at the
+    recipe (SmoothL1, Adam, lr 1e-4): ``_bf16_step`` (gradients per tensor
+    against the plain bfloat16 route, the pool's terms, a repeated step
+    bitwise, ten steps, the float32 step's launches, an epoch, ms per step,
+    device ms and idle share beside float32).  Then the entry points in
+    bfloat16: ``main_rna_puzzles --compute_dtype bfloat16`` in-process for
+    one epoch on TU files of the scoring structures (12 train, 4 validate)
+    and the scoring service (``serve --compute_dtype bfloat16``'s
+    ``RNAScoringService`` behind ``make_server``) answering a JSON request as
+    it scores directly, kernel B's forward and backward seen running on
+    bfloat16 operands (``_kernel_b_dtypes``).  Returns the epoch's launches."""
+    import torch
+
+    from pamnet_tpu_torch.config import PAMNetConfig
+    from pamnet_tpu_torch.models.pamnet import PAMNet
+    from pamnet_tpu_torch.train.loop import Optimizer
+    from pamnet_tpu_torch.train.schedules import constant
+
+    loader, gb = rna_data
+    kw = dict(dataset="RNA-Puzzles", dim=16, n_layer=1, cutoff_l=2.6, cutoff_g=20.0,
+              flow="target_to_source")
+    model32 = PAMNet(PAMNetConfig(**kw), torch.Generator().manual_seed(args.seed)).to("cuda")
+    model16 = PAMNet(PAMNetConfig(**kw, compute_dtype="bfloat16")).to("cuda")
+    model16.load_state_dict(model32.state_dict())
+    if not (model16.fold_sbf() and model32.fold_sbf()):
+        raise AssertionError("the RNA model must fold in bfloat16 as in float32")
+    ng = scoring_gb.num_graphs
+    models = {"bf16": model16, "f32": model32}
+    with torch.inference_mode():
+        s16, s16_plain, s32 = (model16(scoring_gb)[:ng], model16(scoring_gb, plain=True)[:ng],
+                               model32(scoring_gb)[:ng])
+        torch.cuda.synchronize()
+        if s16.dtype != torch.float32:
+            raise AssertionError(f"bf16 scores in {s16.dtype}")
+        scores = {"kernel_vs_plain": float((s16 - s16_plain).abs().max()),
+                  "kernel_vs_f32": float((s16 - s32).abs().max()),
+                  "max_plain": float(s16_plain.abs().max()), "max_f32": float(s32.abs().max()),
+                  "tolerance": "1e-2 * max|plain bf16|, 3e-2 * max|f32|"}
+        if not (scores["kernel_vs_plain"] <= 1e-2 * scores["max_plain"]
+                and scores["kernel_vs_f32"] <= 3e-2 * scores["max_f32"]):
+            raise AssertionError(f"RNA bf16 scores {scores}")
+        forward = {}
+        for name in ("bf16", "f32"):
+            reset_counts()
+            models[name](scoring_gb)
+            forward[name] = read_counts()
+        if forward["bf16"] != forward["f32"] or forward["bf16"]["sbf_modulate"] != 2:
+            raise AssertionError(f"scoring forward launches {forward}")
+        scoring = {}
+        for name in ("bf16", "f32", "bf16"):  # in turns; the second bf16 reading is kept
+            fn = lambda m=models[name]: m(scoring_gb)  # noqa: E731
+            ms = time_ms(fn, iters=10)
+            dev = device_ms(fn, iters=5)
+            scoring[name] = {"ms_per_batch": ms, "graphs_per_s": ng / ms * 1e3,
+                             "device_ms_per_batch": dev,
+                             "device_idle_share": None if dev is None else 1.0 - dev / ms}
+    opt16 = Optimizer(model16.parameters(), constant(1e-4))
+    res, launches = _bf16_step(
+        "RNA bf16", "smooth_l1", model32, model16, opt16, None,
+        lambda m: Optimizer(m.parameters(), constant(1e-3)), gb, loader, RNA_WANT,
+        reset_counts, read_counts)
+
+    # The entry points in bfloat16.
+    from pamnet_tpu_torch import main_rna_puzzles
+    from pamnet_tpu_torch.data.tu import write_tu_split
+    from pamnet_tpu_torch.serve import RNAScoringService, make_server
+
+    entry = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "data")
+        write_tu_split(root, "train", scoring_mols[:12])
+        write_tu_split(root, "val", scoring_mols[12:16])
+        out = {}
+
+        def train():
+            with contextlib.redirect_stdout(io.StringIO()):
+                out.update(main_rna_puzzles.main([
+                    "--dim", "16", "--n_layer", "1", "--batch_size", "8", "--lr", "1e-4",
+                    "--epochs", "1", "--seed", str(args.seed), "--data_root", root,
+                    "--device", "cuda", "--compute_dtype", "bfloat16",
+                    "--save_dir", os.path.join(tmp, "save")]))
+
+        reset_counts()
+        t0 = time.perf_counter()
+        dtypes = _kernel_b_dtypes(train)
+        counts = read_counts()
+        losses = out["train_loss"] + out["val_loss"]
+        if not (dtypes == {"forward": ["torch.bfloat16"], "backward": ["torch.bfloat16"]}
+                and counts["sbf_modulate_backward"] >= 2
+                and all(math.isfinite(v) for v in losses)):
+            raise AssertionError(f"main_rna_puzzles bf16: {dtypes}, {counts}, {losses}")
+        entry["main_rna_puzzles"] = {"seconds": time.perf_counter() - t0,
+                                     "kernel_b_dtypes": dtypes, "losses": losses,
+                                     "sbf_modulate": counts["sbf_modulate"],
+                                     "sbf_modulate_backward": counts["sbf_modulate_backward"]}
+    service = RNAScoringService(model16.state_dict(), model16.cfg, batch_size=16, device="cuda")
+    server = make_server(service, "127.0.0.1", 0, "the rna_bf16 model")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        body = json.dumps({"molecules": [
+            {"name": f"s{i}", "z": m["z"].tolist(), "pos": m["pos"].tolist()}
+            for i, m in enumerate(scoring_mols[:2])]}).encode()
+        served = {}
+
+        def ask():
+            served.update(_check_names(post(
+                f"http://127.0.0.1:{server.server_address[1]}/score", body,
+                "application/json"), ["s0", "s1"]))
+
+        dtypes = _kernel_b_dtypes(ask)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    direct = service.score_molecules(scoring_mols[:2])
+    if dtypes["forward"] != ["torch.bfloat16"]:
+        raise AssertionError(f"served bf16 forward ran on {dtypes}")
+    entry["serve"] = {"kernel_b_dtypes": dtypes,
+                      **compare("served bf16 vs direct", torch.tensor(served["scores"]),
+                                torch.from_numpy(direct), atol=5e-5, rtol=1e-4)}
+    emit_line({"phase": "rna_bf16", "dim": 16, "n_layer": 1, "compute_dtype": "bfloat16",
+               "folded": True, "scoring_structures": ng, "scoring_scores": scores,
+               "scoring_launches_per_batch": forward["bf16"], "scoring": scoring["bf16"],
+               "scoring_f32": scoring["f32"], "train_structures": len(loader.structs),
+               "batch_size": 8, "resident_batch_valid": gb.valid, **res,
+               "entry_points": entry})
+    return launches
+
+
+def _dtoh_copies(fn) -> tuple[int, int]:
+    """(device-to-host, host-to-device) memory copies that the profiler
+    records in one call of ``fn``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    return (sum(ev.count for ev in events if "DtoH" in ev.key),
+            sum(ev.count for ev in events if "HtoD" in ev.key))
+
+
+def rna_csv_phase(args, mols, state: dict, reset_counts, read_counts, emit_line) -> dict:
+    """Phase 19, rna_csv: ``python -m pamnet_tpu_torch.inference_rna_puzzles``
+    in-process on the card, in float32 and bfloat16, on TU files written from
+    the scoring phase's structures (with file names) and the scoring model's
+    weights exported as a reference ``.pt``: the CSV's header, tags and
+    puzzle number; the scores against ``RNAScoringService.score_molecules``
+    on the structures read back from those files (float32 within 5e-5 + 1e-4
+    |score|; bfloat16 within 1e-2 * max|score| of the bfloat16 service and
+    3e-2 * max|score| of the float32 CSV); one device-to-host copy a run (the
+    scores, fetched once), from the run's profile (its card activity only);
+    every forward kernel launched; seconds per structure (under that
+    profile).  Returns the launches of the two runs."""
+    import torch
+
+    from pamnet_tpu_torch import inference_rna_puzzles
+    from pamnet_tpu_torch.config import PAMNetConfig
+    from pamnet_tpu_torch.data.tu import TUDataset, write_tu_split
+    from pamnet_tpu_torch.serve import RNAScoringService
+    from pamnet_tpu_torch.train.checkpoint import export_state_dict
+
+    dataset, bs = "rna_p21", 8
+    res, total, csv = {"dataset": dataset, "structures": len(mols), "batch_size": bs}, {}, {}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "data")
+        write_tu_split(root, dataset, [dict(m, name=f"{dataset}_candidate_{i}.pdb")
+                                       for i, m in enumerate(mols)])
+        export_state_dict(state, os.path.join(tmp, "save", "model.pt"))
+        structures = TUDataset(root, dataset).molecules()
+        os.chdir(tmp)
+        try:
+            for dtype in ("float32", "bfloat16"):
+                argv = ["--dataset", dataset, "--batch_size", str(bs), "--saved_model",
+                        "model.pt", "--data_root", root, "--compute_dtype", dtype]
+
+                out = {}
+
+                def run(argv=argv):
+                    with contextlib.redirect_stdout(io.StringIO()):
+                        out.update(inference_rna_puzzles.main(argv))
+
+                reset_counts()
+                t0 = time.perf_counter()
+                dtoh, htod = _dtoh_copies(run)
+                wall = time.perf_counter() - t0
+                launches = read_counts()
+                with open(out["csv"]) as f:
+                    lines = f.read().splitlines()
+                rows = [ln.split(",") for ln in lines[1:]]
+                want_tags = [f"{dataset}_candidate_{i}" for i in range(len(mols))]
+                if (lines[0] != "PAMNet,tag,puzzle_number" or [r[1] for r in rows] != want_tags
+                        or {r[2] for r in rows} != {"21"}):
+                    raise AssertionError(f"rna_csv {dtype}: CSV {lines[:3]}")
+                got = torch.tensor([float(r[0]) for r in rows], dtype=torch.float64)
+                cfg = PAMNetConfig(dataset=dataset, dim=16, n_layer=1, cutoff_l=2.6,
+                                   cutoff_g=20.0, flow="target_to_source", compute_dtype=dtype)
+                service = RNAScoringService(state, cfg, batch_size=bs, device="cuda")
+                want = torch.from_numpy(service.score_molecules(structures)).double()
+                csv[dtype] = got
+                if dtype == "float32":
+                    check = compare("rna_csv vs service", got, want, atol=5e-5, rtol=1e-4)
+                else:
+                    check = {"vs_service": float((got - want).abs().max()),
+                             "vs_f32_csv": float((got - csv["float32"]).abs().max()),
+                             "max_service": float(want.abs().max()),
+                             "max_f32_csv": float(csv["float32"].abs().max()),
+                             "tolerance": "1e-2 * max|bf16 service|, 3e-2 * max|f32 CSV|"}
+                    if not (check["vs_service"] <= 1e-2 * check["max_service"]
+                            and check["vs_f32_csv"] <= 3e-2 * check["max_f32_csv"]):
+                        raise AssertionError(f"rna_csv bf16 scores {check}")
+                if dtoh != 1:
+                    raise AssertionError(f"rna_csv {dtype}: {dtoh} device-to-host copies")
+                if min(launches[k] for k in ("triplet_aggregate", "sbf_modulate", "edge_message",
+                                             "edge_message_sum")) < 1:
+                    raise AssertionError(f"rna_csv {dtype} skipped a kernel: {launches}")
+                if launches["sbf_modulate"] != 2 * len(out["pads"]):
+                    raise AssertionError(f"rna_csv {dtype}: kernel B launches {launches}")
+                for k, v in launches.items():
+                    total[k] = total.get(k, 0) + v
+                res[dtype] = {"check": check, "batches": len(out["pads"]),
+                              "pads": [dataclasses.asdict(p) for p in out["pads"]],
+                              "scoring_s": out["seconds"], "wall_s": wall,
+                              "s_per_structure": out["seconds"] / len(mols),
+                              "wall_s_per_structure": wall / len(mols),
+                              "device_to_host_copies": dtoh, "host_to_device_copies": htod,
+                              "launches": launches, "scores_head": got[:4].tolist()}
+        finally:
+            os.chdir(cwd)
+    emit_line({"phase": "rna_csv", **res})
+    return total
 
 
 def _check_names(res: dict, names: list[str]) -> dict:

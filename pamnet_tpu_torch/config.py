@@ -25,9 +25,9 @@ class PAMNetConfig:
     every forward (``models/device_graph.py``; JAX ``config.py:85-87``).
     ``compute_dtype`` is the type of the message-passing stack's activations
     (JAX's mixed precision, ``models/pamnet.py``): "float32", or "bfloat16"
-    with float32 parameters, geometry, sums, fusion and pool.  A bfloat16
-    model that would fold raises: kernel B has no bfloat16 version, and a
-    model never changes route on its own.
+    with float32 parameters, geometry, sums, fusion and pool; a bfloat16
+    model folds where a float32 one does, and its folded stage runs in
+    kernel B's bfloat16 version, as the JAX model folds in either type.
     """
 
     dataset: str = "QM9"
@@ -55,13 +55,6 @@ class PAMNetConfig:
             raise ValueError(
                 f"compute_dtype {self.compute_dtype!r}: the port computes in "
                 "float32 or bfloat16"
-            )
-        if self.compute_dtype == "bfloat16" and self.folds():
-            raise ValueError(
-                f"compute_dtype 'bfloat16' with the folded sbf stage ((num_spherical, dim) "
-                f"= {(self.num_spherical, self.dim)}): kernel B (ops/sbf_modulate.py) has "
-                "no bfloat16 version yet (ROADMAP queue 2, K13); train this model in "
-                "float32, or pass fold_sbf=False to run it unfolded"
             )
 
     def folds(self) -> bool:

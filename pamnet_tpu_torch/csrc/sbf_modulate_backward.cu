@@ -1,13 +1,15 @@
 // Kernel B's backward: the gradient of the folded spherical-basis modulate
-// stage (sbf_modulate.cu), summed by center edge or not, with respect to
-// the projected table, the neighbour messages and the stage's weights.
+// stage (sbf_modulate.cu), summed by center edge, with respect to the
+// projected table, the neighbour messages and the stage's weights.  The
+// gradient of the (T, D) rows is that of their sums over identity groups
+// (seg[t] = t), which the wrapper passes: one form of the kernel.
 //
 // Forward, per triplet t with neighbour edge e = idx[t]:
 //   acc = bias + sum_l cbf[t, l] * proj[e, l*D:(l+1)*D]     s0 = silu(acc)
 //   z1  = s0 @ W1^T + b1                                    s1 = silu(z1)
 //   z2  = s1 @ W2^T + b2                                    h  = silu(z2) * mask[t]
-//   row(t) = m[e] * h,   summed into out[seg[t]] (or out[t] = row(t))
-// Backward, for the output gradient G and g = G[seg[t]] (or G[t]):
+//   row(t) = m[e] * h,   summed into out[seg[t]]
+// Backward, for the output gradient G and g = G[seg[t]]:
 //   d_mrow = g * h                       d_z2 = g * m[e] * mask[t] * silu'(z2)
 //   d_z1 = (d_z2 @ W2) * silu'(z1)       d_acc = (d_z1 @ W1) * silu'(acc)
 //   d_W2 += d_z2 (x) s1   d_b2 += d_z2   d_W1 += d_z1 (x) s0   d_b1 += d_z1
@@ -19,11 +21,20 @@
 // (pamnet_tpu/models/layers.py:48-65) and of its sum by center edge
 // (:324-332).
 //
+// Types (csrc/vec.cuh): every float operand, G and the outputs are f32, or
+// all bf16.  A bf16 stream is read as single bf16 values (each lane reads
+// its column), converted to f32 at the load; the chain, d_proj and d_m are
+// kept in f32 registers and rounded once at their store; the weight
+// gradients' partials and their fixed-order sum run in f32, and the sum is
+// rounded once into the operands' type.  The f32 instance does the
+// arithmetic of the f32-only kernel before it, in its order.
+//
 // What bounds it on an H100: by bytes, memory: the edge rows are read once
-// and written once (El x 1 KB); each triplet reads 40 bytes (perm, cbf,
-// mask, its center id) and its 64-byte row of G, which is El x 64 B (6 MB
-// at the RNA batch-8 pads) and stays in L2: about 118 MB, 0.035 ms at
-// 3.35 TB/s at the batch-8 t2 pads.  It runs at about a quarter of that
+// and written once (El x 1 KB in f32, El x 512 B in bf16); each triplet
+// reads 40 bytes (perm, cbf, mask, its center id; 24 in bf16) and its row
+// of G (64 bytes, 32 in bf16), which is El x 64 B (6 MB at the RNA batch-8
+// pads) and stays in L2: about 118 MB, 0.035 ms at 3.35 TB/s at the
+// batch-8 t2 pads in f32.  It runs at about a quarter of that
 // bound; the likely limit, which no hardware counter has checked, is its
 // instructions: about 3 kflop a triplet over four D x D products and two
 // outer products, at 126 registers (two blocks of 256 an SM) for D=16.
@@ -52,6 +63,8 @@
 //   block read slower in trials that the repository does not keep.)
 //   No float atomics: bitwise repeatable.
 #include <cuda_runtime.h>
+
+#include "vec.cuh"
 
 namespace {
 
@@ -99,21 +112,21 @@ __device__ __forceinline__ void outer_row(const float* a, float s, float (&acc)[
   }
 }
 
-// SUMMED: triplet t's output gradient is G[seg[t]] for t < rows_with_grad,
-// zero after; else G[t].  Writes d_proj, d_m for every edge and row
-// blockIdx.x of partial = [d_W1 | d_b1 | d_W2 | d_b2 | d_bias] of the
-// block's triplets.
-template <int NS, int D, bool SUMMED>
+// Triplet t's output gradient is G[seg[t]] for t < rows_with_grad, zero
+// after.  Writes d_proj, d_m for every edge and row blockIdx.x of partial =
+// [d_W1 | d_b1 | d_W2 | d_b2 | d_bias] (f32) of the block's triplets.
+template <class E, int NS, int D>
 __global__ void __launch_bounds__(kThreads, 2)
-sbf_backward_kernel(const float* __restrict__ proj, const float* __restrict__ m,
-                    const float* __restrict__ cbf, const float* __restrict__ bias,
-                    const float* __restrict__ w1, const float* __restrict__ b1,
-                    const float* __restrict__ w2, const float* __restrict__ b2,
-                    const float* __restrict__ mask, const float* __restrict__ g,
+sbf_backward_kernel(const typename E::T* __restrict__ proj, const typename E::T* __restrict__ m,
+                    const typename E::T* __restrict__ cbf,
+                    const typename E::T* __restrict__ bias,
+                    const typename E::T* __restrict__ w1, const typename E::T* __restrict__ b1,
+                    const typename E::T* __restrict__ w2, const typename E::T* __restrict__ b2,
+                    const typename E::T* __restrict__ mask, const typename E::T* __restrict__ g,
                     const int* __restrict__ seg, const int* __restrict__ perm,
                     const int* __restrict__ off, float* __restrict__ partial,
-                    float* __restrict__ d_proj, float* __restrict__ d_m, int num_edges,
-                    int rows_with_grad) {
+                    typename E::T* __restrict__ d_proj, typename E::T* __restrict__ d_m,
+                    int num_edges, int rows_with_grad) {
   static_assert(D == 8 || D == 16, "a group is a power-of-two part of a warp");
   constexpr int kWarps = kThreads / 32;
   constexpr int kGroups = kThreads / D;
@@ -126,10 +139,11 @@ sbf_backward_kernel(const float* __restrict__ proj, const float* __restrict__ m,
   __shared__ float s_red[kWarps * P];
   for (int i = threadIdx.x; i < D * D; i += kThreads) {
     const int o = i / D, k = i % D;
-    s_w[0][o * S + k] = w1[i];
-    s_w[1][k * S + o] = w1[i];
-    s_w[2][o * S + k] = w2[i];
-    s_w[3][k * S + o] = w2[i];
+    const float a = E::scalar(w1 + i), b = E::scalar(w2 + i);
+    s_w[0][o * S + k] = a;
+    s_w[1][k * S + o] = a;
+    s_w[2][o * S + k] = b;
+    s_w[3][k * S + o] = b;
   }
   __syncthreads();
 
@@ -141,7 +155,7 @@ sbf_backward_kernel(const float* __restrict__ proj, const float* __restrict__ m,
   const float* w1_col = s_w[1] + c * S;
   const float* w2_row = s_w[2] + c * S;
   const float* w2_col = s_w[3] + c * S;
-  const float bias_c = __ldg(bias + c), b1_c = __ldg(b1 + c), b2_c = __ldg(b2 + c);
+  const float bias_c = E::scalar(bias + c), b1_c = E::scalar(b1 + c), b2_c = E::scalar(b2 + c);
 
   float dw1[D], dw2[D], db1 = 0.0f, db2 = 0.0f, dbias = 0.0f;
 #pragma unroll
@@ -161,10 +175,10 @@ sbf_backward_kernel(const float* __restrict__ proj, const float* __restrict__ m,
     for (int l = 0; l < NS; ++l) p[l] = 0.0f;
     int begin = 0, count = 0;
     if (edge) {
-      const float* pr = proj + e * (NS * D) + c;
+      const typename E::T* pr = proj + e * (NS * D) + c;
 #pragma unroll
-      for (int l = 0; l < NS; ++l) p[l] = __ldg(pr + l * D);
-      mv = __ldg(m + e * D + c);
+      for (int l = 0; l < NS; ++l) p[l] = E::scalar(pr + l * D);
+      mv = E::scalar(m + e * D + c);
       begin = __ldg(off + e);
       count = __ldg(off + e + 1) - begin;
     }
@@ -181,24 +195,20 @@ sbf_backward_kernel(const float* __restrict__ proj, const float* __restrict__ m,
       for (int l = 0; l < NS; ++l) cb_row[l] = 0.0f;
       if (k0 + c < count) {
         const int t = __ldg(perm + begin + k0 + c);
-        mk_c = __ldg(mask + t);
-        const float* cr = cbf + static_cast<long long>(t) * NS;
+        mk_c = E::scalar(mask + t);
+        const typename E::T* cr = cbf + static_cast<long long>(t) * NS;
 #pragma unroll
-        for (int l = 0; l < NS; ++l) cb_row[l] = __ldg(cr + l);
-        if (SUMMED) {
-          row_c = t < rows_with_grad ? __ldg(seg + t) : -1;
-        } else {
-          row_c = t;
-        }
+        for (int l = 0; l < NS; ++l) cb_row[l] = E::scalar(cr + l);
+        row_c = t < rows_with_grad ? __ldg(seg + t) : -1;
       }
       const int n = min(D, steps - k0);
       const int r0 = __shfl_sync(kFull, row_c, base);
-      float gv = r0 >= 0 ? __ldg(g + static_cast<long long>(r0) * D + c) : 0.0f;
+      float gv = r0 >= 0 ? E::scalar(g + static_cast<long long>(r0) * D + c) : 0.0f;
       for (int j = 0; j < n; ++j) {
         // The next triplet's G row, in flight during this one's arithmetic.
         const int rn = __shfl_sync(kFull, row_c, base + ((j + 1) & (D - 1)));
         const float gn = (j + 1 < n && rn >= 0)
-                             ? __ldg(g + static_cast<long long>(rn) * D + c) : 0.0f;
+                             ? E::scalar(g + static_cast<long long>(rn) * D + c) : 0.0f;
         float acc = bias_c;
 #pragma unroll
         for (int l = 0; l < NS; ++l) acc += __shfl_sync(kFull, cb_row[l], base + j) * p[l];
@@ -237,10 +247,10 @@ sbf_backward_kernel(const float* __restrict__ proj, const float* __restrict__ m,
       }
     }
     if (edge) {
-      float* dr = d_proj + e * (NS * D) + c;
+      typename E::T* dr = d_proj + e * (NS * D) + c;
 #pragma unroll
-      for (int l = 0; l < NS; ++l) dr[l * D] = dp[l];
-      d_m[e * D + c] = dm;
+      for (int l = 0; l < NS; ++l) E::put(dr + l * D, dp[l]);
+      E::put(d_m + e * D + c, dm);
     }
   }
 
@@ -278,9 +288,11 @@ sbf_backward_kernel(const float* __restrict__ proj, const float* __restrict__ m,
 }
 
 // out[j] = sum over the blocks of partial[b, j]: thread k sums rows k,
-// k + kThreads, ... in order, then a tree over the threads; a fixed order.
+// k + kThreads, ... in order, then a tree over the threads; a fixed order,
+// in f32, rounded once into out's type.
+template <class E>
 __global__ void __launch_bounds__(kThreads)
-sbf_backward_reduce_kernel(const float* __restrict__ partial, float* __restrict__ out,
+sbf_backward_reduce_kernel(const float* __restrict__ partial, typename E::T* __restrict__ out,
                            int num_blocks, int width) {
   __shared__ float s[kThreads];
   const int j = blockIdx.x;
@@ -294,57 +306,82 @@ sbf_backward_reduce_kernel(const float* __restrict__ partial, float* __restrict_
     if (threadIdx.x < step) s[threadIdx.x] += s[threadIdx.x + step];
     __syncthreads();
   }
-  if (threadIdx.x == 0) out[j] = s[0];
+  if (threadIdx.x == 0) E::put(out + j, s[0]);
 }
 
-template <int NS, int D>
-int launch(const float* proj, const float* m, const float* cbf, const float* bias,
-           const float* w1, const float* b1, const float* w2, const float* b2,
-           const float* mask, const float* g, const int* seg, const int* perm, const int* off,
-           float* partial, float* wgrad, float* d_proj, float* d_m, int num_blocks,
-           int num_edges, int rows_with_grad, cudaStream_t stream) {
+template <class E, int NS, int D>
+int launch(const void* proj, const void* m, const void* cbf, const void* bias, const void* w1,
+           const void* b1, const void* w2, const void* b2, const void* mask, const void* g,
+           const int* seg, const int* perm, const int* off, float* partial, void* wgrad,
+           void* d_proj, void* d_m, int num_blocks, int num_edges, int rows_with_grad,
+           cudaStream_t stream) {
+  using T = typename E::T;
   constexpr int P = 2 * D * D + 3 * D;
-  if (seg != nullptr) {
-    sbf_backward_kernel<NS, D, true><<<num_blocks, kThreads, 0, stream>>>(
-        proj, m, cbf, bias, w1, b1, w2, b2, mask, g, seg, perm, off, partial, d_proj, d_m,
-        num_edges, rows_with_grad);
-  } else {
-    sbf_backward_kernel<NS, D, false><<<num_blocks, kThreads, 0, stream>>>(
-        proj, m, cbf, bias, w1, b1, w2, b2, mask, g, seg, perm, off, partial, d_proj, d_m,
-        num_edges, rows_with_grad);
-  }
+  sbf_backward_kernel<E, NS, D><<<num_blocks, kThreads, 0, stream>>>(
+      static_cast<const T*>(proj), static_cast<const T*>(m), static_cast<const T*>(cbf),
+      static_cast<const T*>(bias), static_cast<const T*>(w1), static_cast<const T*>(b1),
+      static_cast<const T*>(w2), static_cast<const T*>(b2), static_cast<const T*>(mask),
+      static_cast<const T*>(g), seg, perm, off, partial, static_cast<T*>(d_proj),
+      static_cast<T*>(d_m), num_edges, rows_with_grad);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  sbf_backward_reduce_kernel<<<P, kThreads, 0, stream>>>(partial, wgrad, num_blocks, P);
+  sbf_backward_reduce_kernel<E><<<P, kThreads, 0, stream>>>(partial, static_cast<T*>(wgrad),
+                                                            num_blocks, P);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <class E>
+int launch_shape(const void* proj, const void* m, const void* cbf, const void* bias,
+                 const void* w1, const void* b1, const void* w2, const void* b2,
+                 const void* mask, const void* g, const int* seg, const int* perm,
+                 const int* off, float* partial, void* wgrad, void* d_proj, void* d_m,
+                 int num_blocks, int num_edges, int rows_with_grad, int ns, int d,
+                 cudaStream_t stream) {
+  if (ns == 7 && d == 16) {
+    return launch<E, 7, 16>(proj, m, cbf, bias, w1, b1, w2, b2, mask, g, seg, perm, off,
+                            partial, wgrad, d_proj, d_m, num_blocks, num_edges,
+                            rows_with_grad, stream);
+  }
+  if (ns == 7 && d == 8) {
+    return launch<E, 7, 8>(proj, m, cbf, bias, w1, b1, w2, b2, mask, g, seg, perm, off,
+                           partial, wgrad, d_proj, d_m, num_blocks, num_edges,
+                           rows_with_grad, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Inputs as pamnet_sbf_modulate (idx through its CSR), plus g, the output
-// gradient: with seg (T,) i32, the center edge of each triplet, g is
-// (rows, d) and triplet t < rows_with_grad takes g[seg[t]] (the others
-// none); with seg NULL, g is (T, d) and triplet t takes g[t].  perm: (T,)
-// i32 and off: (El+1,) i32 the CSR of idx over its valid rows.  Scratch:
-// partial (num_blocks, 2*d*d + 3*d), num_blocks >= 1 blocks of 256 threads
-// walking the edges.  Outputs: wgrad: (2*d*d + 3*d,) = [d_W1 | d_b1 | d_W2 |
-// d_b2 | d_bias]; d_proj: (El, ns*d); d_m: (El, d).  Compiled for ns = 7
-// and d in {8, 16}.  Returns the first failed launch's cudaError_t.
+// Inputs as pamnet_sbf_modulate (idx through its CSR), plus g (rows, d),
+// the output gradient: triplet t < rows_with_grad takes g[seg[t]], seg (T,)
+// i32 the center edge of each triplet, the others none.  perm: (T,) i32
+// and off: (El+1,) i32 the CSR of idx over its valid rows.  Scratch:
+// partial (num_blocks, 2*d*d + 3*d) f32, num_blocks >= 1 blocks of 256
+// threads walking the edges.  Outputs: wgrad: (2*d*d + 3*d,) = [d_W1 | d_b1
+// | d_W2 | d_b2 | d_bias]; d_proj: (El, ns*d); d_m: (El, d).  Every float
+// operand, g and the outputs f32 (bf16 = 0) or all bf16 (bf16 = 1).
+// Compiled for ns = 7 and d in {8, 16}.  Returns the first failed launch's
+// cudaError_t.
 extern "C" int pamnet_sbf_modulate_backward(
-    const float* proj, const float* m, const float* cbf, const float* bias, const float* w1,
-    const float* b1, const float* w2, const float* b2, const float* mask, const float* g,
-    const int* seg, const int* perm, const int* off, float* partial, float* wgrad,
-    float* d_proj, float* d_m, int num_blocks, int num_edges, int rows_with_grad, int ns,
-    int d, void* stream) {
-  if (num_blocks <= 0 || num_edges <= 0 || rows_with_grad < 0) return cudaErrorInvalidValue;
+    const void* proj, const void* m, const void* cbf, const void* bias, const void* w1,
+    const void* b1, const void* w2, const void* b2, const void* mask, const void* g,
+    const int* seg, const int* perm, const int* off, float* partial, void* wgrad,
+    void* d_proj, void* d_m, int num_blocks, int num_edges, int rows_with_grad, int ns,
+    int d, int bf16, void* stream) {
+  if (seg == nullptr || num_blocks <= 0 || num_edges <= 0 || rows_with_grad < 0) {
+    return cudaErrorInvalidValue;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (ns == 7 && d == 16) {
-    return launch<7, 16>(proj, m, cbf, bias, w1, b1, w2, b2, mask, g, seg, perm, off, partial,
-                         wgrad, d_proj, d_m, num_blocks, num_edges, rows_with_grad, s);
+  switch (elem_kind(bf16, d)) {
+    case kF32x4:
+      return launch_shape<F32x4>(proj, m, cbf, bias, w1, b1, w2, b2, mask, g, seg, perm, off,
+                                 partial, wgrad, d_proj, d_m, num_blocks, num_edges,
+                                 rows_with_grad, ns, d, s);
+    case kBf16x8:
+      return launch_shape<Bf16x8>(proj, m, cbf, bias, w1, b1, w2, b2, mask, g, seg, perm,
+                                  off, partial, wgrad, d_proj, d_m, num_blocks, num_edges,
+                                  rows_with_grad, ns, d, s);
+    default:
+      return cudaErrorInvalidValue;
   }
-  if (ns == 7 && d == 8) {
-    return launch<7, 8>(proj, m, cbf, bias, w1, b1, w2, b2, mask, g, seg, perm, off, partial,
-                        wgrad, d_proj, d_m, num_blocks, num_edges, rows_with_grad, s);
-  }
-  return cudaErrorInvalidValue;
 }

@@ -8,11 +8,12 @@
 //   Bf16x4  bf16,   4 values a vector (uint2, 8 bytes),  D % 4 == 0
 //
 // Each provides T (the element), N, Raw (the vector moved as one load or
-// store), unpack(Raw) -> Vf<N> and pack(Vf<N>) -> Raw.  A bf16 value's bits
-// are the top half of its f32 bits, so unpacking is exact; the low element
-// of a word is the one at the lower address.  elem_kind() picks the type
-// from the stream (the wrapper's dtype flag) and D; ops/triplet.py::
-// vector_width gives the host the same choice.
+// store), unpack(Raw) -> Vf<N> and pack(Vf<N>) -> Raw, and for one value
+// scalar(const T*) -> float and put(T*, float) (rounded once).  A bf16
+// value's bits are the top half of its f32 bits, so unpacking is exact; the
+// low element of a word is the one at the lower address.  elem_kind()
+// picks the type from the stream (the wrapper's dtype flag) and D;
+// ops/triplet.py::vector_width gives the host the same choice.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -69,6 +70,7 @@ struct F32x4 {
     return make_float4(f.v[0], f.v[1], f.v[2], f.v[3]);
   }
   static __device__ __forceinline__ float scalar(const float* p) { return __ldg(p); }
+  static __device__ __forceinline__ void put(float* p, float v) { *p = v; }
 };
 
 struct Bf16x8 {
@@ -87,6 +89,9 @@ struct Bf16x8 {
     return __bfloat162float(
         __ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p))));
   }
+  static __device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
+    *p = __float2bfloat16_rn(v);
+  }
 };
 
 struct Bf16x4 {
@@ -102,6 +107,7 @@ struct Bf16x4 {
   static __device__ __forceinline__ float scalar(const __nv_bfloat16* p) {
     return Bf16x8::scalar(p);
   }
+  static __device__ __forceinline__ void put(__nv_bfloat16* p, float v) { Bf16x8::put(p, v); }
 };
 
 // Vector i of the rows at p, in f32 registers.

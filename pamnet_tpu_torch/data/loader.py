@@ -29,8 +29,11 @@ class GraphLoader:
       pads: a minimum bucket (the caller's high-water pads); any dimension
         this set of molecules exceeds is widened.  None = the worst case of
         this set (sum of the ``batch_size`` largest counts per dimension).
-      ladder_pads: pad each batch to the geometric bucket of its own counts,
-        capped at ``self.pads``, instead of to ``self.pads`` itself.
+      ladder_pads: True pads each batch to the geometric bucket of its own
+        counts, "exact" to its own counts rounded up to ``align`` (JAX's
+        ``ladder_pads="exact"``: a fixed set scored once, no bucket
+        overshoot), either capped at ``self.pads``; False pads every batch
+        to ``self.pads`` itself.
       shuffle, seed: a new molecule order every epoch, one permutation per
         epoch from ``np.random.default_rng(seed)``, as the JAX loader draws
         them (so batches hold the same molecules).
@@ -47,7 +50,7 @@ class GraphLoader:
 
     def __init__(self, mols: list[dict], dataset_kind: str, cutoff_l: float,
                  cutoff_g: float, batch_size: int, pads: PadSizes | None = None,
-                 ladder_pads: bool = False, align: int = 128,
+                 ladder_pads: bool | str = False, align: int = 128,
                  num_spherical: int = 7, num_radial: int = 6,
                  envelope_exponent: int = 5, shuffle: bool = False, seed: int = 0,
                  drop_last: bool = False, build_perms: bool = False,
@@ -55,6 +58,8 @@ class GraphLoader:
                  precompute_basis: bool = True):
         if not mols:
             raise ValueError("GraphLoader needs at least one molecule")
+        if ladder_pads not in (False, True, "exact"):
+            raise ValueError(f"ladder_pads must be False, True or 'exact', got {ladder_pads!r}")
         self.batch_size = batch_size
         self.ladder_pads = ladder_pads
         self.shuffle = shuffle
@@ -117,9 +122,9 @@ class GraphLoader:
 
     def _batch_pads(self, idxs: list[int]) -> PadSizes:
         n, eg, el, t2, t1 = self._counts[idxs].sum(axis=0)
-        b = PadSizes.bucketed(int(n), max(int(eg), 1), max(int(el), 1),
-                              max(int(t2), 1), max(int(t1), 1), len(idxs),
-                              align=self._align)
+        pad = PadSizes.for_counts if self.ladder_pads == "exact" else PadSizes.bucketed
+        b = pad(int(n), max(int(eg), 1), max(int(el), 1), max(int(t2), 1), max(int(t1), 1),
+                len(idxs), align=self._align)
         return PadSizes(*(min(getattr(b, f.name), getattr(self.pads, f.name))
                           for f in dataclasses.fields(PadSizes)))
 

@@ -22,10 +22,17 @@ every run): ``rows + sum`` (``sbf_modulate`` without ``out_groups``, then
 checkout's ``chip_smoke.py`` helpers (the profiler's device time of one call
 and its event-timed time), so the two directories are timed alike.
 
+Each worker also keeps kernel B's float32 backward on each stream, summed by
+center edge and as rows (``backward_outputs``: tables, weights and output
+gradients drawn after the timed cases), which no run times.
+
 Printed: the card's name and power limit, then one JSON line per run.  The
 sums of every case in every run are the same function of the same inputs;
 it exits non-zero if a run failed or a sum differs from the first run's by
-more than 1e-4 + 1e-4 |x|.
+more than 1e-4 + 1e-4 |x|.  Each line also says whether every kept tensor,
+the sums and the backward's gradients, equals the first run's bit for bit
+(``bitwise_equal_to_first_run``): float32 work whose arithmetic a change
+kept gives the parent's bits.
 """
 
 from __future__ import annotations
@@ -45,18 +52,28 @@ KINDS = {"t2": ("t2_kj", "cbf2"), "t1": ("t1_jj", "cbf1")}
 
 def export_batch(structures: int, atoms: int, seed: int) -> dict:
     """The t2/t1 triplet arrays of the scoring batch of ``structures``
-    synthetic structures, as CPU tensors."""
+    synthetic structures, with the CSR of each neighbour index and the
+    triplets' center edges, as CPU tensors."""
     from pamnet_tpu_torch.data.loader import GraphLoader
     from pamnet_tpu_torch.data.synthetic import synthetic_rna_dataset
 
     mols = synthetic_rna_dataset(structures, seed=seed, n_atoms=atoms)
     gb = next(iter(GraphLoader(mols, "rna", CUTOFF_L, CUTOFF_G, batch_size=structures,
                                ladder_pads=True)))
-    batch = {"el": gb.el_src.shape[0]}
+    import torch
+
+    from pamnet_tpu_torch.data.batch import build_perm_np
+
+    el = gb.el_src.shape[0]
+    batch = {"el": el}
     for kind, (idx, cbf) in KINDS.items():
-        batch[kind] = {"idx": getattr(gb, idx), "cbf": getattr(gb, cbf),
+        ids, valid = getattr(gb, idx), gb.valid[kind]
+        perm, poff = build_perm_np(ids.numpy(), valid, el, ids.shape[0])
+        batch[kind] = {"idx": ids, "cbf": getattr(gb, cbf),
                        "mask": getattr(gb, kind + "_mask"),
-                       "off": getattr(gb, kind + "_ji_off"), "valid": gb.valid[kind]}
+                       "off": getattr(gb, kind + "_ji_off"), "valid": valid,
+                       "ids": getattr(gb, kind + "_ji"), "perm": torch.from_numpy(perm),
+                       "poff": torch.from_numpy(poff)}
     return batch
 
 
@@ -80,6 +97,28 @@ def cases(batch: dict, kind: str, gen, device: str) -> dict:
         groups = Groups(off, None, valid)
         out["summed"] = lambda: sbf_modulate(*args, out_groups=groups)
     return out
+
+
+def backward_outputs(batch: dict, kind: str, gen, device: str) -> dict:
+    """Kernel B's float32 backward on stream ``kind``, summed by center edge
+    and as rows, on tables, weights and output gradients drawn from
+    ``gen``: each of its seven gradients, by name."""
+    import torch
+
+    from pamnet_tpu_torch.ops.sbf_modulate import sbf_modulate_backward
+    from pamnet_tpu_torch.ops.triplet import Groups
+
+    a = {k: v.to(device) if torch.is_tensor(v) else v for k, v in batch[kind].items()}
+    el, d = batch["el"], DIM
+    r = lambda *s: torch.randn(*s, device=device, generator=gen)  # noqa: E731
+    args = (r(el, NS * d), r(el, d), a["cbf"], r(d), r(d, d) / d**0.5, r(d),
+            r(d, d) / d**0.5, r(d), a["idx"], a["mask"])
+    groups = Groups(a["poff"], a["perm"], a["valid"])
+    out_groups = Groups(a["off"], None, a["valid"])
+    runs = {"summed": sbf_modulate_backward(*args, groups, r(el, d), out_groups, a["ids"]),
+            "rows": sbf_modulate_backward(*args, groups, r(a["idx"].shape[0], d))}
+    return {f"backward {kind} {name} {i}": g for name, grads in runs.items()
+            for i, g in enumerate(grads)}
 
 
 def _smoke_helpers():
@@ -107,6 +146,8 @@ def _worker(batch_path: str, seed: int, sums_path: str) -> dict:
             for name, fn in cases(batch, kind, gen, "cuda").items():
                 sums[f"{kind} {name}"] = fn().cpu()
                 res[kind][name] = {"device_ms": smoke.device_ms(fn), "ms": smoke.time_ms(fn)}
+        for kind in KINDS:
+            sums.update({k: v.cpu() for k, v in backward_outputs(batch, kind, gen, "cuda").items()})
     torch.save(sums, sums_path)
     return res
 
@@ -170,6 +211,8 @@ def main(argv=None) -> int:
             first = first or sums
             line.update(json.loads(proc.stdout.strip().splitlines()[-1]))
             line["max_diff_over_limit"] = max_excess(sums, first)
+            line["bitwise_equal_to_first_run"] = sums.keys() == first.keys() and all(
+                torch.equal(v, first[k]) for k, v in sums.items())
             failed += line["max_diff_over_limit"] > 1.0
         failed += proc.returncode != 0
         print(json.dumps(line), flush=True)

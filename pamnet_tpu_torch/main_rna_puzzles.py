@@ -6,10 +6,10 @@ repository's ``main_rna_puzzles.py``; reference: main_rna_puzzles.py:44-111).
 
 SmoothL1 on the per-structure RMSD score, ``flow='target_to_source'``, Adam
 at a constant learning rate with no clip and no EMA, in float32 with TF32
-off (``--compute_dtype bfloat16``: mixed precision where the model is
-unfolded, as at the default dim 64; the folded dim-16 model raises, kernel
-B having no bfloat16 version).  At the published width (dim 16) the spherical-basis MLP trains folded
-through the triplet gather, in ``sbf_modulate`` and its backward kernel.
+off (``--compute_dtype bfloat16``: mixed precision, float32 parameters,
+geometry, sums and pool).  At the published width (dim 16) the
+spherical-basis MLP trains folded through the triplet gather, in
+``sbf_modulate`` and its backward kernel, in either type.
 Data: the TU files of ``--data_root`` (default ``./data/<dataset>``, splits
 ``train`` and ``val``) where they are there, or ``--synthetic N`` generated
 RNA-like structures (the last quarter validates).  Each best validation loss

@@ -168,9 +168,11 @@ class LocalMP(nn.Module):
         CSR of the neighbour index and reads the center edge of each
         triplet."""
         idx = g.t2_kj if kind == "t2" else g.t1_jj
+        dt = m_neighbor.dtype
         s1, s2 = self.mlp_sbf[0][0], self.mlp_sbf[1][0]
-        args = (folded.proj, m_neighbor, folded.cbf, folded.bias, s1.weight,
-                s1.bias, s2.weight, s2.bias, idx, getattr(g, kind + "_mask"))
+        args = (folded.proj, m_neighbor, folded.cbf, folded.bias, as_dtype(s1.weight, dt),
+                as_dtype(s1.bias, dt), as_dtype(s2.weight, dt), as_dtype(s2.bias, dt), idx,
+                getattr(g, kind + "_mask"))
         center = g.groups(kind + "_ji")
         if center is None:
             raise ValueError(f"LocalMP: the folded path needs the batch's triplets "

@@ -46,7 +46,7 @@ from pamnet_tpu_torch.config import PAMNetConfig, embeds_atom_types
 from pamnet_tpu_torch.data.batch import GraphBatch
 from pamnet_tpu_torch.models.device_graph import rebuild_structure
 from pamnet_tpu_torch.models.layers import FoldedSBF, GlobalMP, LocalMP
-from pamnet_tpu_torch.nn import Linear, cast_parameters, init_, mlp
+from pamnet_tpu_torch.nn import Linear, as_dtype, cast_parameters, init_, mlp
 from pamnet_tpu_torch.ops.basis import BesselRBF, legendre_cbf, spherical_basis_edge_rbf
 from pamnet_tpu_torch.ops.gather import row_gather, row_gather_plain
 from pamnet_tpu_torch.ops.segment import segment_mean, segment_sum
@@ -166,7 +166,7 @@ class PAMNet(nn.Module):
 
     def _triplet_basis(self, g: GraphBatch, plain: bool, dtype: torch.dtype):
         """(edge_attr_sbf2, edge_attr_sbf1): (T, dim) tensors in ``dtype``,
-        or ``FoldedSBF`` inputs of the fused folded stage (float32 only);
+        or ``FoldedSBF`` inputs of the fused folded stage in ``dtype``;
         PAMNet_s has no two-hop stream (None) and one sbf MLP."""
         ns, nr = self.cfg.num_spherical, self.cfg.num_radial
         if self.cfg.variant == "s":
@@ -187,14 +187,20 @@ class PAMNet(nn.Module):
             return (None if mlp_sbf2 is None else expand(mlp_sbf2, g.t2_kj, g.cbf2),
                     expand(mlp_sbf1, g.t1_jj, g.cbf1))
 
+        # The folded stage's operands in the stack's type, as JAX casts them
+        # (``pamnet_tpu/models/pamnet.py:185-230``): the radial table, the
+        # projection's weight and bias (so the projection runs in it) and the
+        # angular terms.
+        table = g.sbf_radial.to(dtype)
+
         def folded(mlp_sbf, cbf):
             lin = mlp_sbf[0][0]
-            w = lin.weight  # (dim, ns*nr)
+            w = as_dtype(lin.weight, dtype)  # (dim, ns*nr)
             proj = torch.cat(
-                [g.sbf_radial[:, l * nr:(l + 1) * nr] @ w[:, l * nr:(l + 1) * nr].T
+                [table[:, l * nr:(l + 1) * nr] @ w[:, l * nr:(l + 1) * nr].T
                  for l in range(ns)], dim=1,
             )  # (El, ns*dim)
-            return FoldedSBF(proj, cbf, lin.bias)
+            return FoldedSBF(proj, cbf.to(dtype), as_dtype(lin.bias, dtype))
 
         return (None if mlp_sbf2 is None else folded(mlp_sbf2, g.cbf2),
                 folded(mlp_sbf1, g.cbf1))

@@ -34,8 +34,8 @@ _I = ctypes.c_int
 # before the stream.
 _SIGNATURES = {
     "pamnet_triplet_aggregate": ([_P] * 6 + [_I] * 5 + [_P], _I),
-    "pamnet_sbf_modulate": ([_P] * 12 + [_I] * 5 + [_P], _I),
-    "pamnet_sbf_modulate_backward": ([_P] * 17 + [_I] * 5 + [_P], _I),
+    "pamnet_sbf_modulate": ([_P] * 12 + [_I] * 6 + [_P], _I),
+    "pamnet_sbf_modulate_backward": ([_P] * 17 + [_I] * 6 + [_P], _I),
     "pamnet_row_gather": ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
     "pamnet_edge_message": ([_P] * 8 + [_I] * 3 + [_P], _I),
     "pamnet_edge_message_sum": ([_P] * 8 + [_I] * 5 + [_P], _I),
@@ -140,22 +140,24 @@ def f32_only(what: str, *tensors) -> None:
         raise ValueError(f"{what} has no bfloat16 version; its operands must be float32")
 
 
-def check_operand(what: str, name: str, t, dtype, device, shape=None) -> None:
-    """Raise unless ``t`` is a contiguous, 16-byte aligned ``dtype`` tensor
-    on the CUDA ``device`` of ``shape`` (None entries match any size): what
-    the kernels' vector loads assume."""
+def check_operand(what: str, name: str, t, dtype, device, shape=None,
+                  align: int = 16) -> None:
+    """Raise unless ``t`` is a contiguous, ``align``-byte aligned ``dtype``
+    tensor on the CUDA ``device`` of ``shape`` (None entries match any
+    size): what the kernels' vector loads assume (16 bytes unless a kernel
+    reads the operand a value at a time)."""
     ok = (device.type == "cuda" and t.device == device and t.dtype == dtype
           and t.is_contiguous()
-          and t.data_ptr() % 16 == 0
+          and t.data_ptr() % align == 0
           and (shape is None or (t.dim() == len(shape) and all(
               s is None or s == n for s, n in zip(shape, t.shape)))))
     if not ok:
         want = "" if shape is None else " " + str(tuple(shape)).replace("None", "*")
         raise ValueError(
-            f"{what}: {name} must be a contiguous, 16-byte aligned {dtype}{want} "
+            f"{what}: {name} must be a contiguous, {align}-byte aligned {dtype}{want} "
             f"tensor on {device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
             f"{'' if t.is_contiguous() else ', not contiguous'}"
-            f"{'' if t.data_ptr() % 16 == 0 else ', misaligned'}"
+            f"{'' if t.data_ptr() % align == 0 else ', misaligned'}"
         )
 
 

@@ -14,15 +14,24 @@ layer's 2-stage ``mlp_sbf`` given as torch (out, in) weights.  With
 the triplets of center edge c``: the JAX package's ``_fused_sbf_gather``
 followed by its segment sum at ``t2_ji``/``t1_ji``
 (``pamnet_tpu/models/layers.py:324-332``), which kernel A took over the
-(T, D) rows before.  Without it the op returns the (T, D) rows.
+(T, D) rows before.  Without it the op returns the (T, D) rows, which are
+the sums over identity groups (``identity_groups``): the kernels have that
+one form.
 
 ``sbf_modulate`` runs the plain version on CPU tensors (PyTorch's autograd
 differentiates it) and launches ``csrc/sbf_modulate.cu`` and, in the
-backward, ``csrc/sbf_modulate_backward.cu`` on CUDA tensors; both kernels
-serve both modes (without ``out_groups`` they write or read a row per
-triplet).
+backward, ``csrc/sbf_modulate_backward.cu`` on CUDA tensors.
 It replaces the Pallas kernel of ``tools/fused_sbf_kernel_probe.py:42`` and
 the gradient JAX takes of it by autodiff.
+
+Types: the float operands (``proj``, ``m_neighbor``, ``cbf``, ``mask``, the
+bias and the weights, and in the backward the output gradient) are all
+float32 or all bfloat16, the output and the gradients in that type too; the
+kernels compute in float32 and round each output once, and so does the plain
+version (``acc_dtype``).  A bfloat16 model hands the stage bfloat16 weights
+(its batched parameter cast, ``nn.cast_parameters``), as the JAX package's
+mixed precision casts the folded stage's operands to its compute type
+(``pamnet_tpu/models/pamnet.py:185-230``).
 
 Backward: ``d_proj`` and ``d_m_neighbor`` are sums over the triplets of each
 neighbour edge, so the backward walks the CSR of ``idx`` (``groups``: the
@@ -40,7 +49,7 @@ import torch
 from torch.nn import functional as F
 
 from pamnet_tpu_torch.ops import _build
-from pamnet_tpu_torch.ops.triplet import Groups, triplet_aggregate_plain
+from pamnet_tpu_torch.ops.triplet import Groups, acc_dtype, triplet_aggregate_plain
 
 # (num_spherical, dim) pairs the CUDA sources are compiled for.
 KERNEL_SHAPES = ((7, 16), (7, 8))
@@ -55,54 +64,71 @@ def sbf_modulate_plain(proj, m_neighbor, cbf, bias, w1, b1, w2, b2, idx, mask,
                        out_off: torch.Tensor | None = None):
     """Reference version: one gather of concat(proj, m_neighbor), slice
     multiply-adds, the 2-stage MLP, mask and modulation; with ``out_off``,
-    kernel A's plain sum of those rows over the center edges' CSR.  The
-    gather is an ``index_select``, whose backward (``index_add_``) sums in
-    one order on the CPU, where advanced indexing's does not."""
+    kernel A's plain sum of those rows over the center edges' CSR.  In
+    float32 for bfloat16 operands, rounded once to ``m_neighbor``'s type
+    (the kernels' registers), so the backward's sums run in float32 too.
+    The gather is an ``index_select``, whose backward (``index_add_``) sums
+    in one order on the CPU, where advanced indexing's does not."""
+    dt, f = m_neighbor.dtype, acc_dtype(m_neighbor.dtype)
     d = m_neighbor.shape[1]
     ns = proj.shape[1] // d
-    rows = torch.cat([proj, m_neighbor], dim=1).index_select(0, idx.long())
-    acc = bias
+    rows = torch.cat([proj.to(f), m_neighbor.to(f)], dim=1).index_select(0, idx.long())
+    cbf = cbf.to(f)
+    acc = bias.to(f)
     for l in range(ns):
         acc = acc + cbf[:, l:l + 1] * rows[:, l * d:(l + 1) * d]
-    h = F.silu(F.linear(F.silu(acc), w1, b1))
-    h = F.silu(F.linear(h, w2, b2)) * mask[:, None]
+    h = F.silu(F.linear(F.silu(acc), w1.to(f), b1.to(f)))
+    h = F.silu(F.linear(h, w2.to(f), b2.to(f))) * mask[:, None].to(f)
     out = rows[:, ns * d:] * h
-    return out if out_off is None else triplet_aggregate_plain(out, out_off)
+    return (out if out_off is None else triplet_aggregate_plain(out, out_off)).to(dt)
+
+
+def identity_groups(num_triplets: int, device) -> Groups:
+    """Each triplet its own group: the sums over these are the (T, D) rows,
+    bit for bit."""
+    return Groups(torch.arange(num_triplets + 1, dtype=torch.int32, device=device), None,
+                  num_triplets)
 
 
 def _check_operands(what, proj, m_neighbor, cbf, bias, w1, b1, w2, b2, idx, mask,
                     extra=None):
-    """Raise on what the kernels do not take; returns (device, T, ns, d)."""
-    dev = m_neighbor.device
+    """Raise on what the kernels do not take: every float operand in
+    ``m_neighbor``'s type (float32 or bfloat16; a mixed call names the
+    operand of the other type), ``proj`` and ``m_neighbor``
+    16-byte aligned for the vector loads, the rest aligned to their element
+    (the kernels read them a value at a time: a bfloat16 model's weights are
+    views of one batched cast).  Returns (device, T, ns, d, bf16 flag)."""
+    dev, dt = m_neighbor.device, m_neighbor.dtype
+    bf16 = _build.dtype_flag(what, dt)
     t_count, d = idx.shape[0], m_neighbor.shape[1]
     ns = cbf.shape[1]
-    f32, i32 = torch.float32, torch.int32
+    i32 = torch.int32
     operands = {
-        "proj": (proj, f32, (m_neighbor.shape[0], ns * d)),
-        "m_neighbor": (m_neighbor, f32, (m_neighbor.shape[0], d)),
-        "cbf": (cbf, f32, (t_count, ns)),
-        "bias": (bias, f32, (d,)), "b1": (b1, f32, (d,)), "b2": (b2, f32, (d,)),
-        "w1": (w1, f32, (d, d)), "w2": (w2, f32, (d, d)),
-        "idx": (idx, i32, (t_count,)), "mask": (mask, f32, (t_count,)),
+        "proj": (proj, dt, (m_neighbor.shape[0], ns * d)),
+        "m_neighbor": (m_neighbor, dt, (m_neighbor.shape[0], d)),
+        "cbf": (cbf, dt, (t_count, ns)),
+        "bias": (bias, dt, (d,)), "b1": (b1, dt, (d,)), "b2": (b2, dt, (d,)),
+        "w1": (w1, dt, (d, d)), "w2": (w2, dt, (d, d)),
+        "idx": (idx, i32, (t_count,)), "mask": (mask, dt, (t_count,)),
         **(extra or {}),
     }
     for name, (t, dtype, shape) in operands.items():
-        _build.check_operand(what, name, t, dtype, dev, shape)
+        vector = name in ("proj", "m_neighbor")
+        _build.check_operand(what, name, t, dtype, dev, shape,
+                             align=16 if vector else t.element_size())
     if (ns, d) not in KERNEL_SHAPES:
         raise ValueError(
             f"{what}: no kernel for num_spherical={ns}, dim={d} "
             f"(compiled for {KERNEL_SHAPES})"
         )
-    return dev, t_count, ns, d
+    return dev, t_count, ns, d, bf16
 
 
-def _check_out_groups(out_groups: Groups | None, out_ids: torch.Tensor | None,
+def _check_out_groups(out_groups: Groups, out_ids: torch.Tensor | None,
                       num_triplets: int, needs_ids: bool) -> None:
     """Raise unless ``out_groups`` is a sorted CSR over at most the
     ``num_triplets`` rows with its valid row count on the host and, where the
     backward reads them, ``out_ids`` holds a center edge per triplet."""
-    if out_groups is None:
-        return
     if (out_groups.off is None or out_groups.perm is not None or out_groups.total is None
             or out_groups.off.dim() != 1 or out_groups.off.shape[0] < 1
             or not 0 <= out_groups.total <= num_triplets):
@@ -117,19 +143,17 @@ def _check_out_groups(out_groups: Groups | None, out_ids: torch.Tensor | None,
             f"{None if out_ids is None else tuple(out_ids.shape)}")
 
 
-def _forward(proj, m_neighbor, cbf, bias, w1, b1, w2, b2, idx, mask,
-             out_groups: Groups | None = None):
+def _forward(proj, m_neighbor, cbf, bias, w1, b1, w2, b2, idx, mask, out_groups: Groups):
     """The forward kernel on CUDA tensors (counted), the plain version on
-    CPU ones; summed over ``out_groups`` where given."""
-    out_off = None if out_groups is None else out_groups.off
+    CPU ones: the sums over ``out_groups``."""
     if m_neighbor.device.type == "cpu":
         return sbf_modulate_plain(proj, m_neighbor, cbf, bias, w1, b1, w2, b2, idx, mask,
-                                  out_off)
-    extra = None if out_off is None else {"out_groups.off": (out_off, torch.int32, (None,))}
-    dev, t_count, ns, d = _check_operands("sbf_modulate", proj, m_neighbor, cbf, bias,
-                                          w1, b1, w2, b2, idx, mask, extra)
-    num_groups = t_count if out_off is None else out_off.shape[0] - 1
-    out = torch.empty((num_groups, d), dtype=torch.float32, device=dev)
+                                  out_groups.off)
+    dev, t_count, ns, d, bf16 = _check_operands(
+        "sbf_modulate", proj, m_neighbor, cbf, bias, w1, b1, w2, b2, idx, mask,
+        {"out_groups.off": (out_groups.off, torch.int32, (None,))})
+    num_groups = out_groups.off.shape[0] - 1
+    out = torch.empty((num_groups, d), dtype=m_neighbor.dtype, device=dev)
     if num_groups == 0:
         return out
     lib = _build.library()
@@ -138,10 +162,8 @@ def _forward(proj, m_neighbor, cbf, bias, w1, b1, w2, b2, idx, mask,
         code = lib.pamnet_sbf_modulate(
             proj.data_ptr(), m_neighbor.data_ptr(), cbf.data_ptr(),
             bias.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            b2.data_ptr(), idx.data_ptr(), mask.data_ptr(),
-            None if out_off is None else out_off.data_ptr(), out.data_ptr(),
-            num_groups, t_count, 0 if out_groups is None else out_groups.total, ns, d,
-            stream,
+            b2.data_ptr(), idx.data_ptr(), mask.data_ptr(), out_groups.off.data_ptr(),
+            out.data_ptr(), num_groups, t_count, out_groups.total, ns, d, bf16, stream,
         )
     _build.check(code, "sbf_modulate")
     sbf_modulate.launches += 1
@@ -170,51 +192,53 @@ def sbf_modulate_backward(proj, m_neighbor, cbf, bias, w1, b1, w2, b2, idx, mask
                           out_ids: torch.Tensor | None = None):
     """``(d_proj, d_m_neighbor, d_bias, d_w1, d_b1, d_w2, d_b2)`` of
     ``sbf_modulate`` for the output gradient ``g``, (T, D) or, with
-    ``out_groups``/``out_ids``, (center edges, D), on CUDA tensors: launches
-    ``csrc/sbf_modulate_backward.cu`` (a walk over each edge's triplets
-    through ``groups`` that recomputes the forward, then a fixed-order sum
-    of the blocks' weight gradients) and counts the call in
+    ``out_groups``/``out_ids``, (center edges, D), on CUDA tensors, in the
+    operands' type: launches ``csrc/sbf_modulate_backward.cu`` (a walk over
+    each edge's triplets through ``groups`` that recomputes the forward,
+    then a fixed-order sum of the blocks' weight gradients; without
+    ``out_groups`` over identity groups) and counts the call in
     ``sbf_modulate_backward.launches``.  The plain version of this function
-    is PyTorch's autograd of ``sbf_modulate_plain``.  float32 only."""
-    _build.f32_only("sbf_modulate_backward", proj, m_neighbor, g)
+    is PyTorch's autograd of ``sbf_modulate_plain``."""
     t_count = idx.shape[0]
+    if out_groups is None:
+        out_groups = identity_groups(t_count, m_neighbor.device)
+        out_ids = out_groups.off[:-1]
     _check_out_groups(out_groups, out_ids, t_count, needs_ids=True)
-    g_rows = t_count if out_groups is None else out_groups.off.shape[0] - 1
-    extra = {"g": (g, torch.float32, (g_rows, m_neighbor.shape[1])),
+    g_rows = out_groups.off.shape[0] - 1
+    extra = {"g": (g, m_neighbor.dtype, (g_rows, m_neighbor.shape[1])),
              "groups.perm": (groups.perm, torch.int32, (t_count,)),
-             "groups.off": (groups.off, torch.int32, (m_neighbor.shape[0] + 1,))}
-    if out_groups is not None:
-        extra["out_ids"] = (out_ids, torch.int32, (t_count,))
-    dev, t_count, ns, d = _check_operands(
+             "groups.off": (groups.off, torch.int32, (m_neighbor.shape[0] + 1,)),
+             "out_ids": (out_ids, torch.int32, (t_count,))}
+    dev, t_count, ns, d, bf16 = _check_operands(
         "sbf_modulate_backward", proj, m_neighbor, cbf, bias, w1, b1, w2, b2, idx, mask,
         extra)
     num_edges = m_neighbor.shape[0]
     width = 2 * d * d + 3 * d
-    f32 = torch.float32
-    d_proj = torch.empty((num_edges, ns * d), dtype=f32, device=dev)
-    d_m = torch.empty((num_edges, d), dtype=f32, device=dev)
+    dt = m_neighbor.dtype
+    d_proj = torch.empty((num_edges, ns * d), dtype=dt, device=dev)
+    d_m = torch.empty((num_edges, d), dtype=dt, device=dev)
     if t_count == 0 or num_edges == 0:
-        wgrad = torch.zeros(width, dtype=f32, device=dev)
+        wgrad = torch.zeros(width, dtype=dt, device=dev)
         d_proj.zero_()
         d_m.zero_()
     else:
         # The grid follows the padded edge count alone, so a batch's sums are
-        # taken in one order whatever its triplets.
+        # taken in one order whatever its triplets.  The blocks' partial
+        # weight gradients are float32 in either type.
         per_block = _BACKWARD_BLOCK // d
         blocks = min(_BACKWARD_MAX_BLOCKS, -(-num_edges // per_block))
-        partial = torch.empty(blocks * width, dtype=f32, device=dev)
-        wgrad = torch.empty(width, dtype=f32, device=dev)
+        partial = torch.empty(blocks * width, dtype=torch.float32, device=dev)
+        wgrad = torch.empty(width, dtype=dt, device=dev)
         lib = _build.library()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
             code = lib.pamnet_sbf_modulate_backward(
                 proj.data_ptr(), m_neighbor.data_ptr(), cbf.data_ptr(), bias.data_ptr(),
                 w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                mask.data_ptr(), g.data_ptr(),
-                None if out_groups is None else out_ids.data_ptr(),
+                mask.data_ptr(), g.data_ptr(), out_ids.data_ptr(),
                 groups.perm.data_ptr(), groups.off.data_ptr(), partial.data_ptr(),
                 wgrad.data_ptr(), d_proj.data_ptr(), d_m.data_ptr(), blocks, num_edges,
-                t_count if out_groups is None else out_groups.total, ns, d, stream,
+                out_groups.total, ns, d, bf16, stream,
             )
         _build.check(code, "sbf_modulate_backward")
         sbf_modulate_backward.launches += 1
@@ -257,13 +281,15 @@ def sbf_modulate(proj: torch.Tensor, m_neighbor: torch.Tensor,
     weights through ``groups``, the permuted CSR of ``idx``, and, summed,
     ``out_ids``, the center edge of each triplet (needed, with ``total``,
     when any of them requires grad; the mask must be 0 past
-    ``groups.total``).  The plain version for CPU tensors, the CUDA kernels
-    for CUDA tensors; float32 only (no bfloat16 version yet: a bfloat16
-    model never folds, ``config.py``).  Counts its forward kernel launches in
-    ``sbf_modulate.launches``."""
-    _build.f32_only("sbf_modulate", proj, m_neighbor, cbf, mask)
+    ``groups.total``).  Without ``out_groups`` the rows are the sums over
+    ``identity_groups``.  The plain version for CPU tensors, the CUDA
+    kernels for CUDA tensors; float32 or bfloat16 operands, all in one type.
+    Counts its forward kernel launches in ``sbf_modulate.launches``."""
     needs_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (proj, m_neighbor, cbf, bias, w1, b1, w2, b2, mask))
+    if out_groups is None:
+        out_groups = identity_groups(idx.shape[0], idx.device)
+        out_ids = out_groups.off[:-1]
     _check_out_groups(out_groups, out_ids, idx.shape[0], needs_ids=needs_grad)
     if not needs_grad:
         return _forward(proj, m_neighbor, cbf, bias, w1, b1, w2, b2, idx, mask,
@@ -273,7 +299,7 @@ def sbf_modulate(proj: torch.Tensor, m_neighbor: torch.Tensor,
     _check_groups(groups, m_neighbor.shape[0], idx.shape[0])
     if m_neighbor.device.type == "cpu":
         return sbf_modulate_plain(proj, m_neighbor, cbf, bias, w1, b1, w2, b2, idx, mask,
-                                  None if out_groups is None else out_groups.off)
+                                  out_groups.off)
     return _SbfModulate.apply(proj, m_neighbor, bias, w1, b1, w2, b2, cbf, idx, mask,
                               groups, out_groups, out_ids)
 

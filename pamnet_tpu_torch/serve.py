@@ -177,8 +177,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--fixed_pads", action="store_true")
     parser.add_argument("--compute_dtype", type=str, default="float32",
                         choices=["float32", "bfloat16"],
-                        help="float32 (the JAX service's default) or bfloat16; the "
-                             "folded dim-16 model takes float32 only")
+                        help="float32 (the JAX service's default) or bfloat16 (the "
+                             "folded dim-16 model through kernel B's bfloat16 version)")
     return parser
 
 

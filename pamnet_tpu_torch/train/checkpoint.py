@@ -56,6 +56,12 @@ def load_checkpoint(path: str, model, optimizer, ema: dict | None = None) -> dic
     return state["extra"]
 
 
+def load_model_state(path: str) -> dict:
+    """The model's ``state_dict`` of a ``save_checkpoint`` file, as CPU
+    tensors (the scoring entry points' port checkpoints)."""
+    return torch.load(path, map_location="cpu", weights_only=True)["model"]
+
+
 def export_state_dict(state_dict: dict, path: str) -> None:
     """Write parameters (a model's ``state_dict()`` or an EMA shadow) as a
     reference-style ``.pt`` of float32 CPU tensors."""

@@ -16,6 +16,10 @@ on CPU tensors, where forward and backward run their plain versions, against
 * No Function drops a gradient without a word.
 """
 
+from torch_threads import limit_intra_op_threads
+
+limit_intra_op_threads()
+
 import numpy as np
 import pytest
 

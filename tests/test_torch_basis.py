@@ -13,6 +13,10 @@ radial table (the f32 evaluator's own tolerance against scipy: its series
 and recurrence, not the f32 distance, set it) and atol 2e-5 on the angular
 one."""
 
+from torch_threads import limit_intra_op_threads
+
+limit_intra_op_threads()
+
 import numpy as np
 import pytest
 from scipy import special as scipy_special

@@ -28,6 +28,10 @@ past ~256); their gathers' backward sums in float32 too, and on the CPU the
 plain route rounds where the kernel route does.
 """
 
+from torch_threads import limit_intra_op_threads
+
+limit_intra_op_threads()
+
 import dataclasses
 import functools
 
@@ -165,17 +169,25 @@ def test_linear_follows_the_input_type_with_f32_gradients():
 
 
 def test_folded_shape_at_bf16_raises_and_never_unfolds():
-    rna = dict(dataset="rna_serve", dim=16, n_layer=1, cutoff_l=2.6, cutoff_g=20.0)
-    with pytest.raises(ValueError, match="kernel B .* no bfloat16 version"):
-        PAMNetConfig(**rna, compute_dtype="bfloat16")
-    with pytest.raises(ValueError, match="no bfloat16 version"):
-        PAMNetConfig(dataset="QM9", dim=128, n_layer=1, fold_sbf=True, compute_dtype="bfloat16")
-    cfg = PAMNetConfig(**rna, fold_sbf=False, compute_dtype="bfloat16")  # unfolded on request
-    assert not PAMNet(cfg).fold_sbf() and cfg.dtype == BF16
+    """Kernel B has a bfloat16 version: a bfloat16 model folds exactly where
+    a float32 one does, at ``KERNEL_SHAPES`` (7, 16) and (7, 8), as JAX's
+    folds in either type, and never changes route on its own: it unfolds on
+    request (``fold_sbf=False``) and never folds at an unbuilt width (dim
+    32).  A compute type other than float32 and bfloat16 raises."""
+    rna = dict(dataset="rna_serve", n_layer=1, cutoff_l=2.6, cutoff_g=20.0)
+    for dim in (16, 8):
+        cfg = PAMNetConfig(**rna, dim=dim, compute_dtype="bfloat16")
+        assert cfg.folds() and PAMNet(cfg).fold_sbf() and cfg.dtype == BF16
+        assert PAMNetConfig(**rna, dim=dim).folds()
+        cfg = PAMNetConfig(**rna, dim=dim, fold_sbf=False, compute_dtype="bfloat16")
+        assert not PAMNet(cfg).fold_sbf() and cfg.dtype == BF16  # unfolded on request
+    assert not PAMNet(PAMNetConfig(**rna, dim=32, compute_dtype="bfloat16")).fold_sbf()
+    assert PAMNetConfig(dataset="QM9", dim=128, n_layer=1, fold_sbf=True,
+                        compute_dtype="bfloat16").folds()  # forced, as in float32
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         PAMNetConfig(compute_dtype="float16")
-    with pytest.raises(ValueError, match="bfloat16"):
-        serve.main(["--seed", "0", "--compute_dtype", "bfloat16", "--device", "cpu"])
+    assert serve.build_parser().parse_args(
+        ["--seed", "0", "--compute_dtype", "bfloat16"]).compute_dtype == "bfloat16"
 
 
 def test_driver_compute_dtype_defaults_follow_jax():
@@ -193,8 +205,9 @@ def test_driver_compute_dtype_defaults_follow_jax():
 
 # (branch, layers, dim, variant): the QM9 widths of JAX's drift measurement,
 # both variants, and one unfolded RNA case (ns * dim > 128: JAX does not
-# fold it either).  The PDBbind case (dim 8) would fold, which bfloat16
-# refuses: both packages run it unfolded (fold_sbf=False).
+# fold it either; the folded RNA cases are ``tests/test_torch_sbf_bf16.py``'s).
+# The PDBbind case (dim 8) would fold: both packages run it unfolded
+# (fold_sbf=False), the route its limits were set on.
 CASES = [("qm9", 2, 32, "full"), ("qm9", 1, 128, "full"), ("qm9", 2, 32, "s"),
          ("qm9", 1, 128, "s"), ("rna", 1, 32, "full")]
 _BRANCH = {"qm9": (dict(dataset="QM9", cutoff_l=5.0, cutoff_g=5.0), "l1"),
@@ -391,8 +404,8 @@ def test_bf16_forward_close_to_f32(variant):
 
 
 def test_main_qm9_bf16_run_keeps_f32_state(capsys, tmp_path):
-    """A run at the driver's default bfloat16 (dim 32: the port folds at dim
-    16, which bfloat16 refuses) checkpoints float32 parameters, EMA and Adam
+    """A run at the driver's default bfloat16 (dim 32, unfolded) checkpoints
+    float32 parameters, EMA and Adam
     state, and a step of the restored model trains in bfloat16 into float32
     gradients.  Its resume bit for bit: ``tests/test_torch_checkpoint.py``."""
     main_qm9.main(["--synthetic", "--limit", "64", "--dim", "32", "--n_layer", "1",

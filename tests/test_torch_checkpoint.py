@@ -5,6 +5,10 @@ CPU (steps, and both training scripts' epochs); the exported parameters load thr
 training module's own predictions (atol 1e-6: the same f32 forward on
 batches padded to another bucket)."""
 
+from torch_threads import limit_intra_op_threads
+
+limit_intra_op_threads()
+
 import re
 
 import numpy as np

@@ -2,6 +2,10 @@
 shapes, including ragged and empty groups.  Skipped without a CUDA card;
 run on the card with ``python -m pytest tests/test_torch_cuda.py``."""
 
+from torch_threads import limit_intra_op_threads
+
+limit_intra_op_threads()
+
 import numpy as np
 import pytest
 import torch
@@ -461,12 +465,22 @@ def test_sbf_modulate_summed_kernel(cuda, d, num_out, t, valid, long_group):
 
 @pytest.mark.parametrize("d", [16, 8])
 def test_sbf_modulate_identity_groups_give_the_rows(cuda, d):
-    """A group per triplet: the summed kernel writes the (T, D) kernel's
-    rows bit for bit."""
+    """A group per triplet: the (T, D) rows are the kernel's sums over
+    identity groups, and the sums over any center edges' CSR are those rows
+    added in triplet order in float32, bit for bit (the kernel's one form
+    serves both)."""
     t = 1000
     args, _, _ = _sbf_case(cuda, d, 300, t, 950, seed=5)
     identity = Groups(torch.arange(t + 1, dtype=torch.int32, device=cuda), None, t)
-    assert torch.equal(sbf_modulate(*args, out_groups=identity), sbf_modulate(*args))
+    rows = sbf_modulate(*args)
+    assert rows.shape == (t, d) and torch.equal(sbf_modulate(*args, out_groups=identity), rows)
+    out_groups, _ = _center_groups(cuda, 200, t, 950, seed=6, long_group=40)
+    off = out_groups.off.long()
+    want = torch.zeros(200, d, device=cuda)
+    for k in range(int((off[1:] - off[:-1]).max())):
+        live = off[:-1] + k < off[1:]
+        want[live] = want[live] + rows[(off[:-1] + k)[live]]
+    assert torch.equal(sbf_modulate(*args, out_groups=out_groups), want)
 
 
 @pytest.mark.parametrize("d", [16, 8])
@@ -993,8 +1007,8 @@ def test_edge_message_bf16_kernels(cuda, gated, masked, d):
 
 
 def test_kernels_without_bf16_version_raise(cuda):
-    """The one-gradient routes, the split group sum and kernel B take float32
-    only: a bfloat16 operand raises rather than running another route."""
+    """The one-gradient routes and the split group sum take float32 only: a
+    bfloat16 operand raises rather than running another route."""
     x = _role_swap_case(cuda, 16, seed=3)
     g16, b16, a16 = x["grad"].to(BF16), x["b"].to(BF16), x["a"].to(BF16)
     with pytest.raises(ValueError, match="no bfloat16 version"):
@@ -1005,9 +1019,83 @@ def test_kernels_without_bf16_version_raise(cuda):
     assert group_sum_route(groups) == "split"
     with pytest.raises(ValueError, match="no bfloat16 version"):
         group_sum(b16, groups)
-    args, groups, _ = _sbf_case(cuda, 16, 300, 2049, 1949, seed=5)
-    with pytest.raises(ValueError, match="no bfloat16 version"):
-        sbf_modulate(*[t.to(BF16) if t.is_floating_point() else t for t in args])
+
+
+def _bf16_sbf(args, cot=None):
+    """Kernel B's float operands (and an output gradient) in bfloat16."""
+    out = [t.to(BF16) if t.is_floating_point() else t for t in args]
+    return out if cot is None else (out, cot.to(BF16))
+
+
+@pytest.mark.parametrize("d", [16, 8])
+@pytest.mark.parametrize("num_out,t,valid,long_group", _SUMMED_CASES)
+def test_sbf_modulate_bf16_kernel(cuda, d, num_out, t, valid, long_group):
+    """Kernel B's forward on bfloat16 operands, summed and as rows: within
+    one ulp of the plain version (which computes in f32 and rounds once),
+    empty groups zero, one launch a call, two calls bitwise equal."""
+    args, _, _ = _sbf_case(cuda, d, 300, t, valid, seed=d + t + 7)
+    args = _bf16_sbf(args)
+    out_groups, _ = _center_groups(cuda, num_out, t, valid, seed=t + 7, long_group=long_group)
+    for groups, off in ((out_groups, out_groups.off), (None, None)):
+        before = sbf_modulate.launches
+        got = sbf_modulate(*args, out_groups=groups)
+        torch.cuda.synchronize()
+        assert sbf_modulate.launches == before + 1
+        _assert_bf16_ulp(got, sbf_modulate_plain(*args, out_off=off))
+        assert torch.equal(got, sbf_modulate(*args, out_groups=groups))
+    assert torch.all(sbf_modulate(*args, out_groups=out_groups)[
+        out_groups.off[1:] == out_groups.off[:-1]] == 0.0)
+
+
+@pytest.mark.parametrize("d", [16, 8])
+@pytest.mark.parametrize("num_out,t,valid,long_group", _SUMMED_CASES)
+def test_sbf_modulate_backward_bf16_kernel(cuda, d, num_out, t, valid, long_group):
+    """Kernel B's backward on bfloat16 operands and output gradient, summed
+    and as rows: each of its seven gradients in bfloat16 within one ulp of
+    PyTorch's autograd of the plain version; two calls bitwise equal."""
+    args, groups, cot_rows = _sbf_case(cuda, d, 300, t, valid, seed=d + t + 8)
+    out_groups, ids = _center_groups(cuda, num_out, t, valid, seed=t + 8,
+                                     long_group=long_group)
+    cot_sum = torch.randn(num_out, d, device=cuda, generator=torch.Generator(
+        device=cuda).manual_seed(t))
+    for cot, og, oi in ((cot_sum, out_groups, ids), (cot_rows, None, None)):
+        b_args, b_cot = _bf16_sbf(args, cot)
+        leaves = [a.clone().requires_grad_() if i in _SBF_GRAD else a
+                  for i, a in enumerate(b_args)]
+        out = sbf_modulate_plain(*leaves, out_off=None if og is None else og.off)
+        out.backward(b_cot)
+        got = sbf_modulate_backward(*b_args, groups, b_cot, og, oi)
+        torch.cuda.synchronize()
+        for g, i in zip(got, _SBF_GRAD):
+            _assert_bf16_ulp(g, leaves[i].grad)
+        again = sbf_modulate_backward(*b_args, groups, b_cot, og, oi)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_sbf_modulate_bf16_function_and_mixed_types(cuda):
+    """The bfloat16 Function end to end (one forward, one backward launch,
+    bfloat16 gradients), and both entry points refusing operands of two
+    types, naming them."""
+    args, groups, _ = _sbf_case(cuda, 16, 300, 1024, 1000, seed=9)
+    out_groups, ids = _center_groups(cuda, 200, 1024, 1000, seed=10, long_group=40)
+    b_args, cot = _bf16_sbf(args, torch.randn(200, 16, device=cuda))
+    leaves = [a.clone().requires_grad_() if i in _SBF_GRAD else a for i, a in enumerate(b_args)]
+    f0, b0 = sbf_modulate.launches, sbf_modulate_backward.launches
+    out = sbf_modulate(*leaves, groups=groups, out_groups=out_groups, out_ids=ids)
+    out.backward(cot)
+    torch.cuda.synchronize()
+    assert out.dtype == BF16
+    assert (sbf_modulate.launches, sbf_modulate_backward.launches) == (f0 + 1, b0 + 1)
+    assert all(leaves[i].grad.dtype == BF16 for i in _SBF_GRAD)
+    mixed = [args[0]] + b_args[1:]  # float32 proj, bfloat16 m_neighbor
+    with pytest.raises(ValueError, match="proj must be .*bfloat16.*got torch.float32"):
+        sbf_modulate(*mixed, out_groups=out_groups)
+    with pytest.raises(ValueError, match="proj must be .*bfloat16.*got torch.float32"):
+        sbf_modulate_backward(*mixed, groups, cot, out_groups, ids)
+    with pytest.raises(ValueError, match="g must be .*bfloat16.*got torch.float32"):
+        sbf_modulate_backward(*b_args, groups, cot.float(), out_groups, ids)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        sbf_modulate(*[t.half() if t.is_floating_point() else t for t in args])
 
 
 def test_bf16_training_step_kernels_vs_plain_and_repeat(cuda):
@@ -1054,3 +1142,39 @@ def test_bf16_training_step_kernels_vs_plain_and_repeat(cuda):
         runs.append([train_step(m16, opt, None, gb, "l1")]
                     + [p.detach().clone() for p in m16.parameters()])
     assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_rna_bf16_folded_step_kernels_vs_plain(cuda):
+    """The RNA model at its published width in bfloat16 folds, as in JAX:
+    kernel B twice forward and twice backward, in bfloat16; its parameter
+    gradients (float32) against the plain bfloat16 route per tensor within
+    2e-2 * max|g| + 1e-6 or twice the tensor's distance between the
+    bfloat16 and float32 plain routes; predictions within 1e-2 * max|pred|
+    of the plain route's."""
+    mols = synthetic_rna_dataset(4, seed=3, n_atoms=60)
+    gb = next(iter(GraphLoader(mols, "rna", 2.6, 20.0, 4, build_perms=True))).to(cuda)
+    kw = dict(dataset="rna_train", dim=16, n_layer=1, cutoff_l=2.6, cutoff_g=20.0,
+              flow="target_to_source")
+    m32 = PAMNet(PAMNetConfig(**kw)).to(cuda)
+    m16 = PAMNet(PAMNetConfig(**kw, compute_dtype="bfloat16")).to(cuda)
+    m16.load_state_dict(m32.state_dict())
+    assert m16.fold_sbf()
+    with torch.no_grad():
+        pred, pred_plain = m16(gb), m16(gb, plain=True)
+    assert pred.dtype == torch.float32
+    assert float((pred - pred_plain).abs().max()) <= 1e-2 * float(pred_plain.abs().max())
+
+    def grads(model, plain):
+        model.zero_grad()
+        f0, b0 = sbf_modulate.launches, sbf_modulate_backward.launches
+        batch_loss(model, gb, "smooth_l1", plain=plain).backward()
+        torch.cuda.synchronize()
+        launched = (sbf_modulate.launches - f0, sbf_modulate_backward.launches - b0)
+        return {n: p.grad.clone() for n, p in model.named_parameters()}, launched
+
+    (k16, n16), (p16, _), (p32, _) = grads(m16, False), grads(m16, True), grads(m32, True)
+    assert n16 == (2, 2)
+    for name, w in p16.items():
+        assert k16[name].dtype == torch.float32
+        bound = max(2e-2 * float(w.abs().max()) + 1e-6, 2 * float((w - p32[name]).abs().max()))
+        assert float((k16[name] - w).abs().max()) <= bound, name

@@ -15,6 +15,10 @@ against the host-geometry step at JAX's own f32-geometry tolerance
 (``tests/test_wire_geometry.py:75-107``): loss within 1e-4 relative,
 parameters after the step rtol 5e-3, atol 5e-4."""
 
+from torch_threads import limit_intra_op_threads
+
+limit_intra_op_threads()
+
 import dataclasses
 
 import numpy as np

@@ -14,6 +14,10 @@ molecules, field by field, CSR offsets and the backward's permutations
 of ``tests/test_device_graph.py:88-91``: the same sets summed in another
 order)."""
 
+from torch_threads import limit_intra_op_threads
+
+limit_intra_op_threads()
+
 import dataclasses
 import math
 import re

@@ -10,6 +10,10 @@ Three guarantees:
    exact key set and values (the bidirectional name-mapping proof).
 """
 
+from torch_threads import limit_intra_op_threads
+
+limit_intra_op_threads()
+
 import os
 
 import numpy as np

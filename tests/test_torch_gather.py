@@ -5,6 +5,10 @@ at their shapes), the edge message against ``pamnet_tpu.models.layers.
 _edge_message`` and the global layer's gated, masked message.  Gathers are
 exact; messages rtol 1e-5 / atol 1e-6 (the same f32 operations)."""
 
+from torch_threads import limit_intra_op_threads
+
+limit_intra_op_threads()
+
 import numpy as np
 import pytest
 

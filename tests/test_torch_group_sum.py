@@ -10,6 +10,10 @@ the rule by which ``group_sum`` picks its kernel, with nothing launched.
 Tolerances: a group sum within 1e-5 of the largest value's magnitude (f32
 sums of up to 16,896 rows in another order); gathers exact."""
 
+from torch_threads import limit_intra_op_threads
+
+limit_intra_op_threads()
+
 import functools
 import time
 

@@ -2,6 +2,10 @@
 package.  Read from the source (AST), since a process here may hold jax in
 sys.modules already."""
 
+from torch_threads import limit_intra_op_threads
+
+limit_intra_op_threads()
+
 import ast
 from pathlib import Path
 

@@ -5,6 +5,10 @@ Batches: indices and offsets exactly, host geometry to 1e-6.  Scores: atol
 5e-5, the tolerance of the RNA goldens in tests/test_serve.py (f32 sums in a
 different order: CSR sums here, compensated scans in JAX)."""
 
+from torch_threads import limit_intra_op_threads
+
+limit_intra_op_threads()
+
 import dataclasses
 
 import numpy as np

@@ -12,6 +12,10 @@ the port picks by index, as ``torch_cluster.knn`` and JAX's own device
 builder (``pamnet_tpu/ops/neighbors.py::knn_edges``) do, and is held
 against the latter there."""
 
+from torch_threads import limit_intra_op_threads
+
+limit_intra_op_threads()
+
 import numpy as np
 import pytest
 

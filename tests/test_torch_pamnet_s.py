@@ -13,6 +13,10 @@ within 1e-6; the oracle within 1e-3 * max(1, |want|) (its tolerance in
 ``tests/test_branch_parity.py``).
 """
 
+from torch_threads import limit_intra_op_threads
+
+limit_intra_op_threads()
+
 import dataclasses
 import functools
 import math

@@ -16,6 +16,10 @@ autograd Functions' plain backwards on the CPU; JAX's from ``jax.grad`` of
 the loss of ``pamnet_tpu/train/loop.py:37-51``.
 """
 
+from torch_threads import limit_intra_op_threads
+
+limit_intra_op_threads()
+
 import contextlib
 import dataclasses
 import functools

@@ -11,6 +11,10 @@ come from its autograd Functions' plain backwards on the CPU; JAX's from
 the port's names and layouts by ``from_jax_params``.
 """
 
+from torch_threads import limit_intra_op_threads
+
+limit_intra_op_threads()
+
 import dataclasses
 import functools
 

@@ -14,6 +14,10 @@ the loss of ``pamnet_tpu/train/loop.py:80-84``, mapped to the port's names
 and layouts by ``from_jax_params``.
 """
 
+from torch_threads import limit_intra_op_threads
+
+limit_intra_op_threads()
+
 import dataclasses
 import functools
 import math

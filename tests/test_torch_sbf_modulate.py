@@ -10,6 +10,10 @@ plus 1e-7 absolute (sums over up to 1,024 triplets in another order);
 ``gradcheck`` in float64 at its defaults.
 """
 
+from torch_threads import limit_intra_op_threads
+
+limit_intra_op_threads()
+
 import numpy as np
 import pytest
 

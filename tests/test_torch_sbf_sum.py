@@ -11,6 +11,10 @@ over up to 60 triplets in another order); each gradient
 float64 at its defaults.
 """
 
+from torch_threads import limit_intra_op_threads
+
+limit_intra_op_threads()
+
 import numpy as np
 import pytest
 
@@ -280,18 +284,20 @@ def _chip_smoke():
     return module
 
 
-@pytest.mark.parametrize("summed,per_triplet", [(True, 40), (False, 36)])
-def test_backward_bound_counts_the_words_the_kernel_reads(summed, per_triplet):
-    """Kernel B's backward reads per triplet its basis row, mask and place in
-    the neighbour edge's CSR, and its center edge where summed (NS=7): 40 or
-    36 bytes on top of the edge rows, G and the weights."""
+@pytest.mark.parametrize("value_bytes,per_triplet", [(4, 40), (2, 24)])
+def test_backward_bound_counts_the_words_the_kernel_reads(value_bytes, per_triplet):
+    """Kernel B's backward reads per triplet its basis row and mask, its
+    place in the neighbour edge's CSR and its center edge (NS=7; the rows
+    are the sums over identity groups, so it reads a center edge there too):
+    40 bytes in float32, 24 in bfloat16, on top of the edge rows, G and the
+    weights, each float value at ``value_bytes``."""
     bytes_of = _chip_smoke().sbf_backward_bytes
-    args = dict(ns=7, d=16, edges=50, edges_read=30, g_rows_read=20, summed=summed)
+    args = dict(ns=7, d=16, edges=50, edges_read=30, g_rows_read=20, value_bytes=value_bytes)
     one, one_gathered = bytes_of(valid=100, **args)
     two, two_gathered = bytes_of(valid=101, **args)
     assert two - one == per_triplet
-    assert two_gathered - one_gathered == per_triplet + 8 * 16 * 4
-    assert one_gathered - one == (100 - 30) * 8 * 16 * 4
+    assert two_gathered - one_gathered == per_triplet + 8 * 16 * value_bytes
+    assert one_gathered - one == (100 - 30) * 8 * 16 * value_bytes
 
 
 def test_kernel_b_compare_cases_compute_one_function():

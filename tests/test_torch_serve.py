@@ -3,6 +3,10 @@ onto the reference state-dict names, reference ``.pt`` files load, the HTTP
 routes answer as direct scoring does, and nothing runs on the CPU unless it
 was asked for."""
 
+from torch_threads import limit_intra_op_threads
+
+limit_intra_op_threads()
+
 import json
 import threading
 import urllib.error

@@ -21,6 +21,10 @@ another order); each gradient within 1e-4 * max|g_jax| + 1e-6; where the
 port's route should give another route's bits, equality.
 """
 
+from torch_threads import limit_intra_op_threads
+
+limit_intra_op_threads()
+
 import dataclasses
 import functools
 

@@ -3,6 +3,10 @@ package's triplet aggregation (XLA and Pallas-interpret) and its sorted
 segment sum, on the same numpy inputs.  Tolerance rtol/atol 1e-5: f32 sums
 taken in a different order."""
 
+from torch_threads import limit_intra_op_threads
+
+limit_intra_op_threads()
+
 import numpy as np
 import pytest
 

@@ -13,6 +13,10 @@ up to ~100 edges a node in another order); each gradient within
 1e-5 * max|g_jax| + 1e-6; ``gradcheck`` in float64 at its defaults.
 """
 
+from torch_threads import limit_intra_op_threads
+
+limit_intra_op_threads()
+
 import functools
 
 import numpy as np
