@@ -32,7 +32,11 @@ Phases, each printing one JSON line:
      native ones (``data/native.py``): seconds by part (neighbours, edge
      sort, triplets, pairs, distances, the f64 basis, collation, the
      backward's permutations), the two builders' arrays bit for bit equal,
-     and the service call on each;
+     and the service call on each; collation by field, numpy against the
+     collate plan (``data/batch.py::CollatePlan``) in turns, on the QM9
+     recipe's training batches (derived and host geometry, with the
+     backward's arrays) and the scoring batch, bit for bit equal, and a
+     loader's batches seen to come from the plan;
   4. service: the HTTP server on an ephemeral port answers JSON and raw-PDB
      requests, compared with direct scoring;
   5. train_kernels: each backward kernel against its plain version at the
@@ -162,7 +166,18 @@ Phases, each printing one JSON line:
      header, tags and puzzle number, the scores against the scoring
      service's on the same structures, one device-to-host copy a run, and
      seconds per structure;
- 20. kernels: one line listing every kernel with its numbers (the role
+ 21. qm9_preprocessed: a PyG-layout ``data_v2.pt`` of synthetic QM9
+     molecules (written through a stand-in ``torch_geometric.data.data.
+     Data``) read back bit for bit, and ``main_qm9`` trained from it for an
+     epoch at the recipe's width through ``load_qm9``;
+ 22. dp: data parallelism at the QM9 recipe: one rank over NCCL, three
+     ``dp_train_step``s bit for bit ``train_step``'s in float32 and
+     bfloat16 (the float32 run is this slice's main path: every kernel of
+     the QM9 step launches), ms per step of both in turns; two ranks
+     spawned on the one card over gloo, the replicas bit for bit equal and
+     the summed gradients within the per-tensor rule of one process on the
+     union batch; ``main_qm9 --dp 2`` on a one-card machine raises;
+ 23. kernels: one line listing every kernel with its numbers (the role
      swap alone and gather_product are off the main paths since the fused
      role swap: 0 launches, asserted; they and the split group sum have no
      bfloat16 version).
@@ -1523,6 +1538,10 @@ def main() -> int:
                                        emit)
     csv_launches = rna_csv_phase(args, mols, state, reset_counts, read_counts, emit)
 
+    # ---- 21-22. the QM9 preprocessed artifact; data parallelism ----
+    qm9_preprocessed_phase(args, emit)
+    dp_launches = dp_phase(args, qm9_data, train_launches, reset_counts, read_counts, emit)
+
     # ---- 20. every kernel of the paths, with its numbers ----
     # Each kernel's top-level numbers are those of one main-path case: the
     # folded t2 triplet sum (kernel A's, on random data), kernel B's t2 sum
@@ -1539,7 +1558,8 @@ def main() -> int:
     # kernels without a bfloat16 version; kernel B's: its t2 sum on the
     # scoring batch).  Launches add the serving, the QM9, RNA, PDBbind and
     # PAMNet_s training main paths, the derive and device_graph steps, the
-    # QM9, PDBbind and RNA bfloat16 training paths and the CSV driver's runs;
+    # QM9, PDBbind and RNA bfloat16 training paths, the CSV driver's runs and
+    # the one-rank data-parallel steps;
     # group_sum counts its calls, of either kernel, and group_sum_split the
     # split kernel's.
     table = [
@@ -1578,7 +1598,7 @@ def main() -> int:
                "pdbbind_train": pdb_launches, "qm9_s_train": s_launches,
                "derive_train": derive_launches, "device_graph_train": graph_launches,
                "qm9_bf16_train": qm9_bf16_launches, "pdbbind_bf16_train": pdb_bf16_launches,
-               "rna_bf16": rna_bf16_launches, "rna_csv": csv_launches}
+               "rna_bf16": rna_bf16_launches, "rna_csv": csv_launches, "dp_train": dp_launches}
 
     def first_case(path_cases, name):
         if name not in path_cases:
@@ -2256,6 +2276,87 @@ def _same_structures(a: list, b: list) -> bool:
         for k in x[t])
 
 
+def _batches_equal(a, b) -> bool:
+    """Every field of two ``GraphBatch``es equal, tensors bit for bit."""
+    import torch
+
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, torch.Tensor):
+            if not (x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y)):
+                return False
+        elif f.name == "perms":
+            if x.keys() != y.keys() or not all(torch.equal(x[k], y[k]) for k in x):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+def _collation_split(structs, bs: int, pads, **kw) -> dict:
+    """Collation of ``structs`` in batches of ``bs`` at ``pads``, numpy
+    against the collate plan in turns (numpy, plan, plan, numpy): seconds of
+    each by field (the concatenated fields, the CSR offsets, the backward's
+    arrays, the tensors) and in all, each batch bit for bit equal."""
+    from pamnet_tpu_torch.data.batch import CollatePlan, collate_structures
+
+    chunks = [list(range(i, min(i + bs, len(structs)))) for i in range(0, len(structs), bs)]
+    t0 = time.perf_counter()
+    plan = CollatePlan(structs)
+    res = {"batches": len(chunks), "plan_build_s": time.perf_counter() - t0}
+    for run, route in enumerate(("numpy", "plan", "plan", "numpy")):
+        parts: dict = {}
+        t0 = time.perf_counter()
+        out = [collate_structures(None, pads, plan=plan, idxs=c, timings=parts, **kw)
+               if route == "plan" else
+               collate_structures([structs[i] for i in c], pads, timings=parts, **kw)
+               for c in chunks]
+        total = time.perf_counter() - t0
+        key = f"{route}_{'first' if run < 2 else 'second'}"
+        res[key] = {"s": total, "by_field_s": parts}
+        if run == 0:
+            want = out
+        elif not all(_batches_equal(g, w) for g, w in zip(out, want)):
+            raise AssertionError(f"plan and numpy collation differ ({kw})")
+    res["bit_equal"] = True
+    return res
+
+
+def _loader_uses_plan(mols) -> dict:
+    """A ``GraphLoader``'s batches come from the plan: the native
+    concatenations run 15 times a batch (the integer fields), and the
+    batches equal the numpy collation of the same molecules."""
+    from pamnet_tpu_torch.config import atom_type_count
+    from pamnet_tpu_torch.data import native
+    from pamnet_tpu_torch.data.batch import collate_structures
+    from pamnet_tpu_torch.data.loader import GraphLoader
+
+    calls = [0]
+    real = native.concat_offset_i32
+
+    def counted(*a):
+        calls[0] += 1
+        return real(*a)
+
+    loader = GraphLoader(mols, "qm9", 5.0, 5.0, 32, shuffle=True, seed=1, drop_last=True,
+                         build_perms=True, wire_geometry="derive", precompute_basis=False)
+    native.concat_offset_i32 = counted
+    try:
+        batches = list(loader)
+    finally:
+        native.concat_offset_i32 = real
+    again = GraphLoader(mols, "qm9", 5.0, 5.0, 32, shuffle=True, seed=1, drop_last=True,
+                        build_perms=True, wire_geometry="derive", precompute_basis=False)
+    same = all(_batches_equal(b, collate_structures(
+        [again.structs[i] for i in idxs], again.pads, build_perms=True,
+        num_atom_types=atom_type_count("qm9"), wire_geometry="derive"))
+        for idxs, b in zip(again.batches(), batches))
+    if calls[0] != 15 * len(batches) or not same:
+        raise AssertionError(f"loader batches not from the plan: {calls[0]} native calls "
+                             f"for {len(batches)} batches, equal to numpy: {same}")
+    return {"batches": len(batches), "native_int_concats": calls[0], "bit_equal": True}
+
+
 def host_build_phase(args, mols, service, emit_line) -> None:
     """Phase 3b, host_build: where the host's time goes, with the numpy
     builders and with the native ones (``data/native.py``), on the scoring
@@ -2283,6 +2384,7 @@ def host_build_phase(args, mols, service, emit_line) -> None:
                                                          16, which, perms=False)
     if not _same_structures(built["numpy"], built["dispatch"]):
         raise AssertionError("native and numpy structures differ on the scoring batch")
+    built["dispatch_scoring"] = built["dispatch"]
     knn_same = all(np.array_equal(knn_graph(m["pos"], 50), knn_graph_np(m["pos"], 50))
                    for m in mols[:2])
     if not knn_same:
@@ -2311,6 +2413,23 @@ def host_build_phase(args, mols, service, emit_line) -> None:
     if not _same_structures(built["dispatch"], built["native"]):
         raise AssertionError("native and numpy structures differ on QM9")
     res["qm9_epoch_wall"] = qm9
+    # Collation by field, numpy against the collate plan: the QM9 recipe's
+    # training batches (32 molecules, with the backward's arrays, at the
+    # loader's worst-case pads) derived (main_qm9's default) and with host
+    # geometry, and the scoring batch (16 structures, host geometry).
+    from pamnet_tpu_torch.data.batch import PadSizes, structure_counts
+
+    qs = built["dispatch"]
+    worst = np.sort(np.array([structure_counts(st) for st in qs]), axis=0)[-32:].sum(axis=0)
+    pads = PadSizes.for_counts(*(int(c) for c in worst), 32)
+    train_kw = dict(build_perms=True, num_atom_types=5)
+    res["collation"] = {
+        "qm9_train_derive": _collation_split(qs, 32, pads, wire_geometry="derive", **train_kw),
+        "qm9_train_host": _collation_split(qs, 32, pads, **train_kw),
+        "scoring": _collation_split(built["dispatch_scoring"], 16, None),
+        "loader": _loader_uses_plan(qmols[:512]),
+        "qm9_pads": dataclasses.asdict(pads),
+    }
     res["bit_equal"] = True
     emit_line(res)
 
@@ -3402,6 +3521,278 @@ def rna_csv_phase(args, mols, state: dict, reset_counts, read_counts, emit_line)
             os.chdir(cwd)
     emit_line({"phase": "rna_csv", **res})
     return total
+
+
+@contextlib.contextmanager
+def _fake_pyg():
+    """``torch_geometric.data.data.Data`` as a plain class registered under
+    PyG's module path (PyG is not installed), so ``torch.save`` pickles it
+    by that name, as PyG's preprocessed artifacts name it."""
+    names = ("torch_geometric", "torch_geometric.data", "torch_geometric.data.data")
+    saved = {n: sys.modules.get(n) for n in names}
+    for n in names:
+        sys.modules[n] = type(sys)(n)
+    data = type("Data", (), {"__init__": lambda self, **kw: self.__dict__.update(kw)})
+    data.__module__, data.__qualname__ = names[-1], "Data"
+    sys.modules[names[-1]].Data = data
+    try:
+        yield data
+    finally:
+        for n, old in saved.items():
+            if old is None:
+                del sys.modules[n]
+            else:
+                sys.modules[n] = old
+
+
+def _write_qm9_artifact(path: str, mols: list[dict]) -> np.ndarray:
+    """PyG's collated QM9 layout of ``mols`` (x float atom types, pos, the
+    bonds with node ids offset by the nodes before each molecule, y (M, 19)
+    with the label at target 7's column) and its slices; returns y."""
+    import torch
+
+    from pamnet_tpu_torch.data.qm9 import remap_target
+
+    n = np.cumsum([0] + [len(m["z"]) for m in mols])
+    e = np.cumsum([0] + [m["edge_index"].shape[1] for m in mols])
+    y = np.random.default_rng(len(mols)).standard_normal((len(mols), 19)).astype(np.float32)
+    y[:, remap_target(7)] = [m["y"] for m in mols]
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with _fake_pyg() as data_cls:
+        data = data_cls(
+            x=torch.tensor(np.concatenate([m["z"] for m in mols]).astype(np.float32)),
+            pos=torch.tensor(np.concatenate([m["pos"] for m in mols])),
+            edge_index=torch.tensor(np.concatenate(
+                [m["edge_index"] + n[i] for i, m in enumerate(mols)], axis=1)),
+            y=torch.tensor(y))
+        slices = {"x": torch.tensor(n), "pos": torch.tensor(n), "edge_index": torch.tensor(e),
+                  "y": torch.arange(len(mols) + 1)}
+        torch.save((data, slices), path)
+    return y
+
+
+def qm9_preprocessed_phase(args, emit_line) -> None:
+    """Phase 21, qm9_preprocessed: a PyG-layout ``data_v2.pt`` of synthetic
+    QM9 molecules under a temporary ``data/QM9/processed``: the molecules
+    read back (``load_qm9_preprocessed``) bit for bit the source, then
+    ``main_qm9`` without ``--synthetic`` at the recipe's width, from that
+    artifact through ``load_qm9``, for one epoch on the card."""
+    from pamnet_tpu_torch import main_qm9
+    from pamnet_tpu_torch.data.qm9 import load_qm9_preprocessed
+    from pamnet_tpu_torch.data.synthetic import synthetic_qm9_dataset
+
+    mols = synthetic_qm9_dataset(400, seed=args.seed + 7)
+    res: dict = {"phase": "qm9_preprocessed", "molecules": len(mols)}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "data", "QM9", "processed", "data_v2.pt")
+        y = _write_qm9_artifact(path, mols)
+        t0 = time.perf_counter()
+        got = load_qm9_preprocessed(path)
+        res["read_s"] = time.perf_counter() - t0
+        same = len(got) == len(mols) and all(
+            g[k].dtype == m[k].dtype and np.array_equal(g[k], m[k])
+            for g, m in zip(got, mols) for k in ("z", "pos", "edge_index")) and all(
+            np.array_equal(g["y"], yi.astype(np.float64)) for g, yi in zip(got, y))
+        if not same:
+            raise AssertionError("qm9_preprocessed: the molecules read back differ")
+        res["bit_equal"] = True
+        out = io.StringIO()
+        os.chdir(tmp)
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                final = main_qm9.main(["--limit", "320", "--epochs", "1", "--seed",
+                                       str(args.seed), "--device", "cuda",
+                                       "--save_dir", os.path.join(tmp, "save")])
+            res["main_qm9_s"] = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+        text = out.getvalue()
+        cached = os.path.isfile(os.path.join(tmp, "data", "QM9", "processed",
+                                             "qm9_pamnet_tpu_torch.npz"))
+    maes = re.findall(r"(Train|Val|Test) MAE: (\S+?),? ", text)
+    if ("Data loaded! train=256 val=32 test=32" not in text or len(maes) != 3
+            or not all(math.isfinite(float(v)) for _, v in maes)
+            or not math.isfinite(final["test_mae"]) or not cached):
+        raise AssertionError(f"main_qm9 from the artifact: {text}")
+    res["lines"] = [ln for ln in text.splitlines() if "MAE" in ln or "Data loaded" in ln]
+    emit_line(res)
+
+
+def _dp_rank(rank: int, world: int, init_method: str, job: dict) -> None:
+    """Phase 22 (b), one of two ranks on the one card over gloo: three
+    data-parallel steps of the QM9 recipe on pairs of batches (rank r takes
+    batch r of each pair), then the step timed on the first pair; the first
+    step's summed gradients, the losses, parameters and EMA, and ms per
+    step to ``<out>/rank<r>.pt``."""
+    import torch
+
+    from pamnet_tpu_torch.config import PAMNetConfig
+    from pamnet_tpu_torch.models.pamnet import PAMNet
+    from pamnet_tpu_torch.parallel import init_dp, teardown
+    from pamnet_tpu_torch.train.ema import ema_init
+    from pamnet_tpu_torch.train.loop import Optimizer, dp_train_step
+    from pamnet_tpu_torch.train.schedules import constant
+
+    dev = init_dp(world, rank, "cuda:0", backend="gloo", init_method=init_method)
+    try:
+        model = PAMNet(PAMNetConfig(**job["cfg"]),
+                       torch.Generator().manual_seed(job["seed"])).to(dev)
+        opt = Optimizer(model.parameters(), constant(1e-4), clip_norm=1000.0)
+        ema = ema_init(model.state_dict())
+        mine = [(pair[rank].to(dev), sum(b.num_graphs for b in pair)) for pair in job["pairs"]]
+        losses, grads = [], None
+        for gb, count in mine:
+            losses.append(float(dp_train_step(model, opt, ema, gb, "l1", count)))
+            if grads is None:  # the clip at 1000 leaves the summed gradients as they are
+                grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        gb, count = mine[0]
+        t0 = time.perf_counter()
+        for _ in range(5):
+            dp_train_step(model, opt, ema, gb, "l1", count)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 5 * 1e3
+        torch.save({"losses": losses, "grads": grads, "ms_per_step": ms,
+                    "params": {n: p.detach().cpu() for n, p in model.named_parameters()},
+                    "ema": {k: v.cpu() for k, v in ema.items()}},
+                   os.path.join(job["out"], f"rank{rank}.pt"))
+    finally:
+        teardown()
+
+
+def dp_phase(args, qm9_data: tuple, train_launches: dict, reset_counts, read_counts,
+             emit_line) -> dict:
+    """Phase 22, dp: data parallelism at the QM9 recipe (dim 128, 6 layers,
+    batch 32, L1, Adam + clip 1000 + EMA 0.999, constant lr 1e-4).
+    (a) One rank over NCCL, float32 and bfloat16: three ``dp_train_step``s
+    give the parameters, EMA and losses of three ``train_step``s bit for
+    bit; the float32 run is this slice's main path (every kernel the QM9
+    step launches must launch); ms per step of both in turns and launches a
+    step.  (b) Two ranks sharing the one card over gloo (spawned), float32,
+    three steps on pairs of batches: the replicas bit for bit equal, the
+    first step's summed gradients within the per-tensor rule of one process
+    stepping the union of the pair, its loss within 1e-5 + 1e-4 |loss|;
+    their ms per step is two ranks on one card, not scaling.  (c)
+    ``main_qm9 --dp 2`` on a one-card machine raises the device-count
+    error.  Returns the launches of (a)'s float32 run."""
+    import torch
+
+    from pamnet_tpu_torch import main_qm9
+    from pamnet_tpu_torch.config import PAMNetConfig
+    from pamnet_tpu_torch.data.batch import collate_structures
+    from pamnet_tpu_torch.models.pamnet import PAMNet
+    from pamnet_tpu_torch.parallel import init_dp, spawn, teardown
+    from pamnet_tpu_torch.train.ema import ema_init
+    from pamnet_tpu_torch.train.loop import (Optimizer, batch_loss, dp_train_step,
+                                             train_step)
+    from pamnet_tpu_torch.train.schedules import constant
+
+    loader = qm9_data[0]
+    recipe = dict(dataset="QM9", dim=128, n_layer=6, cutoff_l=5.0, cutoff_g=5.0)
+    host = [loader.collate(list(range(32 * i, 32 * i + 32))) for i in range(6)]
+    res: dict = {"phase": "dp", "nccl_version": ".".join(map(str, torch.cuda.nccl.version())),
+                 "world_sizes": {"one_rank_nccl": 1, "two_ranks_gloo_one_card": 2},
+                 "device_count": torch.cuda.device_count()}
+
+    def fresh(dtype):
+        model = PAMNet(PAMNetConfig(**recipe, compute_dtype=dtype),
+                       torch.Generator().manual_seed(args.seed)).to("cuda")
+        return (model, Optimizer(model.parameters(), constant(1e-4), clip_norm=1000.0),
+                ema_init(model.state_dict()))
+
+    # ---- (a) one rank over NCCL ----
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        init_dp(1, 0, "cuda:0", init_method=f"file://{tmp}/rendezvous")
+        try:
+            batches = [b.to("cuda") for b in host[:3]]
+            for dtype in ("float32", "bfloat16"):
+                runs = {}
+                for route in ("train_step", "dp_train_step"):
+                    model, opt, ema = fresh(dtype)
+                    main_path = route == "dp_train_step" and dtype == "float32"
+                    if main_path:
+                        reset_counts()
+                    losses = [dp_train_step(model, opt, ema, gb, "l1", gb.num_graphs)
+                              if route == "dp_train_step" else
+                              train_step(model, opt, ema, gb, "l1") for gb in batches]
+                    torch.cuda.synchronize()
+                    if main_path:
+                        launches = read_counts()
+                    runs[route] = ({n: p.detach().clone() for n, p in model.named_parameters()},
+                                   ema, [float(v) for v in losses])
+                (pt, et, lt), (pd, ed, ld) = runs["train_step"], runs["dp_train_step"]
+                if not (all(torch.equal(pt[n], pd[n]) for n in pt)
+                        and all(torch.equal(et[k], ed[k]) for k in et) and lt == ld):
+                    raise AssertionError(f"dp {dtype}: one rank differs from train_step")
+                gb = batches[0]
+                steps = {}
+                for route in ("train_step", "dp_train_step", "dp_train_step", "train_step"):
+                    model, opt, ema = fresh(dtype)
+                    step = ((lambda: dp_train_step(model, opt, ema, gb, "l1", gb.num_graphs))
+                            if route == "dp_train_step" else
+                            (lambda: train_step(model, opt, ema, gb, "l1")))
+                    steps.setdefault(route, []).append(time_ms(step, iters=10, warmup=2))
+                model, opt, ema = fresh(dtype)
+                reset_counts()
+                dp_train_step(model, opt, ema, gb, "l1", gb.num_graphs)
+                torch.cuda.synchronize()
+                res[f"one_rank_{dtype}"] = {
+                    "bitwise_equal_to_train_step": True, "steps": len(batches),
+                    "losses": ld, "ms_per_step_in_turns": steps,
+                    "launches_per_step": read_counts()}
+        finally:
+            teardown()
+    skipped = {k for k, v in train_launches.items() if v and not launches[k]}
+    extra = {k for k, v in launches.items() if v and not train_launches[k]}
+    if skipped or extra:
+        raise AssertionError(f"the DP path launched {launches} against train's {train_launches}")
+    res["main_path_launches"] = launches
+
+    # ---- (b) two ranks sharing the one card over gloo ----
+    pairs = [(host[2 * i], host[2 * i + 1]) for i in range(3)]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        spawn(_dp_rank, 2, {"cfg": recipe, "seed": args.seed, "pairs": pairs, "out": tmp})
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=True)
+                 for r in range(2)]
+    a, b = ranks
+    equal = (a["losses"] == b["losses"]
+             and all(torch.equal(a["params"][n], b["params"][n]) for n in a["params"])
+             and all(torch.equal(a["ema"][k], b["ema"][k]) for k in a["ema"]))
+    if not equal:
+        raise AssertionError("dp: the two replicas differ")
+    union = collate_structures([loader.structs[i] for i in range(64)], build_perms=True,
+                               num_atom_types=5).to("cuda")
+    model, _, _ = fresh("float32")
+    want = _parameter_grads(model, lambda: batch_loss(model, union, "l1"))
+    check = _worst_gradient({n: g.to("cuda") for n, g in a["grads"].items()}, want,
+                            "two-rank DP gradients off the union batch's")
+    with torch.no_grad():
+        union_loss = float(batch_loss(model, union, "l1"))
+    loss_check = compare("two-rank DP loss vs the union batch's",
+                         torch.tensor(a["losses"][:1]), torch.tensor([union_loss]),
+                         atol=1e-5, rtol=1e-4)
+    res["two_ranks_one_card"] = {
+        "backend": "gloo", "steps": 3, "replicas_bitwise_equal": True,
+        "union_gradients": check, "union_loss_check": loss_check,
+        "losses": a["losses"], "union_loss": union_loss, "spawn_s": spawn_s,
+        "ms_per_step_two_ranks_sharing_one_card": [a["ms_per_step"], b["ms_per_step"]]}
+
+    # ---- (c) --dp 2 on a one-card machine ----
+    if torch.cuda.device_count() < 2:
+        try:
+            main_qm9.main(["--synthetic", "--limit", "64", "--epochs", "1", "--dp", "2"])
+        except ValueError as e:
+            if "needs 2 devices" not in str(e):
+                raise
+            res["dp2_on_one_card"] = str(e)
+        else:
+            raise AssertionError("main_qm9 --dp 2 ran on one card")
+    emit_line(res)
+    return launches
 
 
 def _check_names(res: dict, names: list[str]) -> dict:

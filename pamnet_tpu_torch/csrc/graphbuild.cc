@@ -1,15 +1,20 @@
 // Host graph construction of the port: radius and knn neighbour search and
 // the incoming-edge expansion behind the triplet and pair tables (reference:
-// models.py:110,143 radius/knn; models.py:68-98 the SparseTensor expansion).
+// models.py:110,143 radius/knn; models.py:68-98 the SparseTensor expansion),
+// and the padded concatenations of batch collation (data/batch.py's
+// CollatePlan).
 //
 // A copy of the JAX package's csrc/graphbuild.cc (radius_graph, knn_graph,
-// expand_incoming), changed so that each function gives the numpy builders'
-// arrays bit for bit (pamnet_tpu_torch/data/graphbuild.py):
+// expand_incoming, concat_offset_i32, concat_rows_f32), changed so that
+// each function gives the numpy path's arrays bit for bit
+// (pamnet_tpu_torch/data/graphbuild.py, data/batch.py):
 //   * radius_graph emits each query's sources in index order and keeps the
 //     first max_nb of them, and compares the float32 squared distance with
 //     the caller's float32 r2 (numpy compares at float32(r * r));
 //   * knn_graph measures distances in double, as the numpy builder does,
-//     and breaks distance ties by index.
+//     and breaks distance ties by index;
+//   * concat_offset_i32 adds the offsets with int32 wraparound, as numpy
+//     does.
 // Built with g++ at first use and loaded through ctypes
 // (pamnet_tpu_torch/data/native.py).
 //
@@ -163,6 +168,45 @@ int64_t expand_incoming(const int32_t* dst, const int32_t* anchor, int64_t e,
       ++m;
     }
   }
+  return m;
+}
+
+// Collation: the arrays at srcs[0..n_arr) (lens[a] int32 values each, or
+// lens[a] rows of row_w floats), one after another from the start of `out`,
+// array a's values plus offs[a], the rest of the out_len values or out_rows
+// rows zeros.  Returns the rows written, or -1 (nothing written) when they
+// would pass the padded length.
+int64_t concat_offset_i32(const uint64_t* srcs, const int64_t* lens,
+                          const int32_t* offs, int64_t n_arr, int32_t* out,
+                          int64_t out_len) {
+  int64_t total = 0;
+  for (int64_t a = 0; a < n_arr; ++a) total += lens[a];
+  if (total > out_len) return -1;
+  int64_t m = 0;
+  for (int64_t a = 0; a < n_arr; ++a) {
+    const int32_t* s = reinterpret_cast<const int32_t*>(srcs[a]);
+    const uint32_t o = (uint32_t)offs[a];
+    for (int64_t i = 0; i < lens[a]; ++i)
+      out[m + i] = (int32_t)((uint32_t)s[i] + o);
+    m += lens[a];
+  }
+  std::fill(out + m, out + out_len, 0);
+  return m;
+}
+
+int64_t concat_rows_f32(const uint64_t* srcs, const int64_t* lens,
+                        int64_t row_w, int64_t n_arr, float* out,
+                        int64_t out_rows) {
+  int64_t total = 0;
+  for (int64_t a = 0; a < n_arr; ++a) total += lens[a];
+  if (total > out_rows) return -1;
+  int64_t m = 0;
+  for (int64_t a = 0; a < n_arr; ++a) {
+    const float* s = reinterpret_cast<const float*>(srcs[a]);
+    std::copy(s, s + lens[a] * row_w, out + m * row_w);
+    m += lens[a];
+  }
+  std::fill(out + m * row_w, out + out_rows * row_w, 0.0f);
   return m;
 }
 

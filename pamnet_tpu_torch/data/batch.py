@@ -377,11 +377,91 @@ _BASIS_FIELDS = (("sbf_radial", "el"), ("cbf2", "t2"), ("cbf1", "t1"))
 GEOMETRY_FIELDS = tuple(k for k, _ in _DIST_FIELDS + _BASIS_FIELDS)
 
 
-def collate_structures(structs: list[dict], pads: PadSizes | None = None,
+def _get(s: dict, path: tuple) -> np.ndarray:
+    for p in path:
+        s = s[p]
+    return s
+
+
+def _host_f32_fields(has_dist: bool, has_basis: bool, host: bool) -> tuple:
+    """(field, pad dim) of the float fields a batch carries."""
+    return (_F32_FIELDS + (_DIST_FIELDS if host and has_dist else ())
+            + (_BASIS_FIELDS if host and has_basis else ()))
+
+
+class CollatePlan:
+    """Address and length tables of every collated field over all
+    structures, built once (the JAX package's ``CollatePlan``,
+    ``pamnet_tpu/data/batch.py:395``): a field of a batch is then one gather
+    of its structures' rows of the tables and one call of the native
+    library's ``concat_offset_i32`` / ``concat_rows_f32``, which writes the
+    concatenation, its offsets and its padding straight into the padded
+    buffer, bit for bit ``collate_structures`` without a plan.
+
+    The plan keeps the structures and every array it addresses alive (a
+    field of the wrong type or layout is read from a contiguous copy it
+    holds).  Structures are frozen once a plan exists: ``verify(i)`` raises
+    where a field array of structure ``i`` was replaced since.  Raises where
+    the native library cannot be built."""
+
+    def __init__(self, structs: list[dict]):
+        from pamnet_tpu_torch.data import native
+
+        native.library()
+        self.structs = structs
+        self.has_dist = all("dist_g" in s for s in structs)
+        self.has_basis = all("sbf_radial" in s for s in structs)
+        fields = [(key, path, np.int32) for key, path, _, _ in _INT_FIELDS]
+        fields += [(key, (key,), np.float32)
+                   for key, _ in _host_f32_fields(self.has_dist, self.has_basis, True)]
+        self._paths = {key: path for key, path, _ in fields}
+        self._arrays: list[np.ndarray] = []
+        self.addr, self.len, self._live, self.trailing = {}, {}, {}, {}
+        for key, path, dtype in fields:
+            live = [_get(s, path) for s in structs]
+            data = [a if a.dtype == dtype and a.flags.c_contiguous
+                    else np.ascontiguousarray(a, dtype) for a in live]
+            trailing = {a.shape[1:] for a in data}
+            if len(trailing) != 1:
+                raise ValueError(f"CollatePlan: field {key!r} has rows of shapes {trailing}")
+            self.trailing[key] = trailing.pop()
+            self._arrays += live
+            self.addr[key], self.len[key] = native.addresses(data)
+            self._live[key] = self.addr[key]
+            if any(d is not a for d, a in zip(data, live)):
+                self._arrays += data
+                self._live[key] = native.addresses(live)[0]
+        self.y = np.array([s["y"] for s in structs], dtype=np.float32)
+
+    def verify(self, i: int) -> None:
+        """Raise unless every field array of structure ``i`` is the one the
+        plan was built on."""
+        for key, path in self._paths.items():
+            if _get(self.structs[i], path).__array_interface__["data"][0] != self._live[key][i]:
+                raise RuntimeError(
+                    f"CollatePlan is stale: field {key!r} of structure {i} was replaced "
+                    f"after the plan was built (rebuild the plan or the loader)")
+
+    def cat_i32(self, key: str, idxs: np.ndarray, offs: np.ndarray, size: int) -> np.ndarray:
+        from pamnet_tpu_torch.data import native
+
+        return native.concat_offset_i32(self.addr[key][idxs], self.len[key][idxs], offs, size)
+
+    def cat_f32(self, key: str, idxs: np.ndarray, size: int) -> np.ndarray:
+        from pamnet_tpu_torch.data import native
+
+        return native.concat_rows_f32(self.addr[key][idxs], self.len[key][idxs],
+                                      self.trailing[key], size)
+
+
+def collate_structures(structs: list[dict] | None, pads: PadSizes | None = None,
                        align: int = 128, build_perms: bool = False,
                        num_atom_types: int | None = None,
                        variant: str = "full",
-                       wire_geometry: str = "host") -> GraphBatch:
+                       wire_geometry: str = "host",
+                       plan: CollatePlan | None = None,
+                       idxs: list[int] | None = None,
+                       timings: dict | None = None) -> GraphBatch:
     """Concatenate structures into one padded batch, offsetting node ids by node counts and edge ids by local-edge
     counts; pads default to the geometric bucket of the batch's counts.
     ``build_perms`` adds the backward's CSR arrays (module docstring); the
@@ -393,20 +473,34 @@ def collate_structures(structs: list[dict], pads: PadSizes | None = None,
     ``wire_geometry="host"`` carries the structures' distances and, where
     every structure has ``attach_basis`` applied, their host basis;
     ``"derive"`` carries neither, even where the structures hold them (the
-    JAX package's ``collate_structures(wire_geometry=)``)."""
+    JAX package's ``collate_structures(wire_geometry=)``).
+
+    With ``plan`` (a ``CollatePlan``) and ``idxs``, the batch of the plan's
+    structures ``idxs`` (``structs`` unused): each concatenated field comes
+    from the native library in one call, the rest as without a plan.
+    ``timings`` accumulates the seconds of each concatenated field (by its
+    name), of the CSR offsets and ``longest`` ("offsets"), the backward's
+    arrays ("perms") and the masks and tensors ("tensors")."""
     if wire_geometry not in ("host", "derive"):
         raise ValueError(f"wire_geometry must be 'host'|'derive', got {wire_geometry!r}")
+    lap = _lap_clock(timings)
     host = wire_geometry == "host"
-    f32_fields = (_F32_FIELDS
-                  + (_DIST_FIELDS if host and all("dist_g" in s for s in structs) else ())
-                  + (_BASIS_FIELDS if host and all("sbf_radial" in s for s in structs)
-                     else ()))
-    nb = len(structs)
-    n_per = np.array([s["pos"].shape[0] for s in structs], np.int64)
-    el_per = np.array([s["el"].shape[1] for s in structs], np.int64)
-    n_eg = int(sum(s["eg"].shape[1] for s in structs))
-    n_t2 = int(sum(s["t2"]["idx_ji"].shape[0] for s in structs))
-    n_t1 = int(sum(s["t1"]["idx_ji"].shape[0] for s in structs))
+    if plan is not None:
+        idxs = np.asarray(idxs, dtype=np.int64)
+        plan.verify(int(idxs[0]))
+        nb = len(idxs)
+        n_per, el_per = plan.len["pos"][idxs], plan.len["el_src"][idxs]
+        n_eg, n_t2, n_t1 = (int(plan.len[k][idxs].sum()) for k in ("eg_src", "t2_ji", "t1_ji"))
+        f32_fields = _host_f32_fields(plan.has_dist, plan.has_basis, host)
+    else:
+        nb = len(structs)
+        n_per = np.array([s["pos"].shape[0] for s in structs], np.int64)
+        el_per = np.array([s["el"].shape[1] for s in structs], np.int64)
+        n_eg = int(sum(s["eg"].shape[1] for s in structs))
+        n_t2 = int(sum(s["t2"]["idx_ji"].shape[0] for s in structs))
+        n_t1 = int(sum(s["t1"]["idx_ji"].shape[0] for s in structs))
+        f32_fields = _host_f32_fields(all("dist_g" in s for s in structs),
+                                      all("sbf_radial" in s for s in structs), host)
     num_nodes, n_el = int(n_per.sum()), int(el_per.sum())
     offs_of = {
         "node": np.concatenate([[0], np.cumsum(n_per[:-1])]).astype(np.int32),
@@ -421,16 +515,20 @@ def collate_structures(structs: list[dict], pads: PadSizes | None = None,
 
     f: dict[str, np.ndarray] = {}
     for key, path, okind, pdim in _INT_FIELDS:
-        parts = []
-        for s, o in zip(structs, offs_of[okind]):
-            v = s
-            for p in path:
-                v = v[p]
-            parts.append(v.astype(np.int32) + o)
-        f[key] = _pad1(np.concatenate(parts), pad_of[pdim])
+        if plan is not None:
+            f[key] = plan.cat_i32(key, idxs, offs_of[okind], pad_of[pdim])
+        else:
+            f[key] = _pad1(np.concatenate([_get(s, path).astype(np.int32) + o
+                                           for s, o in zip(structs, offs_of[okind])]),
+                           pad_of[pdim])
+        lap(key)
     for key, pdim in f32_fields:
-        f[key] = _pad1(np.concatenate([s[key] for s in structs]).astype(np.float32),
-                       pad_of[pdim])
+        if plan is not None:
+            f[key] = plan.cat_f32(key, idxs, pad_of[pdim])
+        else:
+            f[key] = _pad1(np.concatenate([s[key] for s in structs]).astype(np.float32),
+                           pad_of[pdim])
+        lap(key)
 
     # The global layer reads whichever endpoint the edges are sorted by.
     eg_dst_off = _offsets(f["eg_dst"], n_eg, pads.n)
@@ -439,6 +537,11 @@ def collate_structures(structs: list[dict], pads: PadSizes | None = None,
     two_hop = variant == "full"
     if not two_hop and n_t2:
         raise ValueError("PAMNet_s structures carry no triplets")
+    sorted_off = {"eg_src": eg_src_off, "eg_dst": eg_dst_off, "el_dst": el_dst_off,
+                  "t2_ji": _offsets(f["t2_ji"], n_t2, pads.el) if two_hop else None,
+                  "t1_ji": _offsets(f["t1_ji"], n_t1, pads.el)}
+    longest = {k: _longest(v) for k, v in sorted_off.items() if v is not None}
+    lap("offsets")
     perms: dict[str, np.ndarray] = {}
     if build_perms:
         keyed = [("el_src", n_el, pads.n, pads.el), ("t1_jj", n_t1, pads.el, pads.t1)]
@@ -457,17 +560,14 @@ def collate_structures(structs: list[dict], pads: PadSizes | None = None,
         if two_hop:
             perms["t2_ji_by_kj"] = f["t2_ji"][perms["t2_kj_perm"]]
         perms["t1_ji_by_jj"] = f["t1_ji"][perms["t1_jj_perm"]]
-    sorted_off = {"eg_src": eg_src_off, "eg_dst": eg_dst_off, "el_dst": el_dst_off,
-                  "t2_ji": _offsets(f["t2_ji"], n_t2, pads.el) if two_hop else None,
-                  "t1_ji": _offsets(f["t1_ji"], n_t1, pads.el)}
-    longest = {k: _longest(v) for k, v in sorted_off.items() if v is not None}
     longest.update({k[:-5]: _longest(v) for k, v in perms.items() if k.endswith("_poff")})
-    y = np.array([s["y"] for s in structs], dtype=np.float32)
+    lap("perms")
+    y = plan.y[idxs] if plan is not None else np.array([s["y"] for s in structs], np.float32)
     node_graph = np.repeat(np.arange(nb, dtype=np.int32), n_per)
 
     t = torch.from_numpy
     opt = lambda a: None if a is None else t(a)  # noqa: E731
-    return GraphBatch(
+    batch = GraphBatch(
         **{k: t(v) for k, v in f.items()},
         **{k: None for k in GEOMETRY_FIELDS if k not in f},
         node_mask=t(_mask(num_nodes, pads.n)),
@@ -484,3 +584,5 @@ def collate_structures(structs: list[dict], pads: PadSizes | None = None,
         perms={k: t(v) for k, v in perms.items()},
         longest=longest,
     )
+    lap("tensors")
+    return batch

@@ -1,6 +1,9 @@
 """Batch loader: per-structure graph build (with the host basis unless the
 batches derive it), then padded batches in order or shuffled per epoch (the
-inference and training subset of ``pamnet_tpu.data.loader.GraphLoader``)."""
+inference and training subset of ``pamnet_tpu.data.loader.GraphLoader``),
+each collated through a ``CollatePlan`` over the loader's structures (the
+native library's concatenations, as the JAX loader collates wherever its
+library loads; here the library is required)."""
 
 from __future__ import annotations
 
@@ -10,6 +13,7 @@ import numpy as np
 
 from pamnet_tpu_torch.config import atom_type_count, embeds_atom_types
 from pamnet_tpu_torch.data.batch import (
+    CollatePlan,
     PadSizes,
     attach_basis,
     collate_structures,
@@ -90,6 +94,14 @@ class GraphLoader:
             own = PadSizes(*(max(getattr(pads, f.name), getattr(own, f.name))
                              for f in dataclasses.fields(PadSizes)))
         self.pads = own
+        self._plan: CollatePlan | None = None
+
+    def plan(self) -> CollatePlan:
+        """The collate plan over the loader's structures, built at the first
+        batch; raises where the native library cannot be built."""
+        if self._plan is None:
+            self._plan = CollatePlan(self.structs)
+        return self._plan
 
     def __len__(self) -> int:
         n = len(self.structs)
@@ -130,13 +142,13 @@ class GraphLoader:
 
     def collate(self, idxs: list[int], build_perms: bool | None = None):
         """The padded batch of the molecules ``idxs`` (``build_perms``: None
-        takes the loader's)."""
+        takes the loader's), collated through the plan."""
         pads = self._batch_pads(idxs) if self.ladder_pads else self.pads
         build_perms = self.build_perms if build_perms is None else build_perms
-        return collate_structures([self.structs[i] for i in idxs], pads,
-                                  build_perms=build_perms,
+        return collate_structures(None, pads, build_perms=build_perms,
                                   num_atom_types=self._num_atom_types,
-                                  variant=self.variant, wire_geometry=self.wire_geometry)
+                                  variant=self.variant, wire_geometry=self.wire_geometry,
+                                  plan=self.plan(), idxs=idxs)
 
     def in_order(self):
         """Every molecule once, in order, the last batch partial, without the

@@ -1,7 +1,10 @@
 """The port's native host graph builders (``csrc/graphbuild.cc``) through
 ``ctypes``: the counterpart of ``pamnet_tpu/data/native.py``'s radius, knn,
 triplet and pair builders, each bit for bit the numpy builder of
-``data/graphbuild.py`` on the same input.
+``data/graphbuild.py`` on the same input, and of its collation helpers
+(``concat_offset_i32``, ``concat_rows_f32``: a padded concatenation read
+from arrays of source addresses, bit for bit the numpy collation of
+``data/batch.py``).
 
 The library is compiled by ``g++`` at first use into ``build/torch_ext/`` at
 the repository root, named by a hash of the source and the flags, so an
@@ -70,11 +73,15 @@ def library() -> ctypes.CDLL:
             i32p = np.ctypeslib.ndpointer(dtype=np.int32, flags="C_CONTIGUOUS")
             i64p = np.ctypeslib.ndpointer(dtype=np.int64, flags="C_CONTIGUOUS")
             f32p = np.ctypeslib.ndpointer(dtype=np.float32, flags="C_CONTIGUOUS")
+            u64p = np.ctypeslib.ndpointer(dtype=np.uint64, flags="C_CONTIGUOUS")
             i64, f32 = ctypes.c_int64, ctypes.c_float
             lib.radius_graph.argtypes = [f32p, i64p, i64, f32, f32, i64, i32p, i64]
             lib.knn_graph.argtypes = [f32p, i64p, i64, i64, i32p, i64]
             lib.expand_incoming.argtypes = [i32p, i32p, i64, i64, i32p, i64]
-            for fn in (lib.radius_graph, lib.knn_graph, lib.expand_incoming):
+            lib.concat_offset_i32.argtypes = [u64p, i64p, i32p, i64, i32p, i64]
+            lib.concat_rows_f32.argtypes = [u64p, i64p, i64, i64, f32p, i64]
+            for fn in (lib.radius_graph, lib.knn_graph, lib.expand_incoming,
+                       lib.concat_offset_i32, lib.concat_rows_f32):
                 fn.restype = i64
             _lib = lib
     return _lib
@@ -160,3 +167,44 @@ def pairs(edge_index: np.ndarray, num_nodes: int) -> dict:
         "idx_jj": inner[keep].astype(np.int32),
         "idx_ji": outer[keep].astype(np.int32),
     }
+
+
+def addresses(arrays) -> tuple[np.ndarray, np.ndarray]:
+    """(uint64 data addresses, int64 lengths along the first axis) of
+    ``arrays``, for ``concat_offset_i32`` / ``concat_rows_f32``.  The caller
+    keeps the arrays alive while the addresses are used."""
+    addrs = np.empty(len(arrays), np.uint64)
+    lens = np.empty(len(arrays), np.int64)
+    for k, a in enumerate(arrays):
+        ai = a.__array_interface__
+        addrs[k], lens[k] = ai["data"][0], a.shape[0]
+    return addrs, lens
+
+
+def _overflow(lens: np.ndarray, size: int) -> ValueError:
+    return ValueError(f"padding overflow: have {int(lens.sum())} rows, bucket holds {size}")
+
+
+def concat_offset_i32(addrs: np.ndarray, lens: np.ndarray, offs: np.ndarray,
+                      out_len: int) -> np.ndarray:
+    """(out_len,) int32: the C-contiguous int32 arrays at ``addrs`` (``lens``
+    values each) one after another, array a's values plus ``offs[a]``, zeros
+    after them; ``_pad1(np.concatenate([x + o ...]), out_len)`` bit for bit.
+    Raises ValueError("padding overflow: ...") when they pass ``out_len``."""
+    out = np.empty(out_len, np.int32)
+    offs = np.ascontiguousarray(offs, np.int32)
+    if library().concat_offset_i32(addrs, lens, offs, len(addrs), out, out_len) < 0:
+        raise _overflow(lens, out_len)
+    return out
+
+
+def concat_rows_f32(addrs: np.ndarray, lens: np.ndarray, trailing: tuple,
+                    out_rows: int) -> np.ndarray:
+    """(out_rows, *trailing) float32: the C-contiguous float32 arrays at
+    ``addrs`` (``lens`` rows of shape ``trailing`` each) one after another,
+    zero rows after them.  Raises as ``concat_offset_i32``."""
+    out = np.empty((out_rows, *trailing), np.float32)
+    row_w = int(np.prod(trailing, dtype=np.int64))
+    if library().concat_rows_f32(addrs, lens, row_w, len(addrs), out, out_rows) < 0:
+        raise _overflow(lens, out_rows)
+    return out

@@ -11,8 +11,10 @@ the bond list, all in the gdb9 SDF text.  As in the reference:
   * the reference's main_qm9.py remaps targets 7/8/9/10 to +5 (:61-67).
 
 The raw files (``gdb9.sdf``, ``gdb9.sdf.csv``, ``uncharacterized.txt``) are
-read from ``<root>/raw``; nothing is fetched.  Parsed molecules are cached to
-an ``.npz`` under ``<root>/processed``.
+read from ``<root>/raw``, or, where they are absent, PyG's preprocessed
+artifact (``processed/data_v2.pt`` or ``raw/qm9_v2.pt``, the reference's
+fallback, qm9_dataset.py:156-160); nothing is fetched.  Molecules are cached
+to an ``.npz`` under ``<root>/processed``.
 """
 
 from __future__ import annotations
@@ -131,10 +133,33 @@ def load_skip_list(path: str) -> set[int]:
     return {int(x.split()[0]) - 1 for x in lines}
 
 
+def load_qm9_preprocessed(path: str) -> list[dict]:
+    """Molecules of PyG's preprocessed QM9 artifact (``data_v2.pt`` /
+    ``qm9_v2.pt``: a ``torch.save`` of ``(Data, slices)`` whose collated
+    ``Data`` holds x = atom-type indices, pos, the bond edge_index and y
+    (M, 19), already reordered and converted, the skip list applied; the JAX
+    package's ``load_qm9_preprocessed``).  PyG offsets each molecule's node
+    ids by the nodes before it; they are undone here."""
+    from pamnet_tpu_torch.data.torchpickle import load_torch_pickle
+
+    data, slices = load_torch_pickle(path)
+    x = data.x.numpy().reshape(-1)
+    pos, edge_index, y = data.pos.numpy(), data.edge_index.numpy(), data.y.numpy()
+    sx, se, sy = (slices[k].numpy().astype(np.int64) for k in ("x", "edge_index", "y"))
+    return [dict(z=x[sx[i]:sx[i + 1]].astype(np.int32),
+                 pos=pos[sx[i]:sx[i + 1]].astype(np.float32),
+                 edge_index=(edge_index[:, se[i]:se[i + 1]] - sx[i]).astype(np.int64),
+                 y=y[sy[i]].astype(np.float64).reshape(-1))
+            for i in range(len(sx) - 1)]
+
+
 def load_qm9(root: str, cache: bool = True) -> list[dict]:
-    """QM9 as molecule dicts {z, pos, edge_index, y (19,)}, from the npz
-    cache or the raw files under ``<root>/raw``.  Raises FileNotFoundError
-    with staging instructions when the raw files are missing."""
+    """QM9 as molecule dicts {z, pos, edge_index, y (19,)}, from the first
+    source that is there, in the JAX package's order: the npz cache, the raw
+    SDF files under ``<root>/raw``, ``<root>/processed/data_v2.pt``,
+    ``<root>/raw/qm9_v2.pt``.  Molecules read from a source other than the
+    cache are cached.  Raises FileNotFoundError with staging instructions
+    when there is none."""
     raw = os.path.join(root, "raw")
     cache_path = os.path.join(root, "processed", "qm9_pamnet_tpu_torch.npz")
     if cache and os.path.exists(cache_path):
@@ -142,10 +167,20 @@ def load_qm9(root: str, cache: bool = True) -> list[dict]:
     sdf, csv, unc = (os.path.join(raw, name) for name in RAW_FILES)
     missing = [p for p in (sdf, csv, unc) if not os.path.exists(p)]
     if missing:
+        for artifact in (os.path.join(root, "processed", "data_v2.pt"),
+                         os.path.join(raw, "qm9_v2.pt")):
+            if os.path.exists(artifact):
+                mols = load_qm9_preprocessed(artifact)
+                if cache:
+                    _save_cache(cache_path, mols)
+                return mols
         raise FileNotFoundError(
-            f"QM9 raw files missing: {', '.join(missing)}. Stage gdb9.sdf, "
+            f"QM9 data missing: {', '.join(missing)}, and no preprocessed "
+            f"processed/data_v2.pt or raw/qm9_v2.pt under {root}. Stage gdb9.sdf, "
             f"gdb9.sdf.csv and uncharacterized.txt (the reference's qm9.zip "
-            f"and its uncharacterized list, qm9_dataset.py:116-120) under {raw}."
+            f"and its uncharacterized list, qm9_dataset.py:116-120) under {raw}, "
+            f"or PyG's preprocessed data_v2.pt under {root}/processed; nothing "
+            f"is downloaded."
         )
     targets = load_targets(csv)
     skip = load_skip_list(unc)

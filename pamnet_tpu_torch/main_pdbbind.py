@@ -22,7 +22,9 @@ names); every epoch writes the full training state to
 bit.  ``--device`` defaults to ``cuda`` and raises without a card.
 Training batches derive their geometry on the device unless
 ``--host_geometry``; ``--device_basis`` drops the host basis from the
-evaluation batches too.
+evaluation batches too.  ``--dp N`` trains data-parallel on N ranks, one
+card each (on the CPU over gloo), N batches a step; rank 0 alone prints
+and writes the files.
 """
 
 from __future__ import annotations
@@ -50,6 +52,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--n_layer", type=int, default=2, help="Number of hidden layers.")
     parser.add_argument("--dim", type=int, default=128, help="Size of input hidden units.")
     parser.add_argument("--batch_size", type=int, default=32, help="batch_size")
+    parser.add_argument("--dp", type=int, default=0,
+                        help="Data-parallel ranks, one card each (0 = one process)")
     parser.add_argument("--cutoff_l", type=float, default=2.0, help="cutoff in local layer")
     parser.add_argument("--cutoff_g", type=float, default=6.0, help="cutoff in global layer")
     parser.add_argument("--data_root", type=str, default=None,
@@ -109,16 +113,25 @@ def load_complexes(args) -> tuple[list[dict], list[dict], list[dict]]:
 
 
 def main(argv=None) -> dict:
-    """Train and evaluate; returns the per-epoch train metrics and the test
-    metrics at the best validation RMSE."""
+    """Train and evaluate (under ``--dp``, on its ranks); returns the
+    per-epoch train metrics and the test metrics at the best validation
+    RMSE (rank 0's)."""
+    from pamnet_tpu_torch.parallel import launch
+
     args = build_parser().parse_args(argv)
-    device = resolve_device(args.device)
+    return launch(train, args, resolve_device(args.device))
+
+
+def train(args, device, dp: int) -> dict:
+    """The training run of ``main`` on ``device``, as one rank of ``dp`` > 1
+    (the caller's process group) or alone."""
     if device.type == "cuda":
         set_matmul_precision()
 
     from pamnet_tpu_torch.data.loader import GraphLoader
     from pamnet_tpu_torch.metrics import mae, pearson, rmse, sd
     from pamnet_tpu_torch.models.pamnet import PAMNet
+    from pamnet_tpu_torch.parallel import rank
     from pamnet_tpu_torch.train.checkpoint import (export_state_dict, load_checkpoint,
                                                    save_checkpoint)
     from pamnet_tpu_torch.train.loop import Optimizer, log_csv, predict, run_epoch
@@ -143,11 +156,12 @@ def main(argv=None) -> dict:
     model = PAMNet(cfg, torch.Generator().manual_seed(args.seed)).to(device)
     print("Number of model parameters:", sum(p.numel() for p in model.parameters()))
     optimizer = Optimizer(model.parameters(),
-                          multistep(args.lr, steps_per_epoch=max(len(train_loader), 1)),
+                          multistep(args.lr,
+                                    steps_per_epoch=max(len(train_loader) // max(dp, 1), 1)),
                           weight_decay=args.wd)
 
     def quad(batches) -> tuple[float, float, float, float]:
-        pred, y = predict(model, batches, device)
+        pred, y = predict(model, batches, device, dp)
         return rmse(y, pred), mae(y, pred), sd(y, pred), pearson(y, pred)
 
     first_epoch, best_val, test_m = 0, None, (float("nan"),) * 4
@@ -158,18 +172,20 @@ def main(argv=None) -> dict:
         train_loader.set_rng_state(extra["loader_rng"])
         print(f"Resumed full train state from {args.resume} at step {optimizer.count}")
     save_folder = osp.join(".", args.save_dir, args.dataset)
+    writes = rank() == 0
 
     print("Start training!")
     train_hist = []
     for epoch in range(first_epoch, args.epochs):
         t0 = time.time()
-        run_epoch(model, optimizer, None, train_loader, device, "mse")
+        run_epoch(model, optimizer, None, train_loader, device, "mse", dp)
         train_m = quad(train_loader.in_order())
         val_m = quad(val_loader)
         if best_val is None or val_m[0] < best_val:
             test_m = quad(test_loader)
             best_val = val_m[0]
-            export_state_dict(model.state_dict(), osp.join(save_folder, "best_model.pt"))
+            if writes:
+                export_state_dict(model.state_dict(), osp.join(save_folder, "best_model.pt"))
         dt = time.time() - t0
         train_hist.append(train_m)
         print(f"Epoch: {epoch + 1:03d}, Train RMSE: {train_m[0]:.7f}, "
@@ -177,15 +193,16 @@ def main(argv=None) -> dict:
               f"Train P: {train_m[3]:.7f}, Test RMSE: {test_m[0]:.7f}, "
               f"Test MAE: {test_m[1]:.7f}, Test SD: {test_m[2]:.7f}, "
               f"Test P: {test_m[3]:.7f} ({dt:.1f}s)", flush=True)
-        if args.metrics_csv:
+        if args.metrics_csv and writes:
             log_csv(args.metrics_csv, dict(
                 epoch=epoch + 1, train_rmse=train_m[0], train_mae=train_m[1],
                 train_sd=train_m[2], train_pearson=train_m[3], test_rmse=test_m[0],
                 test_mae=test_m[1], test_sd=test_m[2], test_pearson=test_m[3],
                 seconds=round(dt, 2)))
-        save_checkpoint(osp.join(save_folder, "last.ckpt"), model, optimizer, extra=dict(
-            epoch=epoch + 1, best_val_rmse=best_val, test_metrics=list(test_m),
-            loader_rng=train_loader.rng_state()))
+        if writes:
+            save_checkpoint(osp.join(save_folder, "last.ckpt"), model, optimizer, extra=dict(
+                epoch=epoch + 1, best_val_rmse=best_val, test_metrics=list(test_m),
+                loader_rng=train_loader.rng_state()))
     print("Testing RMSE:", test_m[0])
     print("Testing MAE:", test_m[1])
     print("Testing SD:", test_m[2])

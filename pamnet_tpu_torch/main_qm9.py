@@ -21,7 +21,12 @@ weights.  Each best validation
 MAE writes the EMA weights to ``<save_dir>/<dataset>/best_model.pt`` (the
 reference's ``state_dict`` names); every epoch writes the full training state
 to ``<save_dir>/<dataset>/last.ckpt``, which ``--resume`` continues from bit
-for bit.
+for bit.  Without ``--synthetic`` the molecules come from
+``./data/<dataset>``: its raw SDF files or PyG's preprocessed
+``processed/data_v2.pt`` / ``raw/qm9_v2.pt`` (``data/qm9.py::load_qm9``).
+``--dp N`` trains data-parallel on N ranks, one card each
+(``parallel/``, ``train/loop.py::dp_train_step``; on the CPU over gloo), N
+batches a step; rank 0 alone prints and writes the files.
 """
 
 from __future__ import annotations
@@ -50,6 +55,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--n_layer", type=int, default=6, help="Number of hidden layers.")
     parser.add_argument("--dim", type=int, default=128, help="Size of input hidden units.")
     parser.add_argument("--batch_size", type=int, default=32, help="batch_size")
+    parser.add_argument("--dp", type=int, default=0,
+                        help="Data-parallel ranks, one card each (0 = one process)")
     parser.add_argument("--target", type=int, default=7,
                         help="Index of target for prediction")
     parser.add_argument("--cutoff_l", type=float, default=5.0, help="cutoff in local layer")
@@ -100,14 +107,23 @@ def load_molecules(args) -> tuple[list[dict], int, int]:
 
 
 def main(argv=None) -> dict:
-    """Train and evaluate; returns the final metrics."""
+    """Train and evaluate (under ``--dp``, on its ranks); returns the final
+    metrics (rank 0's)."""
+    from pamnet_tpu_torch.parallel import launch
+
     args = build_parser().parse_args(argv)
-    device = resolve_device(args.device)
+    return launch(train, args, resolve_device(args.device))
+
+
+def train(args, device, dp: int) -> dict:
+    """The training run of ``main`` on ``device``, as one rank of ``dp`` > 1
+    (the caller's process group) or alone."""
     if device.type == "cuda":
         set_matmul_precision()
 
     from pamnet_tpu_torch.data.loader import GraphLoader
     from pamnet_tpu_torch.models.pamnet import PAMNet
+    from pamnet_tpu_torch.parallel import rank
     from pamnet_tpu_torch.train.checkpoint import (export_state_dict, load_checkpoint,
                                                    save_checkpoint)
     from pamnet_tpu_torch.train.ema import ema_init
@@ -138,10 +154,11 @@ def main(argv=None) -> dict:
 
     model = PAMNet(cfg, torch.Generator().manual_seed(args.seed)).to(device)
     print("Number of model parameters:", sum(p.numel() for p in model.parameters()))
-    steps_per_epoch = max(len(train_loader), 1)
+    steps_per_epoch = max(len(train_loader) // max(dp, 1), 1)
     # The reference advances the fractional epoch by step/(len(train)/bs)
-    # (main_qm9.py:114), a float divisor distinct from the batch count.
-    frac = len(train_mols) / args.batch_size
+    # (main_qm9.py:114), a float divisor distinct from the batch count; under
+    # DP the step count is divided instead (the JAX main_qm9.py:306-312).
+    frac = len(train_mols) / args.batch_size if dp <= 1 else None
     optimizer = Optimizer(
         model.parameters(),
         warmup_exponential(args.lr, steps_per_epoch, frac_steps_per_epoch=frac),
@@ -158,31 +175,34 @@ def main(argv=None) -> dict:
         train_loader.set_rng_state(extra["loader_rng"])
         print(f"Resumed full train state from {args.resume} at step {optimizer.count}")
     save_folder = osp.join(".", args.save_dir, args.dataset)
+    writes = rank() == 0
 
     print("Start training!")
     for epoch in range(first_epoch, args.epochs):
         t0 = time.time()
-        loss_sum, ng, _ = run_epoch(model, optimizer, ema, train_loader, device, "l1")
+        loss_sum, ng, _ = run_epoch(model, optimizer, ema, train_loader, device, "l1", dp)
         train_mae = loss_sum / max(ng, 1)
         train_maes.append(train_mae)
         # Evaluation under the EMA weights (reference: main_qm9.py:29-37,120).
         ema_model.load_state_dict(ema)
-        val_mae = mae(ema_model, val_batches, device)
+        val_mae = mae(ema_model, val_batches, device, dp)
         if best_val is None or val_mae <= best_val:
-            test_mae = mae(ema_model, test_batches, device)
+            test_mae = mae(ema_model, test_batches, device, dp)
             best_val = val_mae
-            export_state_dict(ema, osp.join(save_folder, "best_model.pt"))
+            if writes:
+                export_state_dict(ema, osp.join(save_folder, "best_model.pt"))
         dt = time.time() - t0
         print(f"Epoch: {epoch + 1:03d}, Train MAE: {train_mae:.7f}, "
               f"Val MAE: {val_mae:.7f}, Test MAE: {test_mae:.7f} "
               f"({dt:.1f}s, {ng / dt:.0f} mol/s)", flush=True)
-        if args.metrics_csv:
+        if args.metrics_csv and writes:
             log_csv(args.metrics_csv, dict(
                 epoch=epoch + 1, train_mae=train_mae, val_mae=val_mae,
                 test_mae=test_mae, seconds=round(dt, 2), mol_per_sec=round(ng / dt, 1)))
-        save_checkpoint(osp.join(save_folder, "last.ckpt"), model, optimizer, ema, extra=dict(
-            epoch=epoch + 1, best_val_mae=best_val, test_mae=test_mae,
-            loader_rng=train_loader.rng_state()))
+        if writes:
+            save_checkpoint(osp.join(save_folder, "last.ckpt"), model, optimizer, ema, extra=dict(
+                epoch=epoch + 1, best_val_mae=best_val, test_mae=test_mae,
+                loader_rng=train_loader.rng_state()))
     print("Best Validation MAE:", best_val)
     print("Testing MAE:", test_mae)
     return {"train_mae": train_maes, "best_val_mae": best_val, "test_mae": test_mae}

@@ -21,7 +21,9 @@ which ``--resume`` continues from bit for bit.  ``--device`` defaults to
 integer tables only and the step derives the geometry on the device (the
 folded stage then reads a radial table computed on the card) unless
 ``--host_geometry``; ``--device_basis`` drops the host basis from the
-validation batches too.
+validation batches too.  ``--dp N`` trains data-parallel on N ranks, one
+card each (on the CPU over gloo), N batches a step; rank 0 alone prints
+and writes the files.
 """
 
 from __future__ import annotations
@@ -50,6 +52,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--n_layer", type=int, default=2, help="Number of hidden layers.")
     parser.add_argument("--dim", type=int, default=64, help="Size of input hidden units.")
     parser.add_argument("--batch_size", type=int, default=8, help="batch_size")
+    parser.add_argument("--dp", type=int, default=0,
+                        help="Data-parallel ranks, one card each (0 = one process)")
     parser.add_argument("--cutoff_l", type=float, default=2.6, help="cutoff in local layer")
     parser.add_argument("--cutoff_g", type=float, default=20.0, help="cutoff in global layer")
     parser.add_argument("--flow", type=str, default="target_to_source",
@@ -106,14 +110,23 @@ def load_structures(args) -> tuple[list[dict], list[dict]]:
 
 
 def main(argv=None) -> dict:
-    """Train and validate; returns the per-epoch losses and the best one."""
+    """Train and validate (under ``--dp``, on its ranks); returns the
+    per-epoch losses and the best one (rank 0's)."""
+    from pamnet_tpu_torch.parallel import launch
+
     args = build_parser().parse_args(argv)
-    device = resolve_device(args.device)
+    return launch(train, args, resolve_device(args.device))
+
+
+def train(args, device, dp: int) -> dict:
+    """The training run of ``main`` on ``device``, as one rank of ``dp`` > 1
+    (the caller's process group) or alone."""
     if device.type == "cuda":
         set_matmul_precision()
 
     from pamnet_tpu_torch.data.loader import GraphLoader
     from pamnet_tpu_torch.models.pamnet import PAMNet
+    from pamnet_tpu_torch.parallel import rank
     from pamnet_tpu_torch.train.checkpoint import (export_state_dict, load_checkpoint,
                                                    save_checkpoint)
     from pamnet_tpu_torch.train.loop import Optimizer, log_csv, run_epoch, smooth_l1
@@ -145,29 +158,32 @@ def main(argv=None) -> dict:
 
     best_path = osp.join(".", args.save_dir, BEST_NAME)
     last_path = osp.join(".", args.save_dir, LAST_NAME)
+    writes = rank() == 0
     print("Start training!")
     train_losses, val_losses = [], []
     for epoch in range(first_epoch, args.epochs):
         t0 = time.time()
-        run_epoch(model, optimizer, None, train_loader, device, "smooth_l1")
+        run_epoch(model, optimizer, None, train_loader, device, "smooth_l1", dp)
         # Both losses are evaluated after the epoch, as the JAX package's
         # main_rna_puzzles.py does.
-        train_loss = smooth_l1(model, train_loader.in_order(), device)
-        val_loss = smooth_l1(model, val_loader, device)
+        train_loss = smooth_l1(model, train_loader.in_order(), device, dp)
+        val_loss = smooth_l1(model, val_loader, device, dp)
         dt = time.time() - t0
         print(f"Epoch: {epoch + 1:03d}, Train Loss: {train_loss:.7f}, "
               f"Val Loss: {val_loss:.7f} ({dt:.1f}s)", flush=True)
         train_losses.append(train_loss)
         val_losses.append(val_loss)
-        if args.metrics_csv:
+        if args.metrics_csv and writes:
             log_csv(args.metrics_csv, dict(epoch=epoch + 1, train_loss=train_loss,
                                             val_loss=val_loss, seconds=round(dt, 2)))
         if best_val_loss is None or val_loss < best_val_loss:
             best_val_loss = val_loss
-            export_state_dict(model.state_dict(), best_path)
-        save_checkpoint(last_path, model, optimizer, extra=dict(
-            epoch=epoch + 1, best_val_loss=best_val_loss,
-            loader_rng=train_loader.rng_state()))
+            if writes:
+                export_state_dict(model.state_dict(), best_path)
+        if writes:
+            save_checkpoint(last_path, model, optimizer, extra=dict(
+                epoch=epoch + 1, best_val_loss=best_val_loss,
+                loader_rng=train_loader.rng_state()))
     return {"train_loss": train_losses, "val_loss": val_losses,
             "best_val_loss": best_val_loss, "best_path": best_path,
             "last_path": last_path}

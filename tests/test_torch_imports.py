@@ -45,9 +45,9 @@ def test_scan_sees_forbidden_imports(tmp_path):
 
 
 def test_scan_covers_every_module_of_the_port():
-    """The training modules, the three training entry points, the bench and
-    the graph-construction and geometry modules are among the scanned
-    files."""
+    """The training modules, the three training entry points, the bench,
+    the graph-construction and geometry modules, the artifact reader and
+    the data-parallel modules are among the scanned files."""
     scanned = {str(p.relative_to(ROOT)) for p in FILES}
     for rel in ("pamnet_tpu_torch/train/loop.py", "pamnet_tpu_torch/train/ema.py",
                 "pamnet_tpu_torch/train/schedules.py", "pamnet_tpu_torch/main_qm9.py",
@@ -57,5 +57,7 @@ def test_scan_covers_every_module_of_the_port():
                 "pamnet_tpu_torch/main_pdbbind.py", "pamnet_tpu_torch/bench.py",
                 "pamnet_tpu_torch/metrics.py", "pamnet_tpu_torch/data/native.py",
                 "pamnet_tpu_torch/ops/neighbors.py", "pamnet_tpu_torch/models/device_graph.py",
-                "pamnet_tpu_torch/ops/basis.py", "chip_smoke.py"):
+                "pamnet_tpu_torch/ops/basis.py", "pamnet_tpu_torch/data/torchpickle.py",
+                "pamnet_tpu_torch/parallel/__init__.py", "pamnet_tpu_torch/parallel/dp.py",
+                "chip_smoke.py"):
         assert rel in scanned, rel
