@@ -177,7 +177,22 @@ Phases, each printing one JSON line:
      spawned on the one card over gloo, the replicas bit for bit equal and
      the summed gradients within the per-tensor rule of one process on the
      union batch; ``main_qm9 --dp 2`` on a one-card machine raises;
- 23. kernels: one line listing every kernel with its numbers (the role
+ 23. raw_data: the data-preparation path into training, each driver
+     in-process: a raw PDBbind tree (mol2 files and the index, written by
+     ``data/synthetic.py::write_raw_pdbbind``) through ``python -m
+     pamnet_tpu_torch.preprocess_pdbbind``, then ``main_pdbbind`` at the
+     README recipe (dim 128, 3 layers, batch 32) for an epoch without the
+     structure cache, with it cold and warm: the warm run builds no chunk,
+     the three runs' step losses and parameters are bit for bit equal, a
+     step launches what phase 10's step launches; RNA-Puzzles candidate
+     PDB files through ``preprocess_rna_puzzles`` into ``main_rna_puzzles``
+     at the published recipe (folded) cold and warm, alike, and
+     ``inference_rna_puzzles`` on the preprocessed ``val`` split; ``main_qm9
+     --synthetic`` at the recipe with ``--structure_cache --cache_workers 2``
+     cold and warm, alike, and a ``--trace_dir`` run whose Chrome trace
+     names the port's kernels; seconds a complex and a structure of the
+     preprocessors, the loaders' seconds and chunks built of every run;
+ 24. kernels: one line listing every kernel with its numbers (the role
      swap alone and gather_product are off the main paths since the fused
      role swap: 0 launches, asserted; they and the split group sum have no
      bfloat16 version).
@@ -202,6 +217,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1542,7 +1558,13 @@ def main() -> int:
     qm9_preprocessed_phase(args, emit)
     dp_launches = dp_phase(args, qm9_data, train_launches, reset_counts, read_counts, emit)
 
-    # ---- 20. every kernel of the paths, with its numbers ----
+    # ---- 23. raw files through the preprocessors and the structure cache ----
+    pdb_steps = len(pdbbind_data[0])
+    raw_launches = raw_data_phase(args, rna_mols, {k: v / pdb_steps for k, v in
+                                                   pdb_launches.items()},
+                                  reset_counts, read_counts, emit)
+
+    # ---- 24. every kernel of the paths, with its numbers ----
     # Each kernel's top-level numbers are those of one main-path case: the
     # folded t2 triplet sum (kernel A's, on random data), kernel B's t2 sum
     # by center edge on the scoring batch, the global message, its sum by
@@ -1558,8 +1580,9 @@ def main() -> int:
     # kernels without a bfloat16 version; kernel B's: its t2 sum on the
     # scoring batch).  Launches add the serving, the QM9, RNA, PDBbind and
     # PAMNet_s training main paths, the derive and device_graph steps, the
-    # QM9, PDBbind and RNA bfloat16 training paths, the CSV driver's runs and
-    # the one-rank data-parallel steps;
+    # QM9, PDBbind and RNA bfloat16 training paths, the CSV driver's runs,
+    # the one-rank data-parallel steps and the first run of each raw-data
+    # path (raw_pdbbind, raw_rna, raw_qm9);
     # group_sum counts its calls, of either kernel, and group_sum_split the
     # split kernel's.
     table = [
@@ -1598,7 +1621,8 @@ def main() -> int:
                "pdbbind_train": pdb_launches, "qm9_s_train": s_launches,
                "derive_train": derive_launches, "device_graph_train": graph_launches,
                "qm9_bf16_train": qm9_bf16_launches, "pdbbind_bf16_train": pdb_bf16_launches,
-               "rna_bf16": rna_bf16_launches, "rna_csv": csv_launches, "dp_train": dp_launches}
+               "rna_bf16": rna_bf16_launches, "rna_csv": csv_launches, "dp_train": dp_launches,
+               **raw_launches}
 
     def first_case(path_cases, name):
         if name not in path_cases:
@@ -3793,6 +3817,270 @@ def dp_phase(args, qm9_data: tuple, train_launches: dict, reset_counts, read_cou
             raise AssertionError("main_qm9 --dp 2 ran on one card")
     emit_line(res)
     return launches
+
+
+@contextlib.contextmanager
+def _driver_probe(read_counts):
+    """Record what an in-process driver run does that its printed lines do
+    not show: each ``GraphLoader``'s construction seconds and structure-cache
+    chunks built, each training epoch's per-step losses, its wrappers'
+    launches and step count, and the model's parameters after it."""
+    import torch
+
+    from pamnet_tpu_torch.data import loader as loader_mod
+    from pamnet_tpu_torch.train import loop
+
+    rec = {"loaders": [], "epochs": []}
+    init, run_epoch = loader_mod.GraphLoader.__init__, loop.run_epoch
+
+    def timed_init(self, *a, **kw):
+        t0 = time.perf_counter()
+        init(self, *a, **kw)
+        rec["loaders"].append({"s": time.perf_counter() - t0, "built": self.cache_built})
+
+    def probed_epoch(model, *a, **kw):
+        before = read_counts()
+        out = run_epoch(model, *a, **kw)
+        torch.cuda.synchronize()
+        after = read_counts()
+        rec["epochs"].append({
+            "losses": torch.stack(out[2]).cpu(),
+            "launches": {k: after[k] - before[k] for k in after},
+            "params": {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}})
+        return out
+
+    loader_mod.GraphLoader.__init__, loop.run_epoch = timed_init, probed_epoch
+    try:
+        yield rec
+    finally:
+        loader_mod.GraphLoader.__init__, loop.run_epoch = init, run_epoch
+
+
+def _run_driver(main, argv: list[str], read_counts) -> tuple[dict, str]:
+    """``main(argv)`` in-process with its stdout captured, under
+    ``_driver_probe``: (the probe's record with the run's seconds and return
+    value, the printed text)."""
+    out = io.StringIO()
+    with _driver_probe(read_counts) as rec, contextlib.redirect_stdout(out):
+        t0 = time.perf_counter()
+        rec["result"] = main(argv)
+        rec["s"] = time.perf_counter() - t0
+    return rec, out.getvalue()
+
+
+def _same_runs(runs: dict, what: str) -> None:
+    """Every run's per-step losses and final parameters bit for bit the
+    first run's, and the same launches."""
+    import torch
+
+    (first, a), *rest = runs.items()
+    for name, b in rest:
+        for ea, eb in zip(a["epochs"], b["epochs"], strict=True):
+            if not torch.equal(ea["losses"], eb["losses"]):
+                raise AssertionError(f"{what}: {name} step losses {eb['losses']} differ from "
+                                     f"{first}'s {ea['losses']}")
+            bad = [k for k in ea["params"] if not torch.equal(ea["params"][k], eb["params"][k])]
+            if bad or ea["launches"] != eb["launches"]:
+                raise AssertionError(f"{what}: {name} differs from {first} "
+                                     f"(parameters {bad[:3]}, launches {eb['launches']})")
+
+
+def _cache_numbers(runs: dict, cold: str, warm: str, what: str) -> dict:
+    """Loader seconds and chunks built of each run; the cold run built
+    chunks, the warm one none."""
+    built = {name: sum(ld["built"] or 0 for ld in r["loaders"]) for name, r in runs.items()}
+    if not built[cold] or built[warm] != 0:
+        raise AssertionError(f"{what}: chunks built {built}")
+    return {"loader_s": {name: sum(ld["s"] for ld in r["loaders"]) for name, r in runs.items()},
+            "chunks_built": built, "driver_s": {name: r["s"] for name, r in runs.items()},
+            "step_losses": runs[cold]["epochs"][0]["losses"].tolist()}
+
+
+# Kernels that a QM9 step launches, by a piece of the symbol name the
+# profiler records, with the source that defines each.
+TRACE_KERNELS = {"SumRow": "csrc/triplet_aggregate.cu", "RoleSwapRow": "csrc/triplet_aggregate.cu",
+                 "MessageRow": "csrc/row_gather.cu", "edge_message_kernel": "csrc/row_gather.cu",
+                 "gated_sum_backward_kernel": "csrc/gather_backward.cu",
+                 "edge_message_backward_kernel": "csrc/gather_backward.cu"}
+# The raw_data phase's sizes: raw PDBbind complexes (those of them also in
+# the core set) and the synthetic QM9 molecules of its cached runs.
+RAW_COMPLEXES, RAW_CORE = 80, 16
+RAW_QM9_MOLECULES = 1280
+
+
+def raw_data_phase(args, rna_mols, pdb_step: dict, reset_counts, read_counts,
+                   emit_line) -> dict:
+    """Phase 23, raw_data: the data-preparation path into training on the
+    card, each driver in-process.
+    PDBbind: a raw tree of ``RAW_COMPLEXES`` complexes in PDBbind's layout
+    (ligand and pocket mol2 files, the index; ``RAW_CORE`` also in the core set;
+    ``data/synthetic.py::write_raw_pdbbind``) preprocessed by ``python -m
+    pamnet_tpu_torch.preprocess_pdbbind`` (seconds a complex), then
+    ``main_pdbbind`` at the README recipe (dim 128, 3 layers, batch 32, lr
+    1e-3, MSE, cutoffs 2/6 A, f32) for one epoch three times: (a) without
+    the structure cache, (b) ``--structure_cache`` cold, (c) warm.  (c)
+    builds no chunk; the three runs' per-step losses and parameters are bit
+    for bit equal, and their launches; a training step launches what the
+    PDBbind step of phase 10 launches (``pdb_step``, per step).
+    RNA: 16 training and 8 validation candidates (the geometry of the
+    scoring set's structures, with P and H records and an ``rms`` line)
+    preprocessed by ``preprocess_rna_puzzles``, then ``main_rna_puzzles`` at
+    the published recipe (dim 16, 1 layer, batch 8, lr 1e-4, folded: kernel
+    B forward and backward) with the cache cold and warm, checked alike, and
+    ``inference_rna_puzzles`` scoring the preprocessed ``val`` split with the
+    trained model.
+    QM9: ``main_qm9 --synthetic`` at the recipe (dim 128, 6 layers, batch 32,
+    bf16) with ``--structure_cache --cache_workers 2`` cold and warm,
+    checked alike; then one run with ``--trace_dir``, whose Chrome trace
+    must parse and name the port's kernels (``TRACE_KERNELS``).
+    Returns the launches of each path's first run (the counts set to 0 just
+    before it)."""
+    import torch
+
+    from pamnet_tpu_torch import (inference_rna_puzzles, main_pdbbind, main_qm9,
+                                  main_rna_puzzles, preprocess_pdbbind, preprocess_rna_puzzles)
+    from pamnet_tpu_torch.data.synthetic import write_raw_pdbbind, write_raw_rna_puzzles
+
+    res: dict = {"phase": "raw_data"}
+    paths: dict = {}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            # ---- PDBbind ----
+            t0 = time.perf_counter()
+            write_raw_pdbbind("PDBbind", RAW_COMPLEXES, RAW_CORE, seed=args.seed + 805)
+            gen_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                split = preprocess_pdbbind.main(["--data_dir", "PDBbind"])
+            pre_s = time.perf_counter() - t0
+            sizes = [len(m["pos"]) for m in split["train_val"] + split["test"]]
+            base = ["--data_root", "PDBbind", "--epochs", "1", "--dim", "128", "--n_layer", "3",
+                    "--batch_size", "32", "--lr", "1e-3", "--cutoff_l", "2", "--cutoff_g", "6",
+                    "--seed", str(args.seed), "--device", "cuda"]
+            runs = {}
+            for name, extra in (("uncached", []), ("cold", ["--structure_cache", "pdb_cache"]),
+                                ("warm", ["--structure_cache", "pdb_cache"])):
+                if name == "uncached":
+                    reset_counts()
+                runs[name], text = _run_driver(main_pdbbind.main,
+                                               base + extra + ["--save_dir", f"save_{name}"],
+                                               read_counts)
+                if name == "uncached":
+                    paths["raw_pdbbind"] = read_counts()
+                if not math.isfinite(runs[name]["result"]["test"][0]):
+                    raise AssertionError(f"raw PDBbind {name}: {text}")
+            _same_runs(runs, "raw PDBbind")
+            epoch = runs["uncached"]["epochs"][0]
+            steps = len(epoch["losses"])
+            per_step = {k: v / steps for k, v in epoch["launches"].items()}
+            if per_step != pdb_step:
+                raise AssertionError(f"raw PDBbind step launches {per_step}, "
+                                     f"the PDBbind step's {pdb_step}")
+            res["pdbbind"] = {
+                "complexes": RAW_COMPLEXES, "core": RAW_CORE,
+                "train_val": len(split["train_val"]), "test": len(split["test"]),
+                "atoms_min_median_max": [min(sizes), int(np.median(sizes)), max(sizes)],
+                "fixture_s": gen_s, "preprocess_s": pre_s,
+                "preprocess_s_per_complex": pre_s / RAW_COMPLEXES,
+                "steps": steps, "launches_per_step_equal_pdbbind_step": True,
+                "bitwise_equal_runs": True, **_cache_numbers(runs, "cold", "warm", "PDBbind"),
+                "test_rmse": runs["warm"]["result"]["test"][0]}
+
+            # ---- RNA-Puzzles ----
+            t0 = time.perf_counter()
+            write_raw_rna_puzzles("rna_raw", 16, 8, structures=rna_mols[:24])
+            gen_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                rsplit = preprocess_rna_puzzles.main(["--data_dir", "rna_raw",
+                                                      "--save_dir", "RNA"])
+            pre_s = time.perf_counter() - t0
+            for got, src in zip(rsplit["train"] + rsplit["val"], rna_mols[:24]):
+                # Coordinates are printed to 3 decimals: half a unit of the
+                # last one, and float32's rounding of either side.
+                if not (np.array_equal(got["z"], src["z"])
+                        and np.abs(got["pos"] - src["pos"]).max() <= 6e-4):
+                    raise AssertionError("raw RNA: a preprocessed structure differs from its source")
+            base = ["--data_root", "RNA", "--dim", "16", "--n_layer", "1", "--batch_size", "8",
+                    "--lr", "1e-4", "--epochs", "1", "--seed", str(args.seed), "--device", "cuda",
+                    "--structure_cache", "rna_cache"]
+            runs = {}
+            for name in ("cold", "warm"):
+                if name == "cold":
+                    reset_counts()
+                runs[name], _ = _run_driver(main_rna_puzzles.main,
+                                            base + ["--save_dir", f"rna_{name}"], read_counts)
+                if name == "cold":
+                    paths["raw_rna"] = read_counts()
+            _same_runs(runs, "raw RNA")
+            launches = runs["cold"]["epochs"][0]["launches"]
+            if launches["sbf_modulate"] < 2 or launches["sbf_modulate_backward"] < 2:
+                raise AssertionError(f"raw RNA: kernel B did not run folded: {launches}")
+            # The scoring driver takes RNA datasets by an "rna" name (the
+            # reference's rule): the val split's files under the name rna_val.
+            os.makedirs(os.path.join("RNA", "rna_val", "raw"))
+            for f in os.listdir(os.path.join("RNA", "val", "raw")):
+                shutil.copyfile(os.path.join("RNA", "val", "raw", f),
+                                os.path.join("RNA", "rna_val", "raw", "rna_" + f))
+            out = {}
+            with contextlib.redirect_stdout(io.StringIO()):
+                out.update(inference_rna_puzzles.main(
+                    ["--dataset", "rna_val", "--data_root", "RNA", "--batch_size", "8",
+                     "--saved_model", os.path.join("rna_warm", "pamnet_rna_best.pt"),
+                     "--device", "cuda"]))
+            with open(out["csv"]) as f:
+                rows = [ln.split(",") for ln in f.read().splitlines()[1:]]
+            tags = [r[1] for r in rows]
+            if (tags != [f"cand_{i:03d}" for i in range(8)]
+                    or not all(math.isfinite(float(r[0])) for r in rows)):
+                raise AssertionError(f"raw RNA: inference CSV {rows}")
+            res["rna"] = {"train": len(rsplit["train"]), "val": len(rsplit["val"]),
+                          "atoms": len(rsplit["train"][0]["pos"]), "fixture_s": gen_s,
+                          "preprocess_s": pre_s, "preprocess_s_per_structure": pre_s / 24,
+                          "bitwise_equal_runs": True, "launches_per_epoch": launches,
+                          **_cache_numbers(runs, "cold", "warm", "RNA"),
+                          "val_scores_head": [float(r[0]) for r in rows[:4]],
+                          "scoring_s": out["seconds"]}
+
+            # ---- QM9 ----
+            base = ["--synthetic", "--limit", str(RAW_QM9_MOLECULES), "--epochs", "1",
+                    "--seed", str(args.seed), "--device", "cuda"]
+            runs = {}
+            for name in ("cold", "warm"):
+                if name == "cold":
+                    reset_counts()
+                runs[name], _ = _run_driver(
+                    main_qm9.main, base + ["--structure_cache", "qm9_cache", "--cache_workers",
+                                           "2", "--save_dir", f"qm9_{name}"], read_counts)
+                if name == "cold":
+                    paths["raw_qm9"] = read_counts()
+            _same_runs(runs, "raw QM9")
+            res["qm9"] = {"molecules": RAW_QM9_MOLECULES, "cache_workers": 2,
+                          "bitwise_equal_runs": True,
+                          "steps": len(runs["cold"]["epochs"][0]["losses"]),
+                          **_cache_numbers(runs, "cold", "warm", "QM9")}
+            traced, _ = _run_driver(main_qm9.main, base[:2] + ["160"] + base[3:]
+                                    + ["--trace_dir", "trace", "--save_dir", "qm9_trace"],
+                                    read_counts)
+            (name,) = os.listdir("trace")
+            t0 = time.perf_counter()
+            with open(os.path.join("trace", name)) as f:
+                events = json.load(f)["traceEvents"]
+            kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+            found = {k: sum(k in n for n in kernels) for k in TRACE_KERNELS}
+            if not all(found.values()):
+                raise AssertionError(f"the trace names no launch of {found}")
+            res["qm9"]["trace"] = {"file": name, "bytes": os.path.getsize(os.path.join("trace", name)),
+                                   "events": len(events), "kernel_events": len(kernels),
+                                   "port_kernel_events": found, "parse_s": time.perf_counter() - t0,
+                                   "run_s": traced["s"]}
+        finally:
+            os.chdir(cwd)
+    torch.cuda.synchronize()
+    emit_line(res)
+    return paths
 
 
 def _check_names(res: dict, names: list[str]) -> dict:

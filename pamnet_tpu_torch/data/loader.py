@@ -12,12 +12,11 @@ import dataclasses
 import numpy as np
 
 from pamnet_tpu_torch.config import atom_type_count, embeds_atom_types
+from pamnet_tpu_torch.data import structcache
 from pamnet_tpu_torch.data.batch import (
     CollatePlan,
     PadSizes,
-    attach_basis,
     collate_structures,
-    precompute_structure,
     structure_counts,
 )
 
@@ -50,6 +49,13 @@ class GraphLoader:
       precompute_basis: build the host f64 spherical basis
         (``attach_basis``); without it the model derives the basis from the
         host distances (JAX ``main_qm9.py --device_basis``).
+      cache_dir: serve the structures from the on-disk structure cache
+        there (``data/structcache.py``, the JAX package's format), building
+        and writing the chunks it lacks; ``cache_built`` is then the number
+        of chunks this loader built.  None builds every structure in
+        process.
+      cache_workers: processes that build missing chunks (0 or 1: in
+        process).
     """
 
     def __init__(self, mols: list[dict], dataset_kind: str, cutoff_l: float,
@@ -59,7 +65,8 @@ class GraphLoader:
                  envelope_exponent: int = 5, shuffle: bool = False, seed: int = 0,
                  drop_last: bool = False, build_perms: bool = False,
                  variant: str = "full", wire_geometry: str = "host",
-                 precompute_basis: bool = True):
+                 precompute_basis: bool = True, cache_dir: str | None = None,
+                 cache_workers: int = 0):
         if not mols:
             raise ValueError("GraphLoader needs at least one molecule")
         if ladder_pads not in (False, True, "exact"):
@@ -79,11 +86,18 @@ class GraphLoader:
                                 if embeds_atom_types(dataset_kind) else None)
         self._rng = np.random.default_rng(seed)
         self._align = align
-        self.structs = [precompute_structure(m, dataset_kind, cutoff_l, cutoff_g, variant)
-                        for m in mols]
-        if precompute_basis:
-            for s in self.structs:
-                attach_basis(s, cutoff_l, num_spherical, num_radial, envelope_exponent)
+        spec = structcache.BuildSpec(dataset_kind, cutoff_l, cutoff_g, variant,
+                                     precompute_basis, num_spherical, num_radial,
+                                     envelope_exponent)
+        self.cache_built = None
+        if cache_dir is not None:
+            # Cold builds at scale take minutes: show their progress.
+            self.structs = structcache.load_or_build(mols, spec, cache_dir,
+                                                     num_workers=cache_workers,
+                                                     progress=len(mols) >= 10_000)
+            self.cache_built = structcache.load_or_build.built
+        else:
+            self.structs = structcache.build_structures(mols, spec)
         self._counts = np.array([structure_counts(s) for s in self.structs])
         b = min(batch_size, len(self.structs))
         n, eg, el, t2, t1 = np.sort(self._counts, axis=0)[-b:].sum(axis=0)
@@ -174,6 +188,33 @@ def add_geometry_flags(parser) -> None:
     parser.add_argument("--device_basis", action="store_true",
                         help="Evaluation batches skip the host spherical basis too: "
                              "the model computes it on the device from the distances")
+
+
+def add_cache_flags(parser, workers: bool = False) -> None:
+    """The JAX training entry points' structure-cache flags, with their
+    defaults (``--cache_workers`` on ``main_qm9`` only, as in JAX)."""
+    parser.add_argument("--structure_cache", type=str, default="",
+                        help="Directory for the on-disk precomputed-structure cache "
+                             "(content-addressed, resumable; data/structcache.py)")
+    if workers:
+        parser.add_argument("--cache_workers", type=int, default=0,
+                            help="Process-pool size for building missing "
+                                 "structure-cache chunks (0 = in-process)")
+
+
+def cache_options(args) -> dict:
+    """``GraphLoader`` keyword arguments of the structure-cache flags, for
+    every loader of a driver (train, val and test)."""
+    return dict(cache_dir=args.structure_cache or None,
+                cache_workers=getattr(args, "cache_workers", 0))
+
+
+def build_note(seconds: float, loaders) -> str:
+    """The drivers' note on their loaders' construction: its seconds and,
+    where the loaders read the structure cache, the chunks they built."""
+    built = [ld.cache_built for ld in loaders if ld.cache_built is not None]
+    cache = f", {sum(built)} structure-cache chunks built" if built else ""
+    return f"({seconds:.1f}s structure build{cache})"
 
 
 def geometry_options(args) -> tuple[dict, dict]:

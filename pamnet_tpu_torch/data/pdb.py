@@ -1,7 +1,12 @@
-"""Minimal PDB parser: element symbols and coordinates of ATOM/HETATM
-records in file order (the port's copy of ``pamnet_tpu/data/pdb.py``)."""
+"""Minimal PDB parser for the RNA-Puzzles pipeline (the port's copy of
+``pamnet_tpu/data/pdb.py``): element symbols and coordinates of ATOM/HETATM
+records in file order, and the ``rms`` score line that RNA-Puzzles candidate
+files carry after the first TER record (reference:
+preprocess_rna_puzzles.py:33-42)."""
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -19,14 +24,35 @@ def _element(line: str) -> str:
     return stem[:1].capitalize()
 
 
-def parse_pdb_atoms(lines) -> tuple[list[str], np.ndarray]:
-    """(elements, (N, 3) float64 coords) of the ATOM/HETATM records among
-    ``lines`` (an open PDB file, or ``text.splitlines()``), in file order."""
+def parse_pdb_atoms(source) -> tuple[list[str], np.ndarray]:
+    """(elements, (N, 3) float64 coords) of the ATOM/HETATM records, in file
+    order, of ``source``: a path (as the JAX package's ``parse_pdb_atoms``
+    takes), or lines (an open PDB file, or ``text.splitlines()``)."""
+    if isinstance(source, (str, os.PathLike)):
+        with open(source) as f:
+            return parse_pdb_atoms(f)
     elems, coords = [], []
-    for line in lines:
+    for line in source:
         if line.startswith(("ATOM", "HETATM")):
             elems.append(_element(line))
             coords.append(
                 (float(line[30:38]), float(line[38:46]), float(line[46:54]))
             )
     return elems, np.asarray(coords, dtype=np.float64).reshape(-1, 3)
+
+
+def parse_rms_label(path: str) -> float:
+    """RMSD label from the ``rms`` line after the first TER record
+    (reference: preprocess_rna_puzzles.py:33-42)."""
+    with open(path) as f:
+        for line in f:
+            if "TER" in line:
+                break
+        cont = None
+        for line in f:
+            cont = line.split()
+            if cont and cont[0] == "rms":
+                break
+    if not cont or cont[0] != "rms":
+        raise ValueError(f"no rms record found in {path}")
+    return float(cont[-1])

@@ -13,8 +13,9 @@ the bond list, all in the gdb9 SDF text.  As in the reference:
 The raw files (``gdb9.sdf``, ``gdb9.sdf.csv``, ``uncharacterized.txt``) are
 read from ``<root>/raw``, or, where they are absent, PyG's preprocessed
 artifact (``processed/data_v2.pt`` or ``raw/qm9_v2.pt``, the reference's
-fallback, qm9_dataset.py:156-160); nothing is fetched.  Molecules are cached
-to an ``.npz`` under ``<root>/processed``.
+fallback, qm9_dataset.py:156-160), or, where the caller allows it, downloaded
+from the reference's URLs (``download``).  Molecules are cached to an
+``.npz`` under ``<root>/processed``.
 """
 
 from __future__ import annotations
@@ -133,6 +134,43 @@ def load_skip_list(path: str) -> set[int]:
     return {int(x.split()[0]) - 1 for x in lines}
 
 
+# The reference's download endpoints (qm9_dataset.py:116-120).
+RAW_URL = (
+    "https://deepchemdata.s3-us-west-1.amazonaws.com/datasets/"
+    "molnet_publish/qm9.zip"
+)
+RAW_URL2 = "https://ndownloader.figshare.com/files/3195404"
+PROCESSED_URL = "https://pytorch-geometric.com/datasets/qm9_v2.zip"
+
+
+def download(root: str) -> None:
+    """Fetch the QM9 raw files into ``<root>/raw`` (reference:
+    qm9_dataset.py:157-168; the JAX package's ``download``): the gdb9 zip
+    (gdb9.sdf + gdb9.sdf.csv) and the uncharacterized list.  Raises
+    ConnectionError with staging instructions when the host has no
+    egress."""
+    import urllib.error
+    import urllib.request
+    import zipfile
+
+    raw = os.path.join(root, "raw")
+    os.makedirs(raw, exist_ok=True)
+    try:
+        zip_path = os.path.join(raw, "qm9.zip")
+        urllib.request.urlretrieve(RAW_URL, zip_path)
+        with zipfile.ZipFile(zip_path) as zf:
+            zf.extractall(raw)
+        os.unlink(zip_path)
+        urllib.request.urlretrieve(RAW_URL2, os.path.join(raw, "uncharacterized.txt"))
+    except (urllib.error.URLError, OSError) as e:
+        raise ConnectionError(
+            f"QM9 download failed ({e}). If this host has no network egress, "
+            f"stage gdb9.sdf / gdb9.sdf.csv / uncharacterized.txt (or the "
+            f"preprocessed data_v2.pt / qm9_v2.pt) under {raw} manually "
+            f"(sources: {RAW_URL} and {RAW_URL2})."
+        ) from e
+
+
 def load_qm9_preprocessed(path: str) -> list[dict]:
     """Molecules of PyG's preprocessed QM9 artifact (``data_v2.pt`` /
     ``qm9_v2.pt``: a ``torch.save`` of ``(Data, slices)`` whose collated
@@ -153,13 +191,15 @@ def load_qm9_preprocessed(path: str) -> list[dict]:
             for i in range(len(sx) - 1)]
 
 
-def load_qm9(root: str, cache: bool = True) -> list[dict]:
+def load_qm9(root: str, cache: bool = True, allow_download: bool = False) -> list[dict]:
     """QM9 as molecule dicts {z, pos, edge_index, y (19,)}, from the first
     source that is there, in the JAX package's order: the npz cache, the raw
     SDF files under ``<root>/raw``, ``<root>/processed/data_v2.pt``,
-    ``<root>/raw/qm9_v2.pt``.  Molecules read from a source other than the
-    cache are cached.  Raises FileNotFoundError with staging instructions
-    when there is none."""
+    ``<root>/raw/qm9_v2.pt``, then, with ``allow_download``, the raw files
+    downloaded (``download``; ConnectionError without network).  Molecules
+    read from a source other than the cache are cached.  Raises
+    FileNotFoundError with staging instructions when there is none and
+    nothing may be downloaded."""
     raw = os.path.join(root, "raw")
     cache_path = os.path.join(root, "processed", "qm9_pamnet_tpu_torch.npz")
     if cache and os.path.exists(cache_path):
@@ -174,14 +214,16 @@ def load_qm9(root: str, cache: bool = True) -> list[dict]:
                 if cache:
                     _save_cache(cache_path, mols)
                 return mols
-        raise FileNotFoundError(
-            f"QM9 data missing: {', '.join(missing)}, and no preprocessed "
-            f"processed/data_v2.pt or raw/qm9_v2.pt under {root}. Stage gdb9.sdf, "
-            f"gdb9.sdf.csv and uncharacterized.txt (the reference's qm9.zip "
-            f"and its uncharacterized list, qm9_dataset.py:116-120) under {raw}, "
-            f"or PyG's preprocessed data_v2.pt under {root}/processed; nothing "
-            f"is downloaded."
-        )
+        if not allow_download:
+            raise FileNotFoundError(
+                f"QM9 data missing: {', '.join(missing)}, and no preprocessed "
+                f"processed/data_v2.pt or raw/qm9_v2.pt under {root}. Stage gdb9.sdf, "
+                f"gdb9.sdf.csv and uncharacterized.txt (the reference's qm9.zip "
+                f"and its uncharacterized list, qm9_dataset.py:116-120) under {raw}, "
+                f"or PyG's preprocessed data_v2.pt under {root}/processed, or pass "
+                f"allow_download=True."
+            )
+        download(root)
     targets = load_targets(csv)
     skip = load_skip_list(unc)
     mols = []

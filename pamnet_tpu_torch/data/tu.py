@@ -95,15 +95,18 @@ class TUDataset:
         return [self[i] for i in range(len(self))]
 
 
-def write_tu_split(root: str, name: str, mols: list[dict]) -> None:
+def write_tu_split(root: str, name: str, mols: list[dict],
+                   label_fmt: str = "%.3f") -> str:
     """Write molecule dicts (``pos`` (n,3), ``y``, and ``z`` (n,) int or, for
     PDBbind, ``feat`` (n,F) float; an optional ``name``, the structure's
-    source file) as the TU files of split ``name``, as the JAX package's
-    ``tu_writer.write_tu_dataset`` writes them: coordinates and graph labels
-    to three decimals (preprocess_rna_puzzles.py:87-107), feature rows as the
+    source file) as the TU files of split ``name``, byte for byte as the JAX
+    package's ``tu_writer.write_tu_dataset`` writes them: coordinates to
+    three decimals (preprocess_rna_puzzles.py:87-107), feature rows as the
     node labels to four (preprocess_pdbbind.py:141-158), so the reader gives
-    ``feat`` = [pos | features][:, 3:] back; the names, where every molecule
-    has one, a line each in ``graph_names``."""
+    ``feat`` = [pos | features][:, 3:] back; graph labels in ``label_fmt``
+    (the PDBbind preprocessor's ``%.2f``, else three decimals); the names,
+    where every molecule has one, a line each in ``graph_names``.  Returns
+    the raw directory."""
     os.makedirs(os.path.join(root, name, "raw"), exist_ok=True)
     sizes = [len(m["pos"]) for m in mols]
     indicator = np.concatenate([np.full(k, i + 1) for i, k in enumerate(sizes)])
@@ -119,7 +122,8 @@ def write_tu_split(root: str, name: str, mols: list[dict]) -> None:
         np.savetxt(_path(root, name, "node_labels"),
                    np.concatenate([np.asarray(m["z"]) for m in mols]), fmt="%d")
     np.savetxt(_path(root, name, "graph_labels"),
-               np.asarray([float(m["y"]) for m in mols]), fmt="%.3f")
+               np.asarray([float(m["y"]) for m in mols]), fmt=label_fmt)
     if mols and all("name" in m for m in mols):
         with open(_path(root, name, "graph_names"), "w") as f:
             f.write("".join(f"{m['name']}\n" for m in mols))
+    return os.path.join(root, name, "raw")

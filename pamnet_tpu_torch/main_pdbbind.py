@@ -10,7 +10,8 @@ signed pool E(complex) - E(pocket) - E(ligand)), MSE, Adam with the
 MultiStepLR schedule (x0.2 every 50 epochs), no clip, no EMA, in float32 with
 TF32 off (``--compute_dtype bfloat16``: mixed precision, as the JAX bench's
 PDBbind line trains).  Data: the TU splits ``train_val`` and ``test`` of ``--data_root``
-(default ``./data/<dataset>``), or ``--synthetic N`` generated complexes at
+(default ``./data/<dataset>``; ``python -m pamnet_tpu_torch.preprocess_pdbbind``
+writes them from PDBbind's mol2 files), or ``--synthetic N`` generated complexes at
 the scale of preprocessed PDBbind graphs (260-420 atoms; the last quarter
 tests).  ``train_val`` is shuffled with the seed and split 90/10, the
 validation share rounded up (reference main_pdbbind.py:62-66).  After each
@@ -22,7 +23,9 @@ names); every epoch writes the full training state to
 bit.  ``--device`` defaults to ``cuda`` and raises without a card.
 Training batches derive their geometry on the device unless
 ``--host_geometry``; ``--device_basis`` drops the host basis from the
-evaluation batches too.  ``--dp N`` trains data-parallel on N ranks, one
+evaluation batches too.  ``--structure_cache DIR`` serves the built
+structures of every split from an on-disk cache (``data/structcache.py``,
+the JAX package's format).  ``--dp N`` trains data-parallel on N ranks, one
 card each (on the CPU over gloo), N batches a step; rank 0 alone prints
 and writes the files.
 """
@@ -39,7 +42,8 @@ import numpy as np
 import torch
 
 from pamnet_tpu_torch.config import PAMNetConfig, resolve_device, set_matmul_precision
-from pamnet_tpu_torch.data.loader import add_geometry_flags, geometry_options
+from pamnet_tpu_torch.data.loader import (add_cache_flags, add_geometry_flags, build_note,
+                                          cache_options, geometry_options)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -77,6 +81,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default; raises without a card) or cpu")
     add_geometry_flags(parser)
+    add_cache_flags(parser)
     return parser
 
 
@@ -143,7 +148,7 @@ def train(args, device, dp: int) -> dict:
                        cutoff_l=args.cutoff_l, cutoff_g=args.cutoff_g,
                        compute_dtype=args.compute_dtype)
     common = dict(dataset_kind="pdbbind", cutoff_l=cfg.cutoff_l, cutoff_g=cfg.cutoff_g,
-                  batch_size=args.batch_size)
+                  batch_size=args.batch_size, **cache_options(args))
     train_geometry, eval_geometry = geometry_options(args)
     train_loader = GraphLoader(train_mols, shuffle=True, seed=args.seed, build_perms=True,
                                **common, **train_geometry)
@@ -151,7 +156,7 @@ def train(args, device, dp: int) -> dict:
     test_loader = GraphLoader(test_mols, **common, **eval_geometry)
     print(f"Data loaded! train={len(train_mols)} val={len(val_mols)} "
           f"test={len(test_mols)} pads={train_loader.pads} "
-          f"({time.time() - t_load:.1f}s structure build)")
+          + build_note(time.time() - t_load, (train_loader, val_loader, test_loader)))
 
     model = PAMNet(cfg, torch.Generator().manual_seed(args.seed)).to(device)
     print("Number of model parameters:", sum(p.numel() for p in model.parameters()))

@@ -23,7 +23,12 @@ reference's ``state_dict`` names); every epoch writes the full training state
 to ``<save_dir>/<dataset>/last.ckpt``, which ``--resume`` continues from bit
 for bit.  Without ``--synthetic`` the molecules come from
 ``./data/<dataset>``: its raw SDF files or PyG's preprocessed
-``processed/data_v2.pt`` / ``raw/qm9_v2.pt`` (``data/qm9.py::load_qm9``).
+``processed/data_v2.pt`` / ``raw/qm9_v2.pt`` (``data/qm9.py::load_qm9``),
+downloaded where none is there (a host without network raises with staging
+instructions).  ``--structure_cache DIR`` serves the built structures from
+an on-disk cache (``data/structcache.py``, the JAX package's format;
+``--cache_workers N`` builds its missing chunks in N processes);
+``--trace_dir DIR`` writes a profiler trace of epoch 0 (``profiling.py::trace``).
 ``--dp N`` trains data-parallel on N ranks, one card each
 (``parallel/``, ``train/loop.py::dp_train_step``; on the CPU over gloo), N
 batches a step; rank 0 alone prints and writes the files.
@@ -32,6 +37,7 @@ batches a step; rank 0 alone prints and writes the files.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os.path as osp
 import sys
 import time
@@ -40,7 +46,8 @@ import numpy as np
 import torch
 
 from pamnet_tpu_torch.config import PAMNetConfig, resolve_device, set_matmul_precision
-from pamnet_tpu_torch.data.loader import add_geometry_flags, geometry_options
+from pamnet_tpu_torch.data.loader import (add_cache_flags, add_geometry_flags, build_note,
+                                          cache_options, geometry_options)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -81,7 +88,11 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Rebuild the radius graph from the positions on the device "
                              "in every forward (the reference's per-forward "
                              "construction, models.py:110)")
+    parser.add_argument("--trace_dir", type=str, default="",
+                        help="Capture a torch.profiler trace (CPU and CUDA activities, "
+                             "Chrome trace JSON) of epoch 0 into this directory")
     add_geometry_flags(parser)
+    add_cache_flags(parser, workers=True)
     return parser
 
 
@@ -97,7 +108,11 @@ def load_molecules(args) -> tuple[list[dict], int, int]:
         return mols, int(len(mols) * 0.8), int(len(mols) * 0.1)
     from pamnet_tpu_torch.data.qm9 import load_qm9, select_target
 
-    mols = select_target(load_qm9(osp.join(".", "data", args.dataset)), args.target)
+    # allow_download: the reference downloads missing raw files
+    # (qm9_dataset.py:156-168); on a host without egress it raises with
+    # staging instructions.
+    mols = select_target(load_qm9(osp.join(".", "data", args.dataset), allow_download=True),
+                         args.target)
     order = np.random.default_rng(args.seed).permutation(len(mols))
     mols = [mols[i] for i in order]
     if args.limit:
@@ -124,6 +139,7 @@ def train(args, device, dp: int) -> dict:
     from pamnet_tpu_torch.data.loader import GraphLoader
     from pamnet_tpu_torch.models.pamnet import PAMNet
     from pamnet_tpu_torch.parallel import rank
+    from pamnet_tpu_torch.profiling import trace
     from pamnet_tpu_torch.train.checkpoint import (export_state_dict, load_checkpoint,
                                                    save_checkpoint)
     from pamnet_tpu_torch.train.ema import ema_init
@@ -141,16 +157,20 @@ def train(args, device, dp: int) -> dict:
 
     t_load = time.time()
     common = dict(dataset_kind="qm9", cutoff_l=cfg.cutoff_l, cutoff_g=cfg.cutoff_g,
-                  batch_size=args.batch_size, variant=cfg.variant)
+                  batch_size=args.batch_size, variant=cfg.variant, **cache_options(args))
     train_geometry, eval_geometry = geometry_options(args)
     train_loader = GraphLoader(train_mols, shuffle=True, seed=args.seed, drop_last=True,
                                build_perms=True, **common, **train_geometry)
     # Evaluation composition is free: the metric is a mean over molecules.
-    val_batches = list(GraphLoader(val_mols, **common, **eval_geometry))
-    test_batches = list(GraphLoader(test_mols, **common, **eval_geometry))
+    val_loader = GraphLoader(val_mols, **common, **eval_geometry)
+    test_loader = GraphLoader(test_mols, **common, **eval_geometry)
+    val_batches, test_batches = list(val_loader), list(test_loader)
+    note = build_note(time.time() - t_load, (train_loader, val_loader, test_loader))
+    # Only the collated batches are kept: the evaluation loaders' structures
+    # and plans are freed here.
+    del val_loader, test_loader
     print(f"Data loaded! train={len(train_mols)} val={len(val_mols)} "
-          f"test={len(test_mols)} pads={train_loader.pads} "
-          f"({time.time() - t_load:.1f}s structure build)")
+          f"test={len(test_mols)} pads={train_loader.pads} " + note)
 
     model = PAMNet(cfg, torch.Generator().manual_seed(args.seed)).to(device)
     print("Number of model parameters:", sum(p.numel() for p in model.parameters()))
@@ -179,8 +199,12 @@ def train(args, device, dp: int) -> dict:
 
     print("Start training!")
     for epoch in range(first_epoch, args.epochs):
+        # --trace_dir: a trace of epoch 0's training (the JAX main_qm9.py's span).
+        tracing = (trace(args.trace_dir, device, f"epoch0_rank{rank()}")
+                   if args.trace_dir and epoch == 0 else contextlib.nullcontext())
         t0 = time.time()
-        loss_sum, ng, _ = run_epoch(model, optimizer, ema, train_loader, device, "l1", dp)
+        with tracing:
+            loss_sum, ng, _ = run_epoch(model, optimizer, ema, train_loader, device, "l1", dp)
         train_mae = loss_sum / max(ng, 1)
         train_maes.append(train_mae)
         # Evaluation under the EMA weights (reference: main_qm9.py:29-37,120).

@@ -11,7 +11,8 @@ geometry, sums and pool).  At the published width (dim 16) the
 spherical-basis MLP trains folded through the triplet gather, in
 ``sbf_modulate`` and its backward kernel, in either type.
 Data: the TU files of ``--data_root`` (default ``./data/<dataset>``, splits
-``train`` and ``val``) where they are there, or ``--synthetic N`` generated
+``train`` and ``val``; ``python -m pamnet_tpu_torch.preprocess_rna_puzzles``
+writes them from candidate PDB files) where they are there, or ``--synthetic N`` generated
 RNA-like structures (the last quarter validates).  Each best validation loss
 writes ``<save_dir>/pamnet_rna_best.pt`` under the reference's ``state_dict``
 names, which ``python -m pamnet_tpu_torch.serve --saved_model`` loads; every
@@ -21,7 +22,9 @@ which ``--resume`` continues from bit for bit.  ``--device`` defaults to
 integer tables only and the step derives the geometry on the device (the
 folded stage then reads a radial table computed on the card) unless
 ``--host_geometry``; ``--device_basis`` drops the host basis from the
-validation batches too.  ``--dp N`` trains data-parallel on N ranks, one
+validation batches too.  ``--structure_cache DIR`` serves the built
+structures from an on-disk cache (``data/structcache.py``, the JAX
+package's format).  ``--dp N`` trains data-parallel on N ranks, one
 card each (on the CPU over gloo), N batches a step; rank 0 alone prints
 and writes the files.
 """
@@ -36,7 +39,8 @@ import time
 import torch
 
 from pamnet_tpu_torch.config import PAMNetConfig, resolve_device, set_matmul_precision
-from pamnet_tpu_torch.data.loader import add_geometry_flags, geometry_options
+from pamnet_tpu_torch.data.loader import (add_cache_flags, add_geometry_flags, build_note,
+                                          cache_options, geometry_options)
 
 BEST_NAME = "pamnet_rna_best.pt"
 LAST_NAME = "pamnet_rna_last.ckpt"
@@ -79,6 +83,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default; raises without a card) or cpu")
     add_geometry_flags(parser)
+    add_cache_flags(parser)
     return parser
 
 
@@ -140,11 +145,13 @@ def train(args, device, dp: int) -> dict:
                        cutoff_g=args.cutoff_g, flow=args.flow,
                        compute_dtype=args.compute_dtype)
     common = dict(dataset_kind="rna", cutoff_l=cfg.cutoff_l, cutoff_g=cfg.cutoff_g,
-                  batch_size=args.batch_size)
+                  batch_size=args.batch_size, **cache_options(args))
     train_geometry, eval_geometry = geometry_options(args)
+    t_load = time.time()
     train_loader = GraphLoader(train_mols, shuffle=True, seed=args.seed,
                                build_perms=True, **common, **train_geometry)
     val_loader = GraphLoader(val_mols, **common, **eval_geometry)
+    print("Structures", build_note(time.time() - t_load, (train_loader, val_loader)))
 
     model = PAMNet(cfg, torch.Generator().manual_seed(args.seed)).to(device)
     print("Number of model parameters:", sum(p.numel() for p in model.parameters()))

@@ -2,10 +2,13 @@
 event-timed mean of a call, the card's own time of the kernels it launches,
 which records are work on the card, and a profiled run's kernel launches
 and device time by kernel name.  ``chip_smoke.py`` and ``bench.py`` time
-and read their profiles through these."""
+and read their profiles through these.  ``trace`` writes a profiled span
+(``main_qm9 --trace_dir``: epoch 0) as a Chrome trace."""
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 
 import torch
@@ -90,3 +93,32 @@ def kernel_totals(events, calls: int) -> dict:
     return {"kernel_launches": sum(r[0] for r in by_name.values()),
             "device_ms": sum(r[1] for r in by_name.values()),
             "by_name": dict(sorted(by_name.items()))}
+
+
+@contextlib.contextmanager
+def trace(log_dir: str, device, name: str = "trace"):
+    """Profile the span with ``torch.profiler`` (CPU activity, and CUDA
+    activity where ``device`` is a card) and write it to
+    ``<log_dir>/<name>.json`` as a Chrome trace (the JAX package's
+    ``utils/profiling.py::trace`` writes a device trace of the same span).
+    On a card the CUDA activity is required: where the profiler cannot
+    trace the card (no CUPTI), or recorded no kernel, it raises rather than
+    write a trace of the host alone."""
+    from torch.profiler import ProfilerActivity, profile, supported_activities
+
+    cuda = torch.device(device).type == "cuda"
+    activities = [ProfilerActivity.CPU]
+    if cuda:
+        if ProfilerActivity.CUDA not in supported_activities():
+            raise RuntimeError("trace: this PyTorch cannot trace the card (no CUPTI); "
+                               "refusing to write a trace of the host alone")
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield prof
+        if cuda:
+            torch.cuda.synchronize()
+    if cuda and not any(is_kernel(ev) for ev in prof.key_averages()):
+        raise RuntimeError("trace: the profiler recorded no work on the card (CUPTI "
+                           "unavailable?); refusing to write a trace of the host alone")
+    os.makedirs(log_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(log_dir, f"{name}.json"))

@@ -32,7 +32,6 @@ from pamnet_tpu.config import PAMNetConfig as JaxConfig
 from pamnet_tpu.data.loader import GraphLoader as JaxLoader
 from pamnet_tpu.models import apply_pamnet, init_pamnet
 from pamnet_tpu_torch.config import PAMNetConfig
-from pamnet_tpu_torch.data import loader as tloader
 from pamnet_tpu_torch.data.batch import GEOMETRY_FIELDS, collate_structures, precompute_structure
 from pamnet_tpu_torch.data.loader import GraphLoader
 from pamnet_tpu_torch.data.synthetic import (pdbbind_molecule, synthetic_pdbbind_dataset,
@@ -73,8 +72,10 @@ def _batches(kind, kw, mols, geometry, build_perms=False):
 def test_derive_batches_drop_the_float_payloads(monkeypatch):
     mols = synthetic_qm9_dataset(4, seed=2)
     host = GraphLoader(mols, "qm9", 5.0, 5.0, 4, build_perms=True).collate([0, 1, 2, 3])
-    # A derive loader never builds the host basis.
-    monkeypatch.setattr(tloader, "attach_basis", lambda *a, **k: pytest.fail("host basis"))
+    # A derive loader never builds the host basis (its structures are built
+    # by structcache.build_structures, which calls batch.attach_basis).
+    monkeypatch.setattr("pamnet_tpu_torch.data.batch.attach_basis",
+                        lambda *a, **k: pytest.fail("host basis"))
     loader = GraphLoader(mols, "qm9", 5.0, 5.0, 4, build_perms=True, wire_geometry="derive")
     derive = loader.collate([0, 1, 2, 3])
     assert all("sbf_radial" not in s for s in loader.structs)

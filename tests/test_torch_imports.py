@@ -46,8 +46,10 @@ def test_scan_sees_forbidden_imports(tmp_path):
 
 def test_scan_covers_every_module_of_the_port():
     """The training modules, the three training entry points, the bench,
-    the graph-construction and geometry modules, the artifact reader and
-    the data-parallel modules are among the scanned files."""
+    the graph-construction and geometry modules, the artifact reader, the
+    data-parallel modules, the structure cache and the data-preparation
+    modules (preprocessors, mol2, SMARTS, featurizer, PDB) are among the
+    scanned files."""
     scanned = {str(p.relative_to(ROOT)) for p in FILES}
     for rel in ("pamnet_tpu_torch/train/loop.py", "pamnet_tpu_torch/train/ema.py",
                 "pamnet_tpu_torch/train/schedules.py", "pamnet_tpu_torch/main_qm9.py",
@@ -59,5 +61,9 @@ def test_scan_covers_every_module_of_the_port():
                 "pamnet_tpu_torch/ops/neighbors.py", "pamnet_tpu_torch/models/device_graph.py",
                 "pamnet_tpu_torch/ops/basis.py", "pamnet_tpu_torch/data/torchpickle.py",
                 "pamnet_tpu_torch/parallel/__init__.py", "pamnet_tpu_torch/parallel/dp.py",
+                "pamnet_tpu_torch/data/structcache.py", "pamnet_tpu_torch/data/mol2.py",
+                "pamnet_tpu_torch/data/smarts.py", "pamnet_tpu_torch/data/featurizer.py",
+                "pamnet_tpu_torch/data/pdb.py", "pamnet_tpu_torch/preprocess_pdbbind.py",
+                "pamnet_tpu_torch/preprocess_rna_puzzles.py", "pamnet_tpu_torch/profiling.py",
                 "chip_smoke.py"):
         assert rel in scanned, rel

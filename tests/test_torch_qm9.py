@@ -17,6 +17,7 @@ limit_intra_op_threads()
 
 import dataclasses
 import functools
+import os
 
 import numpy as np
 import pytest
@@ -220,3 +221,66 @@ def test_training_batch_without_perms_refuses_grad():
         batch_loss(model, tb, "l1")
     with torch.inference_mode():
         assert torch.isfinite(model(tb)).all()
+
+
+def _zip_of_raw(tmp_path):
+    """A local qm9.zip (gdb9.sdf + gdb9.sdf.csv) and uncharacterized.txt as
+    the reference's two URLs serve them, from the mini gdb9 of
+    ``tests/test_qm9.py``."""
+    import zipfile
+
+    src = tmp_path / "src"
+    _write_raw(src)
+    with zipfile.ZipFile(src / "qm9.zip", "w") as zf:
+        for name in ("gdb9.sdf", "gdb9.sdf.csv"):
+            zf.write(src / "raw" / name, name)
+    return {tqm9.RAW_URL: src / "qm9.zip", tqm9.RAW_URL2: src / "raw" / "uncharacterized.txt"}
+
+
+def _patched_urlretrieve(monkeypatch, served: dict, fetched: list):
+    import shutil
+    import urllib.request
+
+    def urlretrieve(url, filename):
+        fetched.append(url)
+        shutil.copyfile(served[url], filename)
+        return filename, None
+
+    monkeypatch.setattr(urllib.request, "urlretrieve", urlretrieve)
+
+
+def test_download_fetches_the_reference_files(tmp_path, monkeypatch):
+    """``download`` (``urlretrieve`` patched to copy local files: nothing
+    reaches the network) unpacks the zip and stores the skip list where
+    ``load_qm9`` reads them; ``allow_download`` loads them as JAX reads the
+    same raw files."""
+    served, fetched = _zip_of_raw(tmp_path), []
+    _patched_urlretrieve(monkeypatch, served, fetched)
+    assert (tqm9.RAW_URL, tqm9.RAW_URL2, tqm9.PROCESSED_URL) == \
+        (jqm9.RAW_URL, jqm9.RAW_URL2, jqm9.PROCESSED_URL)
+    tqm9.download(str(tmp_path / "a"))
+    assert fetched == [tqm9.RAW_URL, tqm9.RAW_URL2]
+    assert sorted(os.listdir(tmp_path / "a" / "raw")) == \
+        ["gdb9.sdf", "gdb9.sdf.csv", "uncharacterized.txt"]
+    with pytest.raises(FileNotFoundError, match="allow_download"):
+        tqm9.load_qm9(str(tmp_path / "b"))
+    got = tqm9.load_qm9(str(tmp_path / "b"), allow_download=True)
+    want = jqm9.load_qm9(str(tmp_path / "a"), cache=False)
+    assert len(fetched) == 4 and len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        for k in ("z", "pos", "edge_index", "y"):
+            assert np.array_equal(g[k], w[k]), k
+
+
+def test_download_without_network_says_what_to_stage(tmp_path, monkeypatch):
+    import urllib.error
+    import urllib.request
+
+    def refuse(url, filename):
+        raise urllib.error.URLError("no route to host")
+
+    monkeypatch.setattr(urllib.request, "urlretrieve", refuse)
+    with pytest.raises(ConnectionError, match="stage gdb9.sdf") as err:
+        tqm9.load_qm9(str(tmp_path), allow_download=True)
+    assert "no route to host" in str(err.value) and tqm9.RAW_URL in str(err.value)
+    assert isinstance(err.value.__cause__, urllib.error.URLError)

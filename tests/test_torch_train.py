@@ -14,6 +14,7 @@ from torch_threads import limit_intra_op_threads
 limit_intra_op_threads()
 
 import math
+import os
 import re
 
 import numpy as np
@@ -171,3 +172,36 @@ def test_main_qm9_needs_a_card_unless_told(monkeypatch):
         main_qm9.main(["--synthetic", "--limit", "16", "--epochs", "1"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main_qm9.main(["--model", "PAMNet_s", "--synthetic", "--limit", "16", "--epochs", "1"])
+
+
+def test_main_qm9_trace_dir_writes_a_chrome_trace(capsys, tmp_path):
+    """``--trace_dir`` profiles epoch 0's training (``profiling.trace``; on
+    the CPU its CPU activity only) into a Chrome trace JSON with events."""
+    import json
+
+    main_qm9.main(["--synthetic", "--limit", "16", "--dim", "16", "--n_layer", "1",
+                   "--epochs", "2", "--batch_size", "4", "--device", "cpu",
+                   "--save_dir", str(tmp_path / "save"),
+                   "--trace_dir", str(tmp_path / "trace")])
+    assert len(_EPOCH.findall(capsys.readouterr().out)) == 2
+    (name,) = os.listdir(tmp_path / "trace")
+    assert name == "epoch0_rank0.json"
+    events = json.loads((tmp_path / "trace" / name).read_text())["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    assert len(events) > 100 and any("addmm" in n or "linear" in n for n in names)
+
+
+def test_trace_refuses_a_card_it_cannot_see(monkeypatch, tmp_path):
+    """On a card the trace needs the profiler's CUDA activity: without it
+    (no CUPTI) it raises and writes nothing, rather than trace the host
+    alone."""
+    import torch.profiler
+
+    from pamnet_tpu_torch.profiling import trace
+
+    monkeypatch.setattr(torch.profiler, "supported_activities",
+                        lambda: {torch.profiler.ProfilerActivity.CPU})
+    with pytest.raises(RuntimeError, match="cannot trace the card"):
+        with trace(str(tmp_path / "t"), "cuda"):
+            pass
+    assert not (tmp_path / "t").exists()
