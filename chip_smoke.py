@@ -164,8 +164,10 @@ Phases, each printing one JSON line:
  19. rna_csv: ``python -m pamnet_tpu_torch.inference_rna_puzzles`` in
      float32 and bfloat16 on TU files of the scoring structures: the CSV's
      header, tags and puzzle number, the scores against the scoring
-     service's on the same structures, one device-to-host copy a run, and
-     seconds per structure;
+     service's on the same structures and bit for bit those of the
+     driver's loop before the pipeline (each batch collated and copied on
+     the calling thread), one device-to-host copy a run, and seconds per
+     structure;
  21. qm9_preprocessed: a PyG-layout ``data_v2.pt`` of synthetic QM9
      molecules (written through a stand-in ``torch_geometric.data.data.
      Data``) read back bit for bit, and ``main_qm9`` trained from it for an
@@ -192,7 +194,25 @@ Phases, each printing one JSON line:
      cold and warm, alike, and a ``--trace_dir`` run whose Chrome trace
      names the port's kernels; seconds a complex and a structure of the
      preprocessors, the loaders' seconds and chunks built of every run;
- 24. kernels: one line listing every kernel with its numbers (the role
+ 24. epoch_pipeline: the training drivers' epoch, JAX's pipeline
+     (``train/loop.py::run_epoch`` over ``GraphLoader.prefetch`` and
+     ``_staged``, the evaluation splits resident in ``StackedEval``)
+     against the parent's serial epoch (collation and pageable copies on
+     the main thread, the evaluation splits collated again), in turns
+     (serial, pipelined, ...: ``PIPELINE_PAIRS`` pairs) from the same
+     parameters and loader order, for the QM9 recipe in bfloat16 (1,280 synthetic
+     molecules, ``main_qm9 --synthetic``'s split), the RNA recipe (folded;
+     24 + 8 structures of 2,100 atoms, batch 8) and the PDBbind README
+     recipe (the 64 realistic complexes of phase 9): per-step losses,
+     parameters after the epoch, every split's predictions and launches
+     per step bit for bit equal between the ways; ``epoch_s`` of each run,
+     the serial runs' ``collate_s`` and ``h2d_s``, the pipelined runs'
+     ``queue_wait_s``, the card's new allocations (``cudaMalloc`` segments)
+     of each run, the MB ``StackedEval`` staged and its seconds, and
+     the device's idle share over each way's epoch (device time from one
+     more profiled epoch of each way: the union of the card's kernel and
+     copy intervals, ``profiling.py::device_busy_s``);
+ 25. kernels: one line listing every kernel with its numbers (the role
      swap alone and gather_product are off the main paths since the fused
      role swap: 0 launches, asserted; they and the split group sum have no
      bfloat16 version).
@@ -218,6 +238,7 @@ import math
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -227,7 +248,8 @@ import urllib.request
 
 import numpy as np
 
-from pamnet_tpu_torch.profiling import device_ms, device_us, is_kernel, kernel_totals, time_ms
+from pamnet_tpu_torch.profiling import (device_busy_s, device_ms, device_us, is_kernel,
+                                        kernel_totals, time_ms)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, f32 flop/s outside
 # the tensor cores.
@@ -1564,7 +1586,11 @@ def main() -> int:
                                                    pdb_launches.items()},
                                   reset_counts, read_counts, emit)
 
-    # ---- 24. every kernel of the paths, with its numbers ----
+    # ---- 24. the epoch pipeline against the serial epoch ----
+    pipeline_launches = epoch_pipeline_phase(args, rna_mols[:args.rna_structures],
+                                             pdbbind_data[2], reset_counts, read_counts, emit)
+
+    # ---- 25. every kernel of the paths, with its numbers ----
     # Each kernel's top-level numbers are those of one main-path case: the
     # folded t2 triplet sum (kernel A's, on random data), kernel B's t2 sum
     # by center edge on the scoring batch, the global message, its sum by
@@ -1581,8 +1607,9 @@ def main() -> int:
     # scoring batch).  Launches add the serving, the QM9, RNA, PDBbind and
     # PAMNet_s training main paths, the derive and device_graph steps, the
     # QM9, PDBbind and RNA bfloat16 training paths, the CSV driver's runs,
-    # the one-rank data-parallel steps and the first run of each raw-data
-    # path (raw_pdbbind, raw_rna, raw_qm9);
+    # the one-rank data-parallel steps, the first run of each raw-data
+    # path (raw_pdbbind, raw_rna, raw_qm9) and the first pipelined epoch of
+    # each epoch_pipeline recipe (epoch_pipeline_qm9, _rna, _pdbbind);
     # group_sum counts its calls, of either kernel, and group_sum_split the
     # split kernel's.
     table = [
@@ -1622,7 +1649,7 @@ def main() -> int:
                "derive_train": derive_launches, "device_graph_train": graph_launches,
                "qm9_bf16_train": qm9_bf16_launches, "pdbbind_bf16_train": pdb_bf16_launches,
                "rna_bf16": rna_bf16_launches, "rna_csv": csv_launches, "dp_train": dp_launches,
-               **raw_launches}
+               **raw_launches, **pipeline_launches}
 
     def first_case(path_cases, name):
         if name not in path_cases:
@@ -2088,7 +2115,7 @@ def _epoch(model, opt, ema, loader, kind: str, reset_counts, read_counts, want_f
     want.update({k: 0 for k in {**want_fwd, **want_bwd} if k not in want})
     reset_counts()
     t0 = time.perf_counter()
-    loss_sum, ng, losses = run_epoch(model, opt, ema, loader, "cuda", kind)
+    loss_sum, ng, losses, _ = run_epoch(model, opt, ema, loader, "cuda", kind)
     torch.cuda.synchronize()
     epoch_s = time.perf_counter() - t0
     launches = read_counts()
@@ -3511,6 +3538,10 @@ def rna_csv_phase(args, mols, state: dict, reset_counts, read_counts, emit_line)
                 got = torch.tensor([float(r[0]) for r in rows], dtype=torch.float64)
                 cfg = PAMNetConfig(dataset=dataset, dim=16, n_layer=1, cutoff_l=2.6,
                                    cutoff_g=20.0, flow="target_to_source", compute_dtype=dtype)
+                serial = _serial_scores(structures, state, cfg, bs)
+                if not np.array_equal(got.float().numpy(), serial):
+                    raise AssertionError(f"rna_csv {dtype}: the pipelined scores {got[:4]} differ "
+                                         f"from the serial loop's {serial[:4]}")
                 service = RNAScoringService(state, cfg, batch_size=bs, device="cuda")
                 want = torch.from_numpy(service.score_molecules(structures)).double()
                 csv[dtype] = got
@@ -3534,7 +3565,8 @@ def rna_csv_phase(args, mols, state: dict, reset_counts, read_counts, emit_line)
                     raise AssertionError(f"rna_csv {dtype}: kernel B launches {launches}")
                 for k, v in launches.items():
                     total[k] = total.get(k, 0) + v
-                res[dtype] = {"check": check, "batches": len(out["pads"]),
+                res[dtype] = {"check": check, "serial_loop_bitwise": True,
+                              "batches": len(out["pads"]),
                               "pads": [dataclasses.asdict(p) for p in out["pads"]],
                               "scoring_s": out["seconds"], "wall_s": wall,
                               "s_per_structure": out["seconds"] / len(mols),
@@ -3545,6 +3577,25 @@ def rna_csv_phase(args, mols, state: dict, reset_counts, read_counts, emit_line)
             os.chdir(cwd)
     emit_line({"phase": "rna_csv", **res})
     return total
+
+
+def _serial_scores(structures: list[dict], state: dict, cfg, bs: int) -> np.ndarray:
+    """The CSV driver's scores as its loop computed them before the epoch
+    pipeline: each exact-pads batch collated and copied on the calling
+    thread, one copy of the scores back."""
+    import torch
+
+    from pamnet_tpu_torch.data.loader import GraphLoader
+    from pamnet_tpu_torch.models.pamnet import PAMNet
+
+    model = PAMNet(cfg)
+    model.load_state_dict(state, strict=True)
+    model = model.to("cuda").eval()
+    loader = GraphLoader(structures, "rna", cfg.cutoff_l, cfg.cutoff_g, batch_size=bs,
+                         ladder_pads="exact", num_spherical=cfg.num_spherical,
+                         num_radial=cfg.num_radial, envelope_exponent=cfg.envelope_exponent)
+    with torch.inference_mode():
+        return torch.cat([model(gb.to("cuda"))[:gb.num_graphs] for gb in loader]).cpu().numpy()
 
 
 @contextlib.contextmanager
@@ -4079,6 +4130,232 @@ def raw_data_phase(args, rna_mols, pdb_step: dict, reset_counts, read_counts,
         finally:
             os.chdir(cwd)
     torch.cuda.synchronize()
+    emit_line(res)
+    return paths
+
+
+# The epoch_pipeline phase's QM9 molecules (``main_qm9 --synthetic``'s
+# 80/10/10 split: 32 training steps of 32) and its pairs of runs in turns
+# by recipe (a QM9 epoch takes ~4 s, an RNA or PDBbind one under 1 s, whose
+# spread between runs is as wide as the difference between the ways).
+PIPELINE_QM9_MOLECULES = 1280
+PIPELINE_PAIRS = {"qm9": 2, "rna": 5, "pdbbind": 5}
+
+
+def _pipeline_recipes(args, rna_mols: list[dict], pdb_mols: list[dict]):
+    """The three training recipes of the epoch_pipeline phase, one at a time
+    (each holds its loaders), as the drivers build them: the training
+    loader shuffled with the seed, its batches deriving their geometry;
+    the evaluation loaders with host geometry; the model's initial
+    parameters from the seed; the optimizer; the loss; the evaluation
+    splits by name (QM9: val and test; RNA: train and val; PDBbind: train,
+    val and test, the training split over the training loader)."""
+    import torch
+
+    from pamnet_tpu_torch.config import PAMNetConfig
+    from pamnet_tpu_torch.data.loader import GraphLoader
+    from pamnet_tpu_torch.data.synthetic import synthetic_qm9_dataset
+    from pamnet_tpu_torch.models.pamnet import PAMNet
+    from pamnet_tpu_torch.train.loop import Optimizer
+    from pamnet_tpu_torch.train.schedules import constant, multistep, warmup_exponential
+
+    def recipe(name, cfg, kind, ema, bs, train, evals, optimizer, **train_kw):
+        t0 = time.perf_counter()
+        common = dict(dataset_kind=cfg.dataset_kind, cutoff_l=cfg.cutoff_l,
+                      cutoff_g=cfg.cutoff_g, batch_size=bs, variant=cfg.variant)
+        loader = GraphLoader(train, shuffle=True, seed=args.seed, build_perms=True,
+                             wire_geometry="derive", **common, **train_kw)
+        splits = {k: loader if v is None else GraphLoader(v, **common)
+                  for k, v in evals.items()}
+        state = PAMNet(cfg, torch.Generator().manual_seed(args.seed)).state_dict()
+        return {"name": name, "cfg": cfg, "kind": kind, "ema": ema, "train": loader,
+                "splits": splits, "state": state, "optimizer": optimizer(len(loader)),
+                "loader_s": time.perf_counter() - t0, "graphs": len(train),
+                "split_graphs": {k: len(v or train) for k, v in evals.items()}}
+
+    qmols = synthetic_qm9_dataset(PIPELINE_QM9_MOLECULES, seed=args.seed)
+    n_train, n_val = int(len(qmols) * 0.8), int(len(qmols) * 0.1)
+    yield recipe(
+        "qm9", PAMNetConfig(dataset="QM9", dim=128, n_layer=6, compute_dtype="bfloat16"), "l1",
+        True, 32, qmols[:n_train], {"val": qmols[n_train:n_train + n_val],
+                                     "test": qmols[n_train + n_val:]},
+        lambda steps: lambda m: Optimizer(m.parameters(), warmup_exponential(
+            1e-4, steps, frac_steps_per_epoch=n_train / 32), clip_norm=1000.0),
+        drop_last=True)
+    n_val = len(rna_mols) // 4
+    yield recipe(
+        "rna", PAMNetConfig(dataset="rna_train", dim=16, n_layer=1, cutoff_l=2.6, cutoff_g=20.0,
+                            flow="target_to_source"), "smooth_l1", False, 8,
+        rna_mols[:-n_val], {"train": None, "val": rna_mols[-n_val:]},
+        lambda steps: lambda m: Optimizer(m.parameters(), constant(1e-4)))
+    n_test = len(pdb_mols) // 4
+    refined = [pdb_mols[i] for i in np.random.default_rng(args.seed).permutation(
+        len(pdb_mols) - n_test)]
+    n_train = len(refined) - math.ceil(len(refined) * 0.1)
+    yield recipe(
+        "pdbbind", PAMNetConfig(dataset="PDBbind", dim=128, n_layer=3, cutoff_l=2.0,
+                                cutoff_g=6.0), "mse", False, 32, refined[:n_train],
+        {"train": None, "val": refined[n_train:], "test": pdb_mols[-n_test:]},
+        lambda steps: lambda m: Optimizer(m.parameters(), multistep(1e-3, steps_per_epoch=steps)))
+
+
+def _pipeline_epoch(rec: dict, way: str, reset_counts, read_counts,
+                    profiled: bool = False) -> dict:
+    """One epoch of the recipe ``rec`` and its evaluation of every split,
+    from its initial parameters and the training loader's generator after
+    the train split's draw: "serial" as the parent ran it
+    (``run_epoch(pipelined=False)``; every split collated again, QM9's once
+    before the epoch as the parent's ``main_qm9`` kept them, and copied
+    again); "pipelined" as the drivers now run it (``run_epoch``, the
+    splits' resident ``StackedEval`` batches).  ``profiled``: the card's
+    busy seconds of the epoch from the profiler (``device_busy_s``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pamnet_tpu_torch.models.pamnet import PAMNet
+    from pamnet_tpu_torch.train.ema import ema_init
+    from pamnet_tpu_torch.train.loop import predict, run_epoch
+
+    model = PAMNet(rec["cfg"])
+    model.load_state_dict(rec["state"])
+    model = model.to("cuda")
+    opt = rec["optimizer"](model)
+    ema = ema_init(model.state_dict()) if rec["ema"] else None
+    evaluated = PAMNet(rec["cfg"]).to("cuda") if ema is not None else model
+    rec["train"].set_rng_state(rec["rng"])
+    host = {k: rec["host"][k] if way == "serial" else None for k in rec["splits"]}
+    stats: dict = {}
+    torch.cuda.synchronize()
+    mallocs = torch.cuda.memory_stats()["segment.all.allocated"]
+    with profile(activities=[ProfilerActivity.CUDA]) if profiled else contextlib.nullcontext() \
+            as prof:
+        reset_counts()
+        t0 = time.perf_counter()
+        loss_sum, graphs, losses, steps = run_epoch(
+            model, opt, ema, rec["train"], "cuda", rec["kind"], pipelined=way == "pipelined",
+            stats=stats)
+        train_launches = read_counts()
+        t1 = time.perf_counter()
+        if ema is not None:
+            evaluated.load_state_dict(ema)
+        preds = {}
+        for k, loader in rec["splits"].items():
+            if way == "pipelined":
+                source = rec["staged"][k]
+            elif host[k] is not None:
+                source = host[k]
+            else:
+                source = (loader.collate(idxs, build_perms=False) for idxs in rec["order"][k])
+            preds[k] = predict(evaluated, source, "cuda")[0]
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        launches = read_counts()
+    if not math.isfinite(loss_sum):
+        raise AssertionError(f"epoch_pipeline {rec['name']} {way}: loss sum {loss_sum}")
+    return {"way": way, "epoch_s": epoch_s, "train_s": t1 - t0, "eval_s": epoch_s - (t1 - t0),
+            "device_mallocs": torch.cuda.memory_stats()["segment.all.allocated"] - mallocs,
+            **stats, "loss_sum": loss_sum, "graphs": graphs, "steps": steps,
+            "losses": torch.stack(losses).cpu(),
+            "params": {n: p.detach().cpu().clone() for n, p in model.named_parameters()},
+            "preds": preds, "train_launches": train_launches, "launches": launches,
+            "device_s": device_busy_s(prof) if profiled else None}
+
+
+def _pipeline_same(a: dict, b: dict, what: str) -> None:
+    """Two epochs bit for bit: per-step losses, parameters, every split's
+    predictions, the loss sum, and launches per step."""
+    import torch
+
+    bad = [k for k in a["params"] if not torch.equal(a["params"][k], b["params"][k])]
+    bad += [k for k in a["preds"] if not np.array_equal(a["preds"][k], b["preds"][k])]
+    if not torch.equal(a["losses"], b["losses"]):
+        bad.append("losses")
+    per_step = [{k: v / r["steps"] for k, v in r["train_launches"].items()} for r in (a, b)]
+    if bad or a["loss_sum"] != b["loss_sum"] or per_step[0] != per_step[1]:
+        raise AssertionError(f"epoch_pipeline {what}: {a['way']} and {b['way']} differ in "
+                             f"{bad[:4]}, loss sum {a['loss_sum']} / {b['loss_sum']}, "
+                             f"launches per step {per_step}")
+
+
+# Kernels each recipe's training step must launch.
+PIPELINE_KERNELS = {
+    "qm9": ("triplet_aggregate", "edge_message_sum", "triplet_aggregate_grad_ab",
+            "gated_sum_backward", "group_sum_split"),
+    "rna": ("sbf_modulate", "sbf_modulate_backward", "edge_message_sum", "gated_sum_backward"),
+    "pdbbind": ("triplet_aggregate", "edge_message_sum", "triplet_aggregate_grad_ab",
+                "edge_message_backward"),
+}
+
+
+def epoch_pipeline_phase(args, rna_mols: list[dict], pdb_mols: list[dict], reset_counts,
+                         read_counts, emit_line) -> dict:
+    """Phase 24, epoch_pipeline (module docstring).  Returns the launches of
+    each recipe's first pipelined epoch (training and evaluation)."""
+    import torch
+
+    from pamnet_tpu_torch.train.loop import StackedEval
+
+    t_phase = time.perf_counter()
+    res: dict = {"phase": "epoch_pipeline", "pairs": PIPELINE_PAIRS}
+    paths = {}
+    for rec in _pipeline_recipes(args, rna_mols, pdb_mols):
+        t_recipe = time.perf_counter()
+        name, train = rec["name"], rec["train"]
+        # The pipelined way's set-up, as the drivers make it: every split
+        # staged once (the train split draws the loader's first permutation).
+        before = train.rng_state()
+        rec["staged"] = {k: StackedEval(ld, "cuda", verbose=False)
+                         for k, ld in rec["splits"].items()}
+        rec["rng"] = train.rng_state()
+        # The serial way's splits: the same batches, collated again each
+        # epoch (QM9's collated once, as the parent's main_qm9 kept them).
+        train.set_rng_state(before)
+        rec["order"] = {k: ld.batches() for k, ld in rec["splits"].items()}
+        if train.rng_state() != rec["rng"]:
+            raise AssertionError(f"epoch_pipeline {name}: the train split's draw differs")
+        rec["host"] = {k: ([ld.collate(i, build_perms=False) for i in rec["order"][k]]
+                           if name == "qm9" else None) for k, ld in rec["splits"].items()}
+        runs = [_pipeline_epoch(rec, way, reset_counts, read_counts)
+                for _ in range(PIPELINE_PAIRS[name]) for way in ("serial", "pipelined")]
+        profiled = {way: _pipeline_epoch(rec, way, reset_counts, read_counts, profiled=True)
+                    for way in ("serial", "pipelined")}
+        for r in runs[1:] + list(profiled.values()):
+            _pipeline_same(runs[0], r, name)
+        first = next(r for r in runs if r["way"] == "pipelined")
+        missing = [k for k in PIPELINE_KERNELS[name] if first["train_launches"][k] < 1]
+        if missing:
+            raise AssertionError(f"epoch_pipeline {name}: no launch of {missing}")
+        paths[f"epoch_pipeline_{name}"] = first["launches"]
+        by_way = {way: [r for r in runs if r["way"] == way] for way in ("serial", "pipelined")}
+        median = {way: statistics.median(r["epoch_s"] for r in rs) for way, rs in by_way.items()}
+        staged = rec["staged"].values()
+        res[name] = {
+            "graphs": rec["graphs"], "split_graphs": rec["split_graphs"],
+            "steps": first["steps"], "pads": dataclasses.asdict(train.pads),
+            "loader_s": rec["loader_s"], "bitwise_equal_ways": True,
+            "launches_per_step": {k: v / first["steps"] for k, v in
+                                  first["train_launches"].items() if v},
+            "epoch_s": [r["epoch_s"] for r in runs], "median_epoch_s": median,
+            "pipelined_faster_pairs": sum(p["epoch_s"] < q["epoch_s"] for q, p in
+                                          zip(by_way["serial"], by_way["pipelined"])),
+            "train_s": [r["train_s"] for r in runs], "eval_s": [r["eval_s"] for r in runs],
+            "collate_s": [r["collate_s"] for r in by_way["serial"]],
+            "h2d_s": [r["h2d_s"] for r in by_way["serial"]],
+            "queue_wait_s": [r["queue_wait_s"] for r in by_way["pipelined"]],
+            "device_mallocs": [r["device_mallocs"] for r in runs],
+            "staged_MB": sum(se.staged_bytes for se in staged) / 1e6,
+            "staged_MB_by_split": {k: se.staged_bytes / 1e6 for k, se in rec["staged"].items()},
+            "staging_collate_s": sum(se.collate_s for se in staged),
+            "staging_transfer_s": sum(se.transfer_s for se in staged),
+            "device_s": {way: r["device_s"] for way, r in profiled.items()},
+            "profiled_epoch_s": {way: r["epoch_s"] for way, r in profiled.items()},
+            "device_idle_share": {way: 1.0 - profiled[way]["device_s"] / median[way]
+                                  for way in median},
+            "train_loss": first["loss_sum"] / first["graphs"],
+            "recipe_s": time.perf_counter() - t_recipe}
+        del rec, staged
+        torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
     emit_line(res)
     return paths
 

@@ -21,9 +21,11 @@ baselines it prints in the same order):
    published RNA model (dim 16, 1 layer, folded) with seeded weights; the
    JAX line reads the RNA-Puzzles candidates and ``pamnet_rna.pt``, which
    are not in the repository.
-3. The QM9 epoch wall: shuffled host-collated batches of 4,096 synthetic
-   molecules, the steps, and the EMA evaluation of a 512-molecule split,
-   per epoch; the first epoch is not timed.
+3. The QM9 epoch wall: JAX's chain (its ``bench.py:134-135``): shuffled
+   batches of 4,096 synthetic molecules collated and copied to the card in
+   two threads beside the steps (``run_epoch``), and the EMA evaluation of
+   a 512-molecule split staged on the card once (``StackedEval``), per
+   epoch; the first epoch is not timed.
 4. PDBbind training at the README recipe (dim 128, 3 layers, batch 32, MSE,
    the multistep schedule at lr 1e-5 as the JAX line) for 64 steps over
    4 x 32 realistic synthetic complexes (seed 805) resident on the device.
@@ -192,7 +194,7 @@ def bench_epoch(args, device: torch.device, device_step_mol_s: float | None) -> 
     from pamnet_tpu_torch.data.synthetic import synthetic_qm9_dataset
     from pamnet_tpu_torch.models.pamnet import PAMNet
     from pamnet_tpu_torch.train.ema import ema_init
-    from pamnet_tpu_torch.train.loop import Optimizer, mae, run_epoch
+    from pamnet_tpu_torch.train.loop import Optimizer, StackedEval, mae, run_epoch
     from pamnet_tpu_torch.train.schedules import warmup_exponential
 
     bs = 32
@@ -206,10 +208,11 @@ def bench_epoch(args, device: torch.device, device_step_mol_s: float | None) -> 
                   batch_size=bs)
     train_loader = GraphLoader(mols[:n_train], shuffle=True, seed=480, drop_last=True,
                                build_perms=True, wire_geometry=args.geometry, **common)
-    val_batches = list(GraphLoader(mols[n_train:], **common))
+    val_loader = GraphLoader(mols[n_train:], **common)
     build_s = time.perf_counter() - t0
     log(f"epoch-wall: structure build {build_s:.1f}s (train={n_train} val={n_val}, "
         f"{args.geometry} geometry)")
+    val_eval = StackedEval(val_loader, device)
     model = PAMNet(cfg, torch.Generator().manual_seed(480)).to(device)
     opt = Optimizer(model.parameters(), warmup_exponential(1e-4, len(train_loader)),
                     clip_norm=1000.0)
@@ -218,9 +221,9 @@ def bench_epoch(args, device: torch.device, device_step_mol_s: float | None) -> 
 
     def epoch() -> tuple[float, int, float]:
         t0 = time.perf_counter()
-        _, ng, _ = run_epoch(model, opt, ema, train_loader, device, "l1")
+        _, ng, _, _ = run_epoch(model, opt, ema, train_loader, device, "l1")
         ema_model.load_state_dict(ema)
-        val_mae = mae(ema_model, val_batches, device)
+        val_mae = mae(ema_model, val_eval, device)
         return time.perf_counter() - t0, ng, val_mae
 
     epoch()  # warm-up epoch: allocator and library set-up, not timed

@@ -97,14 +97,21 @@ class GraphBatch:
     perms: dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
     longest: dict[str, int] = dataclasses.field(default_factory=dict)
 
-    def to(self, device) -> "GraphBatch":
-        moved = {
-            f.name: getattr(self, f.name).to(device)
-            for f in dataclasses.fields(self)
-            if isinstance(getattr(self, f.name), torch.Tensor)
-        }
-        moved["perms"] = {k: v.to(device) for k, v in self.perms.items()}
+    def tensors(self) -> list[torch.Tensor]:
+        """Every tensor the batch holds, ``perms`` included."""
+        return [v for f in dataclasses.fields(self)
+                if isinstance(v := getattr(self, f.name), torch.Tensor)] + list(self.perms.values())
+
+    def map(self, fn) -> "GraphBatch":
+        """The batch with ``fn`` applied to each of its tensors, ``perms``
+        included (host ints and None fields as they are)."""
+        moved = {f.name: fn(getattr(self, f.name)) for f in dataclasses.fields(self)
+                 if isinstance(getattr(self, f.name), torch.Tensor)}
+        moved["perms"] = {k: fn(v) for k, v in self.perms.items()}
         return dataclasses.replace(self, **moved)
+
+    def to(self, device) -> "GraphBatch":
+        return self.map(lambda t: t.to(device))
 
     def groups(self, key: str) -> Groups | None:
         """The CSR of index field ``key`` ("z", "eg_src", "el_src", "t2_kj",

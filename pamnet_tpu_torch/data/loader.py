@@ -3,11 +3,15 @@ batches derive it), then padded batches in order or shuffled per epoch (the
 inference and training subset of ``pamnet_tpu.data.loader.GraphLoader``),
 each collated through a ``CollatePlan`` over the loader's structures (the
 native library's concatenations, as the JAX loader collates wherever its
-library loads; here the library is required)."""
+library loads; here the library is required).  ``prefetch`` collates the
+next batches in a background thread while the caller steps
+(``background``)."""
 
 from __future__ import annotations
 
 import dataclasses
+import queue
+import threading
 
 import numpy as np
 
@@ -19,6 +23,55 @@ from pamnet_tpu_torch.data.batch import (
     collate_structures,
     structure_counts,
 )
+
+
+def background(items, depth: int = 2):
+    """Iterate ``items`` in a daemon thread that runs up to ``depth`` items
+    ahead of the caller through a bounded queue (the worker of the JAX
+    package's ``GraphLoader.prefetch`` and ``train/loop.py::_staged``).  An
+    exception of the worker is raised again in the caller and ends the
+    iteration there, so a truncated epoch never passes silently.  A caller
+    that stops early (``close()``, or the generator dropped) stops the
+    worker at its next item and joins it; the worker closes ``items``."""
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    closed = threading.Event()
+    end = object()
+
+    def put(item) -> bool:
+        while not closed.is_set():
+            try:
+                q.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def worker() -> None:
+        try:
+            for item in items:
+                if not put((item, None)):
+                    return
+            put((end, None))
+        except BaseException as e:  # noqa: BLE001 - raised again in the caller
+            put((None, e))
+        finally:
+            close = getattr(items, "close", None)
+            if close is not None:
+                close()
+
+    thread = threading.Thread(target=worker, daemon=True, name="pamnet-background")
+    thread.start()
+    try:
+        while True:
+            item, err = q.get()
+            if err is not None:
+                raise err
+            if item is end:
+                return
+            yield item
+    finally:
+        closed.set()
+        thread.join()
 
 
 class GraphLoader:
@@ -109,13 +162,16 @@ class GraphLoader:
                              for f in dataclasses.fields(PadSizes)))
         self.pads = own
         self._plan: CollatePlan | None = None
+        self._plan_lock = threading.Lock()
 
     def plan(self) -> CollatePlan:
         """The collate plan over the loader's structures, built at the first
-        batch; raises where the native library cannot be built."""
-        if self._plan is None:
-            self._plan = CollatePlan(self.structs)
-        return self._plan
+        batch (by whichever thread collates it first); raises where the
+        native library cannot be built."""
+        with self._plan_lock:
+            if self._plan is None:
+                self._plan = CollatePlan(self.structs)
+            return self._plan
 
     def __len__(self) -> int:
         n = len(self.structs)
@@ -164,17 +220,20 @@ class GraphLoader:
                                   variant=self.variant, wire_geometry=self.wire_geometry,
                                   plan=self.plan(), idxs=idxs)
 
-    def in_order(self):
-        """Every molecule once, in order, the last batch partial, without the
-        backward's arrays: evaluation over a training loader's structures."""
-        n = len(self.structs)
-        for start in range(0, n, self.batch_size):
-            yield self.collate(list(range(start, min(start + self.batch_size, n))),
-                               build_perms=False)
-
     def __iter__(self):
         for idxs in self.batches():
             yield self.collate(idxs)
+
+    def prefetch(self, depth: int = 2, order: list[list[int]] | None = None):
+        """The batches of ``order`` (None: the next epoch's, its permutation
+        drawn now, as ``batches()`` draws it) collated in a background
+        thread ``depth`` batches ahead of the caller (JAX
+        ``GraphLoader.prefetch``, ``pamnet_tpu/data/loader.py:465-490``):
+        bit for bit the batches of plain iteration.  The collation's native
+        concatenations run without the GIL, so they overlap the caller's
+        step; an error of the thread is raised in the caller."""
+        order = self.batches() if order is None else order
+        return background((self.collate(idxs) for idxs in order), depth)
 
 
 def add_geometry_flags(parser) -> None:

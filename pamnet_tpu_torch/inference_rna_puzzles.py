@@ -13,8 +13,10 @@ also what ``main_rna_puzzles`` exports) or a port training checkpoint (any
 other name, ``train.checkpoint.load_model_state``), found as given or under
 ``./save/``.  Every batch runs at its own counts rounded up to 128 rows
 (the JAX driver's ``ladder_pads="exact"``; ``--fixed_pads``: every batch at
-the set's worst case), its scores stay on the device, and one copy brings
-them all back at the end.  Writes ``rna_puzzles_predictions/<dataset>.csv``
+the set's worst case), collated and copied to the device in two threads
+beside the forwards (``GraphLoader.prefetch``, ``train/loop.py::_staged``);
+its scores stay on the device, and one copy brings them all back at the
+end.  Writes ``rna_puzzles_predictions/<dataset>.csv``
 under the working directory with the reference's columns ``PAMNet, tag,
 puzzle_number``: ``tag`` is the structure's file name without its last four
 characters, ``puzzle_number`` the dataset name from its sixth character
@@ -39,6 +41,7 @@ from pamnet_tpu_torch.data.batch import PadSizes
 from pamnet_tpu_torch.data.loader import GraphLoader
 from pamnet_tpu_torch.data.tu import TUDataset
 from pamnet_tpu_torch.models.pamnet import PAMNet
+from pamnet_tpu_torch.train.loop import _staged
 
 OUT_DIR = "rna_puzzles_predictions"
 
@@ -115,14 +118,15 @@ def main(argv=None) -> dict:
                          ladder_pads=False if args.fixed_pads else "exact",
                          num_spherical=cfg.num_spherical, num_radial=cfg.num_radial,
                          envelope_exponent=cfg.envelope_exponent)
-    # Each batch's scores stay on the device; one copy fetches them all
-    # (inference_rna_puzzles.py:122-134), not a host round trip a batch.
+    # Batches collated and copied to the device in two threads beside the
+    # forwards; each batch's scores stay on the device and one copy fetches
+    # them all (inference_rna_puzzles.py:122-134), not a host round trip a batch.
     pending, pads = [], []
     t0 = time.perf_counter()
     with torch.inference_mode():
-        for gb in loader:
+        for gb in _staged(loader.prefetch(), device):
             pads.append(batch_pads(gb))
-            pending.append(model(gb.to(device))[:gb.num_graphs])
+            pending.append(model(gb)[:gb.num_graphs])
         y_hat = torch.cat(pending).cpu().numpy()
     seconds = time.perf_counter() - t0
 

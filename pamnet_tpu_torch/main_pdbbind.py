@@ -27,7 +27,13 @@ evaluation batches too.  ``--structure_cache DIR`` serves the built
 structures of every split from an on-disk cache (``data/structcache.py``,
 the JAX package's format).  ``--dp N`` trains data-parallel on N ranks, one
 card each (on the CPU over gloo), N batches a step; rank 0 alone prints
-and writes the files.
+and writes the files.  An epoch runs JAX's pipeline
+(``train/loop.py::run_epoch``: batches collated and copied to the card in
+two threads beside the steps), and each split is collated and staged on
+the card once (``StackedEval``); the training split's batches are the
+training loader's first permutation, drawn before the first epoch, as the
+JAX driver's ``StackedEval(train_loader)`` draws it, so epoch e trains on
+the loader's permutation e + 1, as JAX's does.
 """
 
 from __future__ import annotations
@@ -139,7 +145,7 @@ def train(args, device, dp: int) -> dict:
     from pamnet_tpu_torch.parallel import rank
     from pamnet_tpu_torch.train.checkpoint import (export_state_dict, load_checkpoint,
                                                    save_checkpoint)
-    from pamnet_tpu_torch.train.loop import Optimizer, log_csv, predict, run_epoch
+    from pamnet_tpu_torch.train.loop import Optimizer, StackedEval, log_csv, predict, run_epoch
     from pamnet_tpu_torch.train.schedules import multistep
 
     t_load = time.time()
@@ -165,10 +171,16 @@ def train(args, device, dp: int) -> dict:
                                     steps_per_epoch=max(len(train_loader) // max(dp, 1), 1)),
                           weight_decay=args.wd)
 
-    def quad(batches) -> tuple[float, float, float, float]:
-        pred, y = predict(model, batches, device, dp)
+    def quad(split: StackedEval) -> tuple[float, float, float, float]:
+        pred, y = predict(model, split, device, dp)
         return rmse(y, pred), mae(y, pred), sd(y, pred), pearson(y, pred)
 
+    # JAX main_pdbbind.py:224-226.  The training split draws the training
+    # loader's first permutation here, before a resumed run restores the
+    # loader's generator (whose saved state already counts this draw).
+    train_eval = StackedEval(train_loader, device, dp)
+    val_eval = StackedEval(val_loader, device, dp)
+    test_eval = StackedEval(test_loader, device, dp)
     first_epoch, best_val, test_m = 0, None, (float("nan"),) * 4
     if args.resume:
         extra = load_checkpoint(args.resume, model, optimizer)
@@ -184,10 +196,10 @@ def train(args, device, dp: int) -> dict:
     for epoch in range(first_epoch, args.epochs):
         t0 = time.time()
         run_epoch(model, optimizer, None, train_loader, device, "mse", dp)
-        train_m = quad(train_loader.in_order())
-        val_m = quad(val_loader)
+        train_m = quad(train_eval)
+        val_m = quad(val_eval)
         if best_val is None or val_m[0] < best_val:
-            test_m = quad(test_loader)
+            test_m = quad(test_eval)
             best_val = val_m[0]
             if writes:
                 export_state_dict(model.state_dict(), osp.join(save_folder, "best_model.pt"))

@@ -29,6 +29,10 @@ instructions).  ``--structure_cache DIR`` serves the built structures from
 an on-disk cache (``data/structcache.py``, the JAX package's format;
 ``--cache_workers N`` builds its missing chunks in N processes);
 ``--trace_dir DIR`` writes a profiler trace of epoch 0 (``profiling.py::trace``).
+An epoch runs JAX's pipeline (``train/loop.py::run_epoch``): batches
+collated in one thread and copied to the card in another while the steps
+run; the validation and test splits are collated and staged on the card
+once (``StackedEval``).
 ``--dp N`` trains data-parallel on N ranks, one card each
 (``parallel/``, ``train/loop.py::dp_train_step``; on the CPU over gloo), N
 batches a step; rank 0 alone prints and writes the files.
@@ -143,7 +147,7 @@ def train(args, device, dp: int) -> dict:
     from pamnet_tpu_torch.train.checkpoint import (export_state_dict, load_checkpoint,
                                                    save_checkpoint)
     from pamnet_tpu_torch.train.ema import ema_init
-    from pamnet_tpu_torch.train.loop import Optimizer, log_csv, mae, run_epoch
+    from pamnet_tpu_torch.train.loop import Optimizer, StackedEval, log_csv, mae, run_epoch
     from pamnet_tpu_torch.train.schedules import warmup_exponential
 
     mols, n_train, n_val = load_molecules(args)
@@ -164,10 +168,11 @@ def train(args, device, dp: int) -> dict:
     # Evaluation composition is free: the metric is a mean over molecules.
     val_loader = GraphLoader(val_mols, **common, **eval_geometry)
     test_loader = GraphLoader(test_mols, **common, **eval_geometry)
-    val_batches, test_batches = list(val_loader), list(test_loader)
     note = build_note(time.time() - t_load, (train_loader, val_loader, test_loader))
-    # Only the collated batches are kept: the evaluation loaders' structures
-    # and plans are freed here.
+    # Each evaluation split collated once and staged on the card once (JAX
+    # main_qm9.py:352-353); the evaluation loaders' structures and plans are
+    # freed here.
+    val_eval, test_eval = StackedEval(val_loader, device, dp), StackedEval(test_loader, device, dp)
     del val_loader, test_loader
     print(f"Data loaded! train={len(train_mols)} val={len(val_mols)} "
           f"test={len(test_mols)} pads={train_loader.pads} " + note)
@@ -204,14 +209,14 @@ def train(args, device, dp: int) -> dict:
                    if args.trace_dir and epoch == 0 else contextlib.nullcontext())
         t0 = time.time()
         with tracing:
-            loss_sum, ng, _ = run_epoch(model, optimizer, ema, train_loader, device, "l1", dp)
+            loss_sum, ng, _, _ = run_epoch(model, optimizer, ema, train_loader, device, "l1", dp)
         train_mae = loss_sum / max(ng, 1)
         train_maes.append(train_mae)
         # Evaluation under the EMA weights (reference: main_qm9.py:29-37,120).
         ema_model.load_state_dict(ema)
-        val_mae = mae(ema_model, val_batches, device, dp)
+        val_mae = mae(ema_model, val_eval, device, dp)
         if best_val is None or val_mae <= best_val:
-            test_mae = mae(ema_model, test_batches, device, dp)
+            test_mae = mae(ema_model, test_eval, device, dp)
             best_val = val_mae
             if writes:
                 export_state_dict(ema, osp.join(save_folder, "best_model.pt"))

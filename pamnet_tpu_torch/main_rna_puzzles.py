@@ -26,7 +26,13 @@ validation batches too.  ``--structure_cache DIR`` serves the built
 structures from an on-disk cache (``data/structcache.py``, the JAX
 package's format).  ``--dp N`` trains data-parallel on N ranks, one
 card each (on the CPU over gloo), N batches a step; rank 0 alone prints
-and writes the files.
+and writes the files.  An epoch runs JAX's pipeline
+(``train/loop.py::run_epoch``: batches collated and copied to the card in
+two threads beside the steps), and the train and val splits are collated
+and staged on the card once (``StackedEval``); the train split's batches
+are the training loader's first permutation, drawn before the first
+epoch, as the JAX driver's ``StackedEval(train_loader)`` draws it, so
+epoch e trains on the loader's permutation e + 1, as JAX's does.
 """
 
 from __future__ import annotations
@@ -134,7 +140,8 @@ def train(args, device, dp: int) -> dict:
     from pamnet_tpu_torch.parallel import rank
     from pamnet_tpu_torch.train.checkpoint import (export_state_dict, load_checkpoint,
                                                    save_checkpoint)
-    from pamnet_tpu_torch.train.loop import Optimizer, log_csv, run_epoch, smooth_l1
+    from pamnet_tpu_torch.train.loop import (Optimizer, StackedEval, log_csv, run_epoch,
+                                             smooth_l1)
     from pamnet_tpu_torch.train.schedules import constant
 
     train_mols, val_mols = load_structures(args)
@@ -156,6 +163,11 @@ def train(args, device, dp: int) -> dict:
     model = PAMNet(cfg, torch.Generator().manual_seed(args.seed)).to(device)
     print("Number of model parameters:", sum(p.numel() for p in model.parameters()))
     optimizer = Optimizer(model.parameters(), constant(args.lr), weight_decay=args.wd)
+    # JAX main_rna_puzzles.py:213-216.  The train split draws the training
+    # loader's first permutation here, before a resumed run restores the
+    # loader's generator (whose saved state already counts this draw).
+    train_eval = StackedEval(train_loader, device, dp)
+    val_eval = StackedEval(val_loader, device, dp)
     first_epoch, best_val_loss = 0, None
     if args.resume:
         extra = load_checkpoint(args.resume, model, optimizer)
@@ -173,8 +185,8 @@ def train(args, device, dp: int) -> dict:
         run_epoch(model, optimizer, None, train_loader, device, "smooth_l1", dp)
         # Both losses are evaluated after the epoch, as the JAX package's
         # main_rna_puzzles.py does.
-        train_loss = smooth_l1(model, train_loader.in_order(), device, dp)
-        val_loss = smooth_l1(model, val_loader, device, dp)
+        train_loss = smooth_l1(model, train_eval, device, dp)
+        val_loss = smooth_l1(model, val_eval, device, dp)
         dt = time.time() - t0
         print(f"Epoch: {epoch + 1:03d}, Train Loss: {train_loss:.7f}, "
               f"Val Loss: {val_loss:.7f} ({dt:.1f}s)", flush=True)

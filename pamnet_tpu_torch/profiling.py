@@ -1,7 +1,8 @@
 """Timing calls on the card and reading ``torch.profiler`` records: the
 event-timed mean of a call, the card's own time of the kernels it launches,
-which records are work on the card, and a profiled run's kernel launches
-and device time by kernel name.  ``chip_smoke.py`` and ``bench.py`` time
+which records are work on the card, the seconds the card was busy in a
+profiled span, and a profiled run's kernel launches and device time by
+kernel name.  ``chip_smoke.py`` and ``bench.py`` time
 and read their profiles through these.  ``trace`` writes a profiled span
 (``main_qm9 --trace_dir``: epoch 0) as a Chrome trace."""
 
@@ -75,6 +76,21 @@ def is_kernel(ev) -> bool:
     its span covers the kernels inside it: every profile total of the port
     has counted it so, and they stay comparable."""
     return str(getattr(ev, "device_type", "")).endswith("CUDA") and device_us(ev) > 0
+
+
+def device_busy_s(prof) -> float:
+    """The seconds in which the card did work during a profiled span: the
+    union of the intervals of its kernels, copies and sets (user annotations
+    left out), so work on two streams at once counts once.  Read from the
+    profiler's raw records, which a long span (an epoch: ~10^5 records)
+    leaves too many of for ``key_averages``."""
+    spans = sorted((ev.start_ns(), ev.end_ns()) for ev in prof.profiler.kineto_results.events()
+                   if str(ev.device_type()).endswith("CUDA") and not ev.is_user_annotation())
+    busy, end = 0, 0
+    for start, stop in spans:
+        busy += max(0, stop - max(start, end))
+        end = max(end, stop)
+    return busy / 1e9
 
 
 def kernel_totals(events, calls: int) -> dict:

@@ -1,5 +1,6 @@
 """Training and evaluation steps (JAX counterpart: ``pamnet_tpu/train/
-loop.py:37-97``, ``make_dp_train_step`` and its ``EpochRunner``).
+loop.py:37-97``, ``make_dp_train_step``, ``_staged``, ``EpochRunner`` and
+``StackedEval``).
 
 One step: forward, masked mean loss of the caller's kind, ``backward``
 through the kernels' backward Functions, the optimizer and, where the caller
@@ -15,18 +16,28 @@ does: each rank's loss is its batch's loss total over the valid graphs of
 every rank's batch, the gradients are summed over the ranks by one
 ``all_reduce`` of one flat float32 buffer, and every rank then clips,
 steps and averages alike, so the replicas stay bit for bit equal.
+
+The epoch pipeline: ``run_epoch`` steps batches that a thread collates
+(``GraphLoader.prefetch``) and a second thread copies to the card
+(``_staged``) while the steps run; ``StackedEval`` collates an evaluation
+split once and keeps it on the card for every epoch.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import functools
 import os
+import sys
+import time
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from pamnet_tpu_torch.data.batch import GraphBatch
+from pamnet_tpu_torch.data.loader import GraphLoader, background
 from pamnet_tpu_torch.train.ema import ema_update
 
 EMA_DECAY = 0.999  # main_qm9.py's EMA
@@ -151,50 +162,203 @@ def dp_train_step(model, optimizer, ema: dict | None, batch: GraphBatch, loss_ki
     return loss
 
 
-def run_epoch(model, optimizer: Optimizer, ema: dict | None, batches,
-              device, loss_kind: str, dp: int = 0) -> tuple[float, int, list]:
-    """Train over ``batches`` (host ``GraphBatch``es).  Returns the sum of
-    the batches' mean losses weighted by their valid graphs (the
-    reference's accounting, main_qm9.py:109,119), the graph count and the
-    per-step losses (device tensors).
+@functools.cache
+def _copy_stream(index: int) -> torch.cuda.Stream:
+    """The stream ``_staged`` copies on: one per card for the process.  The
+    caching allocator keeps each stream's freed blocks apart, so a stream
+    of its own for every epoch would allocate each epoch's batches anew."""
+    return torch.cuda.Stream(index)
 
-    With ``dp`` > 1 ranks, ``batches`` is the ``GraphLoader`` and the epoch
-    runs as JAX's ``EpochRunner.run`` (``loop.py:736-753``): groups of
-    ``dp`` consecutive batches of the loader's order, rank r collating and
-    stepping batch g * dp + r of group g through ``dp_train_step``, each
+
+def _staged(batches, device, depth: int = 2):
+    """The host ``GraphBatch``es of ``batches`` as batches on ``device``,
+    copied in a background thread ``depth`` batches ahead of the caller, so
+    the copies overlap the steps (JAX ``_staged``, ``pamnet_tpu/train/
+    loop.py:626-654``).  On the card the thread copies each tensor to pinned
+    memory and from there with ``non_blocking`` copies on a stream of its
+    own (``_copy_stream``), records an event after them and waits for it before it hands the
+    batch over (so no pinned buffer is freed or reused while its copy
+    runs); every device tensor is recorded on the caller's stream
+    (``record_stream``), and the caller's stream waits on the event before
+    a step reads the batch.  Elsewhere (the CPU) the thread calls
+    ``GraphBatch.to``.  An error of the thread, pinning, the stream and the
+    event included, is raised in the caller: nothing falls back."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        yield from background((gb.to(device) for gb in batches), depth)
+        return
+    compute = torch.cuda.current_stream(device)
+    copies = _copy_stream(compute.device_index)
+
+    def stage(gb: GraphBatch):
+        with torch.cuda.stream(copies):
+            moved = gb.map(lambda t: t.pin_memory().to(device, non_blocking=True))
+            done = torch.cuda.Event()
+            done.record(copies)
+        done.synchronize()
+        for t in moved.tensors():
+            t.record_stream(compute)
+        return moved, done
+
+    with contextlib.closing(background((stage(gb) for gb in batches), depth)) as staged:
+        for moved, done in staged:
+            compute.wait_event(done)
+            yield moved
+
+
+def _timed(items, stats: dict, key: str):
+    """``items``, adding the seconds the caller waits for each to
+    ``stats[key]``."""
+    it = iter(items)
+    with contextlib.closing(it) if hasattr(it, "close") else contextlib.nullcontext():
+        while True:
+            t0 = time.perf_counter()
+            item = next(it, None)
+            stats[key] = stats.get(key, 0.0) + time.perf_counter() - t0
+            if item is None:
+                return
+            yield item
+
+
+def _timed_to(gb: GraphBatch, device, stats: dict) -> GraphBatch:
+    """``gb.to(device)``, its seconds added to ``stats["h2d_s"]``."""
+    t0 = time.perf_counter()
+    moved = gb.to(device)
+    stats["h2d_s"] = stats.get("h2d_s", 0.0) + time.perf_counter() - t0
+    return moved
+
+
+def run_epoch(model, optimizer: Optimizer, ema: dict | None, batches,
+              device, loss_kind: str, dp: int = 0, *, pipelined: bool = True,
+              depth: int = 2, stats: dict | None = None) -> tuple[float, int, list, int]:
+    """Train one epoch over ``batches`` (a ``GraphLoader``, or any iterable
+    of host ``GraphBatch``es) as JAX's ``EpochRunner.run``
+    (``pamnet_tpu/train/loop.py:657-792``) in its single-step and
+    data-parallel modes.  Returns the sum of the batches' mean losses
+    weighted by their valid graphs (the reference's accounting,
+    main_qm9.py:109,119), the graph count, the per-step losses (device
+    tensors, read once, at the epoch's end, by the caller) and the
+    dispatch (step) count.
+
+    Pipelined (the default): a loader's batches come from
+    ``loader.prefetch(depth)`` and every batch reaches the device through
+    ``_staged``, so collation and the copies run in two threads beside the
+    steps.  ``pipelined=False`` collates and copies each batch on the
+    calling thread before its step (pageable copies; the route the epoch
+    pipeline is timed against, as JAX's ``defer_fetch=False``); both
+    routes give the same steps bit for bit.  ``stats``, where given,
+    receives the seconds the calling thread waited for its batches:
+    ``queue_wait_s`` pipelined, ``collate_s`` and ``h2d_s`` serial.
+
+    With ``dp`` > 1 ranks, ``batches`` is the ``GraphLoader``: groups of
+    ``dp`` consecutive batches of the loader's order, rank r collating,
+    staging and stepping batch g * dp + r of group g through
+    ``dp_train_step`` (the group's graph count from the index lists), each
     group's mean loss weighted by its graphs; a trailing partial group is
     stepped a batch at a time, the same batch on every rank."""
+    stats = {} if stats is None else stats
     loss_sum = torch.zeros((), dtype=torch.float64, device=device)
-    graphs, losses = 0, []
-
-    def account(loss, count):
-        nonlocal loss_sum, graphs
-        loss_sum += loss.double() * count
-        graphs += count
-        losses.append(loss)
-
+    graphs, losses, group_counts = 0, [], []
     if dp > 1:
-        loader, r = batches, dist.get_rank()
-        order = loader.batches()
+        order, r = batches.batches(), dist.get_rank()
         whole = len(order) - len(order) % dp
-        for g in range(0, whole, dp):
-            count = sum(len(idxs) for idxs in order[g:g + dp])
-            gb = loader.collate(order[g + r]).to(device)
-            account(dp_train_step(model, optimizer, ema, gb, loss_kind, count), count)
-        batches = (loader.collate(idxs) for idxs in order[whole:])
-    for gb in batches:
-        account(train_step(model, optimizer, ema, gb.to(device), loss_kind), gb.num_graphs)
-    return float(loss_sum), graphs, losses
+        group_counts = [sum(len(idxs) for idxs in order[g:g + dp]) for g in range(0, whole, dp)]
+        mine = [order[g + r] for g in range(0, whole, dp)] + order[whole:]
+        host = (batches.prefetch(depth, order=mine) if pipelined
+                else (batches.collate(idxs) for idxs in mine))
+    elif isinstance(batches, GraphLoader) and pipelined:
+        host = batches.prefetch(depth)
+    else:
+        host = batches
+    if pipelined:
+        stream = _timed(_staged(host, device, depth), stats, "queue_wait_s")
+    else:
+        stream = (_timed_to(gb, device, stats) for gb in _timed(host, stats, "collate_s"))
+    with contextlib.closing(stream):
+        for k, gb in enumerate(stream):
+            if k < len(group_counts):
+                count = group_counts[k]
+                loss = dp_train_step(model, optimizer, ema, gb, loss_kind, count)
+            else:
+                count = gb.num_graphs
+                loss = train_step(model, optimizer, ema, gb, loss_kind)
+            loss_sum += loss.double() * count
+            graphs += count
+            losses.append(loss)
+    return float(loss_sum), graphs, losses, len(losses)
+
+
+def _gathered(outs, widths: list[int], dp: int, device) -> list[np.ndarray]:
+    """Every batch's outputs on the host, in batch order, from ``dp`` ranks
+    of which rank r computed ``outs`` of batches r, r + dp, ... (the list
+    as if padded to a multiple of ``dp``: a rank without a batch in the
+    last round computes none): one ``all_gather`` of one padded buffer."""
+    rounds = -(-len(widths) // dp)
+    width = max(widths)
+    local = torch.zeros(rounds, width, device=device)
+    for s, out in enumerate(outs):
+        local[s, :out.shape[0]] = out
+    gathered = [torch.empty_like(local) for _ in range(dp)]
+    dist.all_gather(gathered, local)
+    by_batch = torch.stack(gathered, 1).reshape(rounds * dp, width).cpu().numpy()
+    return [by_batch[i, :w] for i, w in enumerate(widths)]
+
+
+class StackedEval:
+    """An evaluation split collated once and staged on the device once,
+    then predicted in every epoch from the resident batches (JAX
+    ``StackedEval``, ``pamnet_tpu/train/loop.py:444-541``, without its
+    stacking for a scan).  The split is ``loader``'s batches as iterating
+    it gives them: a shuffled (training) loader draws its next permutation
+    here, as JAX's ``list(loader)`` does; the batches carry no backward
+    arrays.  The valid-graph mask and the targets stay on the host
+    (``mask``, ``y``).  With ``dp`` > 1 ranks each rank stages only its
+    share (batches r, r + dp, ...) and ``predict`` gathers the predictions
+    in batch order.  Prints JAX's line to stderr (``verbose``): batches, MB
+    staged (this rank's), and the collate and transfer seconds
+    (``collate_s``, ``transfer_s``, ``staged_bytes``)."""
+
+    def __init__(self, loader: GraphLoader, device, dp: int = 0, verbose: bool = True):
+        t0 = time.perf_counter()
+        host = [loader.collate(idxs, build_perms=False) for idxs in loader.batches()]
+        t1 = time.perf_counter()
+        self.device, self.dp = torch.device(device), dp
+        self.widths = [gb.graph_mask.shape[0] for gb in host]
+        self.mask = np.concatenate([gb.graph_mask.numpy() for gb in host]) > 0
+        self.y = np.concatenate([gb.y.numpy() for gb in host])[self.mask]
+        mine = host if dp <= 1 else host[dist.get_rank()::dp]
+        self.batches = list(_staged(mine, self.device))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.collate_s, self.transfer_s = t1 - t0, time.perf_counter() - t1
+        self.staged_bytes = sum(t.nbytes for gb in self.batches for t in gb.tensors())
+        if verbose:
+            print(f"StackedEval: {len(host)} batches, {self.staged_bytes / 1e6:.0f} MB "
+                  f"(collate {self.collate_s:.1f}s, transfer {self.transfer_s:.1f}s)",
+                  file=sys.stderr)
+
+    @torch.inference_mode()
+    def predict(self, model) -> tuple[np.ndarray, np.ndarray]:
+        """(predictions, targets) of the split's valid graphs; bit for bit
+        ``predict`` over the same batches collated anew."""
+        outs = (model(gb) for gb in self.batches)
+        if self.dp <= 1:
+            host = torch.cat(list(outs)).cpu().numpy()
+        else:
+            host = np.concatenate(_gathered(outs, self.widths, self.dp, self.device))
+        return host[self.mask], self.y
 
 
 @torch.inference_mode()
 def predict(model, batches, device, dp: int = 0) -> tuple[np.ndarray, np.ndarray]:
-    """(predictions, targets) of the valid graphs of ``batches``.  With
-    ``dp`` > 1 ranks (JAX ``StackedEval(dp=)``), rank r predicts batches r,
-    r + dp, ... (the list as if padded to a multiple of ``dp``: a rank
-    without a batch in the last round predicts none), and the predictions
-    are gathered in batch order, so every rank gets the one-process result
-    bit for bit."""
+    """(predictions, targets) of the valid graphs of ``batches`` (host
+    ``GraphBatch``es, each copied to ``device`` here, or a ``StackedEval``,
+    whose resident batches it predicts).  With ``dp`` > 1 ranks (JAX
+    ``StackedEval(dp=)``), rank r predicts batches r, r + dp, ... and the
+    predictions are gathered in batch order, so every rank gets the
+    one-process result bit for bit."""
+    if isinstance(batches, StackedEval):
+        return batches.predict(model)
     if dp <= 1:
         preds, ys = [], []
         for gb in batches:
@@ -202,18 +366,10 @@ def predict(model, batches, device, dp: int = 0) -> tuple[np.ndarray, np.ndarray
             ys.append(gb.y[:gb.num_graphs].numpy())
         return np.concatenate(preds), np.concatenate(ys)
     batches = list(batches)
-    ys = [gb.y[:gb.num_graphs].numpy() for gb in batches]
-    rounds = -(-len(batches) // dp)
-    width = max(gb.graph_mask.shape[0] for gb in batches)
-    local = torch.zeros(rounds, width, device=device)
-    for s, gb in enumerate(batches[dist.get_rank()::dp]):
-        out = model(gb.to(device))
-        local[s, :out.shape[0]] = out
-    gathered = [torch.empty_like(local) for _ in range(dp)]
-    dist.all_gather(gathered, local)
-    by_batch = torch.stack(gathered, 1).reshape(rounds * dp, width).cpu().numpy()
-    return (np.concatenate([by_batch[i, :gb.num_graphs] for i, gb in enumerate(batches)]),
-            np.concatenate(ys))
+    outs = (model(gb.to(device)) for gb in batches[dist.get_rank()::dp])
+    by_batch = _gathered(outs, [gb.graph_mask.shape[0] for gb in batches], dp, device)
+    return (np.concatenate([out[:gb.num_graphs] for out, gb in zip(by_batch, batches)]),
+            np.concatenate([gb.y[:gb.num_graphs].numpy() for gb in batches]))
 
 
 def mae(model, batches, device, dp: int = 0) -> float:

@@ -150,7 +150,7 @@ def test_loader_batches_come_from_the_plan(monkeypatch):
         assert_same_batch(got, collate_structures(
             [plain.structs[i] for i in idxs], plain.pads, build_perms=True,
             num_atom_types=atom_type_count("qm9")))
-    list(loader.in_order())
+    [loader.collate(idxs, build_perms=False) for idxs in loader.batches()]
     assert calls["i32"] == 15 * 6
 
 

@@ -47,9 +47,10 @@ def test_scan_sees_forbidden_imports(tmp_path):
 def test_scan_covers_every_module_of_the_port():
     """The training modules, the three training entry points, the bench,
     the graph-construction and geometry modules, the artifact reader, the
-    data-parallel modules, the structure cache and the data-preparation
-    modules (preprocessors, mol2, SMARTS, featurizer, PDB) are among the
-    scanned files."""
+    data-parallel modules, the structure cache, the data-preparation
+    modules (preprocessors, mol2, SMARTS, featurizer, PDB) and the epoch
+    pipeline's modules (the loader's ``prefetch``, the batch's copies, the
+    CSV driver) are among the scanned files."""
     scanned = {str(p.relative_to(ROOT)) for p in FILES}
     for rel in ("pamnet_tpu_torch/train/loop.py", "pamnet_tpu_torch/train/ema.py",
                 "pamnet_tpu_torch/train/schedules.py", "pamnet_tpu_torch/main_qm9.py",
@@ -65,5 +66,6 @@ def test_scan_covers_every_module_of_the_port():
                 "pamnet_tpu_torch/data/smarts.py", "pamnet_tpu_torch/data/featurizer.py",
                 "pamnet_tpu_torch/data/pdb.py", "pamnet_tpu_torch/preprocess_pdbbind.py",
                 "pamnet_tpu_torch/preprocess_rna_puzzles.py", "pamnet_tpu_torch/profiling.py",
-                "chip_smoke.py"):
+                "pamnet_tpu_torch/data/loader.py", "pamnet_tpu_torch/data/batch.py",
+                "pamnet_tpu_torch/inference_rna_puzzles.py", "chip_smoke.py"):
         assert rel in scanned, rel
