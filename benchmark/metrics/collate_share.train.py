@@ -1,0 +1,15 @@
+"""Share of the window spent collating training batches: the program's
+``loader.collate`` spans, in the prefetch thread beside the steps."""
+
+LAYER = "epoch pipeline"
+UNIT, BETTER, SOURCE, MOVES = "%", "lower", "program_span", "train_graphs_per_s"
+
+
+def read(facts: dict):
+    from pamnet_tpu_torch import profiling
+
+    records = profiling.spans() if hasattr(profiling, "spans") else []
+    if not records or profiling.dropped():
+        return None  # no recorder in the program, nothing recorded, or spans it could not hold
+    ns = sum(r.end_ns - r.start_ns for r in records if r.name == "loader.collate")
+    return 100.0 * ns / 1e9 / facts["window_s"]

@@ -5,7 +5,11 @@ each collated through a ``CollatePlan`` over the loader's structures (the
 native library's concatenations, as the JAX loader collates wherever its
 library loads; here the library is required).  ``prefetch`` collates the
 next batches in a background thread while the caller steps
-(``background``)."""
+(``background``).  Spans (``profiling.span``): ``loader.build``, a loader's
+construction (the structures' build, ``data/structcache.py``'s
+``build.graph`` and ``build.basis`` inside), and ``loader.collate``, the
+collation of a batch that iteration or ``prefetch`` hands out (``ref``: the
+batch's index under ``prefetch``, else the caller's span's)."""
 
 from __future__ import annotations
 
@@ -23,10 +27,12 @@ from pamnet_tpu_torch.data.batch import (
     collate_structures,
     structure_counts,
 )
+from pamnet_tpu_torch.profiling import span
 
 
-def background(items, depth: int = 2):
-    """Iterate ``items`` in a daemon thread that runs up to ``depth`` items
+def background(items, depth: int = 2, name: str = "pamnet-background"):
+    """Iterate ``items`` in a daemon thread (named ``name``, as the program's
+    spans name their threads) that runs up to ``depth`` items
     ahead of the caller through a bounded queue (the worker of the JAX
     package's ``GraphLoader.prefetch`` and ``train/loop.py::_staged``).  An
     exception of the worker is raised again in the caller and ends the
@@ -59,7 +65,7 @@ def background(items, depth: int = 2):
             if close is not None:
                 close()
 
-    thread = threading.Thread(target=worker, daemon=True, name="pamnet-background")
+    thread = threading.Thread(target=worker, daemon=True, name=name)
     thread.start()
     try:
         while True:
@@ -143,15 +149,16 @@ class GraphLoader:
                                      precompute_basis, num_spherical, num_radial,
                                      envelope_exponent)
         self.cache_built = None
-        if cache_dir is not None:
-            # Cold builds at scale take minutes: show their progress.
-            self.structs = structcache.load_or_build(mols, spec, cache_dir,
-                                                     num_workers=cache_workers,
-                                                     progress=len(mols) >= 10_000)
-            self.cache_built = structcache.load_or_build.built
-        else:
-            self.structs = structcache.build_structures(mols, spec)
-        self._counts = np.array([structure_counts(s) for s in self.structs])
+        with span("loader.build"):
+            if cache_dir is not None:
+                # Cold builds at scale take minutes: show their progress.
+                self.structs = structcache.load_or_build(mols, spec, cache_dir,
+                                                         num_workers=cache_workers,
+                                                         progress=len(mols) >= 10_000)
+                self.cache_built = structcache.load_or_build.built
+            else:
+                self.structs = structcache.build_structures(mols, spec)
+            self._counts = np.array([structure_counts(s) for s in self.structs])
         b = min(batch_size, len(self.structs))
         n, eg, el, t2, t1 = np.sort(self._counts, axis=0)[-b:].sum(axis=0)
         own = PadSizes.for_counts(int(n), max(int(eg), 1), max(int(el), 1),
@@ -220,9 +227,14 @@ class GraphLoader:
                                   variant=self.variant, wire_geometry=self.wire_geometry,
                                   plan=self.plan(), idxs=idxs)
 
+    def _collated(self, idxs: list[int], ref=None):
+        """``collate(idxs)`` as the span ``loader.collate``."""
+        with span("loader.collate", ref):
+            return self.collate(idxs)
+
     def __iter__(self):
         for idxs in self.batches():
-            yield self.collate(idxs)
+            yield self._collated(idxs)
 
     def prefetch(self, depth: int = 2, order: list[list[int]] | None = None):
         """The batches of ``order`` (None: the next epoch's, its permutation
@@ -233,7 +245,8 @@ class GraphLoader:
         concatenations run without the GIL, so they overlap the caller's
         step; an error of the thread is raised in the caller."""
         order = self.batches() if order is None else order
-        return background((self.collate(idxs) for idxs in order), depth)
+        return background((self._collated(idxs, k) for k, idxs in enumerate(order)), depth,
+                          "pamnet-prefetch")
 
 
 def add_geometry_flags(parser) -> None:

@@ -97,15 +97,19 @@ def _chunk_path(cache_dir: str, spec_key: str, start: int, fps: list[bytes]) -> 
 
 def build_structures(mols: list[dict], spec: BuildSpec) -> list[dict]:
     """The structures of ``mols`` as the loader builds them without a
-    cache."""
+    cache: the spans ``build.graph`` (the graphs and tables of every
+    molecule) and ``build.basis`` (their host basis)."""
     from pamnet_tpu_torch.data.batch import attach_basis, precompute_structure
+    from pamnet_tpu_torch.profiling import span
 
-    structs = [precompute_structure(m, spec.dataset_kind, spec.cutoff_l, spec.cutoff_g,
-                                    spec.variant) for m in mols]
+    with span("build.graph"):
+        structs = [precompute_structure(m, spec.dataset_kind, spec.cutoff_l, spec.cutoff_g,
+                                        spec.variant) for m in mols]
     if spec.precompute_basis:
-        for s in structs:
-            attach_basis(s, spec.cutoff_l, spec.num_spherical, spec.num_radial,
-                         spec.envelope_exponent)
+        with span("build.basis"):
+            for s in structs:
+                attach_basis(s, spec.cutoff_l, spec.num_spherical, spec.num_radial,
+                             spec.envelope_exponent)
     return structs
 
 

@@ -178,9 +178,9 @@ def train(args, device, dp: int) -> dict:
     # JAX main_pdbbind.py:224-226.  The training split draws the training
     # loader's first permutation here, before a resumed run restores the
     # loader's generator (whose saved state already counts this draw).
-    train_eval = StackedEval(train_loader, device, dp)
-    val_eval = StackedEval(val_loader, device, dp)
-    test_eval = StackedEval(test_loader, device, dp)
+    train_eval = StackedEval(train_loader, device, dp, split="train")
+    val_eval = StackedEval(val_loader, device, dp, split="val")
+    test_eval = StackedEval(test_loader, device, dp, split="test")
     first_epoch, best_val, test_m = 0, None, (float("nan"),) * 4
     if args.resume:
         extra = load_checkpoint(args.resume, model, optimizer)

@@ -28,7 +28,9 @@ downloaded where none is there (a host without network raises with staging
 instructions).  ``--structure_cache DIR`` serves the built structures from
 an on-disk cache (``data/structcache.py``, the JAX package's format;
 ``--cache_workers N`` builds its missing chunks in N processes);
-``--trace_dir DIR`` writes a profiler trace of epoch 0 (``profiling.py::trace``).
+``--trace_dir DIR`` writes a profiler trace of epoch 0 (``profiling.py::trace``)
+with the program's spans (each thread's steps, waits, collations and copies)
+above the kernels.
 An epoch runs JAX's pipeline (``train/loop.py::run_epoch``): batches
 collated in one thread and copied to the card in another while the steps
 run; the validation and test splits are collated and staged on the card
@@ -94,7 +96,8 @@ def build_parser() -> argparse.ArgumentParser:
                              "construction, models.py:110)")
     parser.add_argument("--trace_dir", type=str, default="",
                         help="Capture a torch.profiler trace (CPU and CUDA activities, "
-                             "Chrome trace JSON) of epoch 0 into this directory")
+                             "and the program's spans; Chrome trace JSON) of epoch 0 "
+                             "into this directory")
     add_geometry_flags(parser)
     add_cache_flags(parser, workers=True)
     return parser
@@ -172,7 +175,8 @@ def train(args, device, dp: int) -> dict:
     # Each evaluation split collated once and staged on the card once (JAX
     # main_qm9.py:352-353); the evaluation loaders' structures and plans are
     # freed here.
-    val_eval, test_eval = StackedEval(val_loader, device, dp), StackedEval(test_loader, device, dp)
+    val_eval = StackedEval(val_loader, device, dp, split="val")
+    test_eval = StackedEval(test_loader, device, dp, split="test")
     del val_loader, test_loader
     print(f"Data loaded! train={len(train_mols)} val={len(val_mols)} "
           f"test={len(test_mols)} pads={train_loader.pads} " + note)

@@ -166,8 +166,8 @@ def train(args, device, dp: int) -> dict:
     # JAX main_rna_puzzles.py:213-216.  The train split draws the training
     # loader's first permutation here, before a resumed run restores the
     # loader's generator (whose saved state already counts this draw).
-    train_eval = StackedEval(train_loader, device, dp)
-    val_eval = StackedEval(val_loader, device, dp)
+    train_eval = StackedEval(train_loader, device, dp, split="train")
+    val_eval = StackedEval(val_loader, device, dp, split="val")
     first_epoch, best_val_loss = 0, None
     if args.resume:
         extra = load_checkpoint(args.resume, model, optimizer)

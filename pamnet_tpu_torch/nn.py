@@ -12,7 +12,9 @@ so gradients reach the float32 parameters through the cast.  Inside
 ``cast_parameters`` the casts of a forward's parameters come from one
 batched cast (a concatenation, one cast and views, and the same in the
 backward) instead of a cast and a cast-back launch per tensor: the same
-values and gradients in a handful of launches.
+values and gradients in a handful of launches.  Each batched cast, forward
+and backward, is the span ``nn.cast`` (``profiling.span``; the backward's
+on the autograd engine's thread).
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ import threading
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from pamnet_tpu_torch.profiling import span
 
 # id(parameter) -> its copy in the compute type, inside ``cast_parameters``.
 _casts = threading.local()
@@ -52,9 +56,10 @@ class _CastAll(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
-        flat = torch.cat([g.reshape(-1) for g in grads]).to(ctx.src_dtype)
-        sizes = [math.prod(shape) for shape in ctx.shapes]
-        return (None, *(v.view(shape) for v, shape in zip(flat.split(sizes), ctx.shapes)))
+        with span("nn.cast"):
+            flat = torch.cat([g.reshape(-1) for g in grads]).to(ctx.src_dtype)
+            sizes = [math.prod(shape) for shape in ctx.shapes]
+            return (None, *(v.view(shape) for v, shape in zip(flat.split(sizes), ctx.shapes)))
 
 
 @contextlib.contextmanager
@@ -62,7 +67,8 @@ def cast_parameters(params: list[torch.Tensor], dtype: torch.dtype):
     """Within the block, ``as_dtype(p, dtype)`` of each of ``params`` (one
     type) is its view of one batched cast, differentiable in ``p``."""
     prev = getattr(_casts, "by_id", None)
-    casts = _CastAll.apply(dtype, *params)
+    with span("nn.cast"):
+        casts = _CastAll.apply(dtype, *params)
     _casts.by_id = {**(prev or {}), **{id(p): c for p, c in zip(params, casts)}}
     try:
         yield

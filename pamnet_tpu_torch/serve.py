@@ -15,11 +15,22 @@ API (JSON unless noted):
 Run: ``python -m pamnet_tpu_torch.serve --seed 0`` (random weights) or
 ``--saved_model pamnet_rna.pt``; ``--device`` defaults to ``cuda`` and the
 service refuses to start without a card unless ``--device cpu`` is given.
+
+Spans (``profiling.span``, recorded while a profile runs), on the handler's
+thread, each with the request's id (the server's count of POSTs) as
+``ref``: ``serve.request``, the whole POST from its body's read to the
+reply's write, and inside it ``serve.parse`` (the body's read and parse),
+``serve.validate``, ``serve.lock_wait`` (from before the service's lock
+until it is held), the loader's ``loader.build`` and ``loader.collate``,
+then per batch ``serve.h2d`` (the copy's issue), ``serve.forward`` (the
+forward's issue) and ``serve.d2h`` (the copy back, which waits for the
+forward), and ``serve.reply``.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import threading
 
@@ -30,6 +41,7 @@ from pamnet_tpu_torch.config import PAMNetConfig, resolve_device, set_matmul_pre
 from pamnet_tpu_torch.data.loader import GraphLoader
 from pamnet_tpu_torch.data.pdb import parse_pdb_atoms
 from pamnet_tpu_torch.models.pamnet import PAMNet
+from pamnet_tpu_torch.profiling import span
 
 _RNA_TYPES = {"C": 0, "N": 1, "O": 2}
 
@@ -89,9 +101,12 @@ class RNAScoringService:
 
     def score_molecules(self, mols: list[dict]) -> np.ndarray:
         """(len(mols),) scores."""
-        mols = self._validate(mols)
+        with span("serve.validate"):
+            mols = self._validate(mols)
         cfg = self.cfg
-        with self._lock:
+        with span("serve.lock_wait"):
+            self._lock.acquire()
+        try:
             loader = GraphLoader(
                 mols, cfg.dataset_kind, cfg.cutoff_l, cfg.cutoff_g,
                 batch_size=self.batch_size, pads=self._pads,
@@ -103,8 +118,14 @@ class RNAScoringService:
             out = []
             with torch.inference_mode():
                 for gb in loader:
-                    res = self.model(gb.to(self.device))
-                    out.append(res[:gb.num_graphs].cpu().numpy())
+                    with span("serve.h2d"):
+                        gb = gb.to(self.device)
+                    with span("serve.forward"):
+                        res = self.model(gb)
+                    with span("serve.d2h"):
+                        out.append(res[:gb.num_graphs].cpu().numpy())
+        finally:
+            self._lock.release()
         return np.concatenate(out)
 
 
@@ -113,6 +134,8 @@ def make_server(service: RNAScoringService, host: str, port: int,
     """A ThreadingHTTPServer wired to the service, returned unstarted."""
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
     from urllib.parse import parse_qs, urlparse
+
+    request_ids = itertools.count()
 
     class Handler(BaseHTTPRequestHandler):
         def _reply(self, code: int, payload: dict):
@@ -134,27 +157,34 @@ def make_server(service: RNAScoringService, host: str, port: int,
                 self._reply(404, {"error": "unknown path"})
 
         def do_POST(self):
+            with span("serve.request", next(request_ids)):
+                self._post()
+
+        def _post(self):
             parsed = urlparse(self.path)
             if parsed.path != "/score":
-                self._reply(404, {"error": "unknown path"})
+                with span("serve.reply"):
+                    self._reply(404, {"error": "unknown path"})
                 return
             try:
-                n = int(self.headers.get("Content-Length", 0))
-                body = self.rfile.read(n)
-                ctype = self.headers.get("Content-Type", "")
-                if ctype.startswith("application/json"):
-                    mols = json.loads(body)["molecules"]
-                    names = [m.get("name", f"molecule_{i}")
-                             for i, m in enumerate(mols)]
-                else:
-                    q = parse_qs(parsed.query)
-                    names = [q.get("name", ["structure"])[0]]
-                    mols = [pdb_text_to_molecule(body.decode())]
+                with span("serve.parse"):
+                    n = int(self.headers.get("Content-Length", 0))
+                    body = self.rfile.read(n)
+                    ctype = self.headers.get("Content-Type", "")
+                    if ctype.startswith("application/json"):
+                        mols = json.loads(body)["molecules"]
+                        names = [m.get("name", f"molecule_{i}")
+                                 for i, m in enumerate(mols)]
+                    else:
+                        q = parse_qs(parsed.query)
+                        names = [q.get("name", ["structure"])[0]]
+                        mols = [pdb_text_to_molecule(body.decode())]
                 scores = service.score_molecules(mols)
-                self._reply(200, {"names": names,
-                                  "scores": [float(s) for s in scores]})
+                code, payload = 200, {"names": names, "scores": [float(s) for s in scores]}
             except Exception as e:  # noqa: BLE001 - reported to the client
-                self._reply(400, {"error": f"{type(e).__name__}: {e}"})
+                code, payload = 400, {"error": f"{type(e).__name__}: {e}"}
+            with span("serve.reply"):
+                self._reply(code, payload)
 
     return ThreadingHTTPServer((host, port), Handler)
 

@@ -21,6 +21,16 @@ The epoch pipeline: ``run_epoch`` steps batches that a thread collates
 (``GraphLoader.prefetch``) and a second thread copies to the card
 (``_staged``) while the steps run; ``StackedEval`` collates an evaluation
 split once and keeps it on the card for every epoch.
+
+Spans (``profiling.span``, recorded while a profile runs): a step's
+``step.forward`` (the forward's issue and the loss, the parameter cast
+inside), ``step.backward`` (``backward``'s issue; on the card the autograd
+engine's device thread runs it while this thread waits), ``step.all_reduce``
+(data parallel) and ``step.update`` (the optimizer and the EMA), each with
+the batch's index in the epoch as ``ref``; ``pipeline.queue_wait``, the
+step thread's wait for its next batch; ``pipeline.stage``, the staging
+thread's work on a batch; ``epoch.drain``, the read of the loss sum that
+waits for the epoch's last steps; ``eval.predict``, an evaluation pass.
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import functools
+import itertools
 import os
 import sys
 import time
@@ -38,6 +49,7 @@ import torch.distributed as dist
 
 from pamnet_tpu_torch.data.batch import GraphBatch
 from pamnet_tpu_torch.data.loader import GraphLoader, background
+from pamnet_tpu_torch.profiling import record, span
 from pamnet_tpu_torch.train.ema import ema_update
 
 EMA_DECAY = 0.999  # main_qm9.py's EMA
@@ -109,16 +121,20 @@ class Optimizer:
 
 
 def train_step(model, optimizer: Optimizer, ema: dict | None,
-               batch: GraphBatch, loss_kind: str) -> torch.Tensor:
+               batch: GraphBatch, loss_kind: str, ref=None) -> torch.Tensor:
     """One optimizer step on ``batch`` (on the model's device) and, with an
     ``ema``, its update at decay 0.999; returns the batch's mean loss as a
-    device tensor."""
+    device tensor.  ``ref`` names the step's spans (``run_epoch``: the
+    batch's index)."""
     optimizer.zero_grad()
-    loss = batch_loss(model, batch, loss_kind)
-    loss.backward()
-    optimizer.step()
-    if ema is not None:
-        ema_update(ema, dict(model.named_parameters()), EMA_DECAY)
+    with span("step.forward", ref):
+        loss = batch_loss(model, batch, loss_kind)
+    with span("step.backward", ref):
+        loss.backward()
+    with span("step.update", ref):
+        optimizer.step()
+        if ema is not None:
+            ema_update(ema, dict(model.named_parameters()), EMA_DECAY)
     return loss.detach()
 
 
@@ -141,7 +157,7 @@ def reduce_gradients(params: list[torch.Tensor], extra: torch.Tensor) -> torch.T
 
 
 def dp_train_step(model, optimizer, ema: dict | None, batch: GraphBatch, loss_kind: str,
-                  global_count: int) -> torch.Tensor:
+                  global_count: int, ref=None) -> torch.Tensor:
     """One data-parallel step on this rank's ``batch`` (JAX
     ``make_dp_train_step``, ``pamnet_tpu/train/loop.py:542-576``): the loss
     total over ``global_count``, the valid graphs of every rank's batch
@@ -149,16 +165,20 @@ def dp_train_step(model, optimizer, ema: dict | None, batch: GraphBatch, loss_ki
     and no read from the card), ``backward``, the gradients and the loss
     summed by ``reduce_gradients``, then the optimizer and the EMA on every
     rank alike.  Returns the group's mean loss as a device tensor.  With one
-    rank it is ``train_step`` bit for bit."""
+    rank it is ``train_step`` bit for bit (``ref`` as there)."""
     optimizer.zero_grad()
-    total, _ = loss_terms(model(batch), batch.y, batch.graph_mask, loss_kind)
-    local = total / torch.full((), float(max(global_count, 1)), dtype=total.dtype,
-                               device=total.device)
-    local.backward()
-    loss = reduce_gradients(list(model.parameters()), local.detach())
-    optimizer.step()
-    if ema is not None:
-        ema_update(ema, dict(model.named_parameters()), EMA_DECAY)
+    with span("step.forward", ref):
+        total, _ = loss_terms(model(batch), batch.y, batch.graph_mask, loss_kind)
+        local = total / torch.full((), float(max(global_count, 1)), dtype=total.dtype,
+                                   device=total.device)
+    with span("step.backward", ref):
+        local.backward()
+    with span("step.all_reduce", ref):
+        loss = reduce_gradients(list(model.parameters()), local.detach())
+    with span("step.update", ref):
+        optimizer.step()
+        if ema is not None:
+            ema_update(ema, dict(model.named_parameters()), EMA_DECAY)
     return loss
 
 
@@ -182,39 +202,52 @@ def _staged(batches, device, depth: int = 2):
     (``record_stream``), and the caller's stream waits on the event before
     a step reads the batch.  Elsewhere (the CPU) the thread calls
     ``GraphBatch.to``.  An error of the thread, pinning, the stream and the
-    event included, is raised in the caller: nothing falls back."""
+    event included, is raised in the caller: nothing falls back.  Each
+    batch's work in the thread is the span ``pipeline.stage`` (``ref``: its
+    index)."""
     device = torch.device(device)
     if device.type != "cuda":
-        yield from background((gb.to(device) for gb in batches), depth)
+        def move(k: int, gb: GraphBatch) -> GraphBatch:
+            with span("pipeline.stage", k):
+                return gb.to(device)
+
+        yield from background((move(k, gb) for k, gb in enumerate(batches)), depth,
+                              "pamnet-stage")
         return
     compute = torch.cuda.current_stream(device)
     copies = _copy_stream(compute.device_index)
 
-    def stage(gb: GraphBatch):
-        with torch.cuda.stream(copies):
-            moved = gb.map(lambda t: t.pin_memory().to(device, non_blocking=True))
-            done = torch.cuda.Event()
-            done.record(copies)
-        done.synchronize()
-        for t in moved.tensors():
-            t.record_stream(compute)
+    def stage(k: int, gb: GraphBatch):
+        with span("pipeline.stage", k):
+            with torch.cuda.stream(copies):
+                moved = gb.map(lambda t: t.pin_memory().to(device, non_blocking=True))
+                done = torch.cuda.Event()
+                done.record(copies)
+            done.synchronize()
+            for t in moved.tensors():
+                t.record_stream(compute)
         return moved, done
 
-    with contextlib.closing(background((stage(gb) for gb in batches), depth)) as staged:
+    with contextlib.closing(background((stage(k, gb) for k, gb in enumerate(batches)),
+                                       depth, "pamnet-stage")) as staged:
         for moved, done in staged:
             compute.wait_event(done)
             yield moved
 
 
-def _timed(items, stats: dict, key: str):
+def _timed(items, stats: dict, key: str, span_name: str | None = None):
     """``items``, adding the seconds the caller waits for each to
-    ``stats[key]``."""
+    ``stats[key]``; with ``span_name``, each wait is also that span (``ref``:
+    the item's index), from the same clock reads."""
     it = iter(items)
     with contextlib.closing(it) if hasattr(it, "close") else contextlib.nullcontext():
-        while True:
-            t0 = time.perf_counter()
+        for k in itertools.count():
+            t0 = time.time_ns()
             item = next(it, None)
-            stats[key] = stats.get(key, 0.0) + time.perf_counter() - t0
+            t1 = time.time_ns()
+            stats[key] = stats.get(key, 0.0) + (t1 - t0) / 1e9
+            if span_name is not None:
+                record(span_name, t0, t1, k)
             if item is None:
                 return
             yield item
@@ -271,21 +304,24 @@ def run_epoch(model, optimizer: Optimizer, ema: dict | None, batches,
     else:
         host = batches
     if pipelined:
-        stream = _timed(_staged(host, device, depth), stats, "queue_wait_s")
+        stream = _timed(_staged(host, device, depth), stats, "queue_wait_s",
+                        "pipeline.queue_wait")
     else:
         stream = (_timed_to(gb, device, stats) for gb in _timed(host, stats, "collate_s"))
     with contextlib.closing(stream):
         for k, gb in enumerate(stream):
             if k < len(group_counts):
                 count = group_counts[k]
-                loss = dp_train_step(model, optimizer, ema, gb, loss_kind, count)
+                loss = dp_train_step(model, optimizer, ema, gb, loss_kind, count, ref=k)
             else:
                 count = gb.num_graphs
-                loss = train_step(model, optimizer, ema, gb, loss_kind)
+                loss = train_step(model, optimizer, ema, gb, loss_kind, ref=k)
             loss_sum += loss.double() * count
             graphs += count
             losses.append(loss)
-    return float(loss_sum), graphs, losses, len(losses)
+    with span("epoch.drain"):
+        total = float(loss_sum)
+    return total, graphs, losses, len(losses)
 
 
 def _gathered(outs, widths: list[int], dp: int, device) -> list[np.ndarray]:
@@ -308,7 +344,8 @@ class StackedEval:
     """An evaluation split collated once and staged on the device once,
     then predicted in every epoch from the resident batches (JAX
     ``StackedEval``, ``pamnet_tpu/train/loop.py:444-541``, without its
-    stacking for a scan).  The split is ``loader``'s batches as iterating
+    stacking for a scan).  ``split`` names its ``eval.predict`` spans (their
+    ``ref``).  The split is ``loader``'s batches as iterating
     it gives them: a shuffled (training) loader draws its next permutation
     here, as JAX's ``list(loader)`` does; the batches carry no backward
     arrays.  The valid-graph mask and the targets stay on the host
@@ -318,11 +355,12 @@ class StackedEval:
     staged (this rank's), and the collate and transfer seconds
     (``collate_s``, ``transfer_s``, ``staged_bytes``)."""
 
-    def __init__(self, loader: GraphLoader, device, dp: int = 0, verbose: bool = True):
+    def __init__(self, loader: GraphLoader, device, dp: int = 0, verbose: bool = True,
+                 split: str | None = None):
         t0 = time.perf_counter()
         host = [loader.collate(idxs, build_perms=False) for idxs in loader.batches()]
         t1 = time.perf_counter()
-        self.device, self.dp = torch.device(device), dp
+        self.device, self.dp, self.split = torch.device(device), dp, split
         self.widths = [gb.graph_mask.shape[0] for gb in host]
         self.mask = np.concatenate([gb.graph_mask.numpy() for gb in host]) > 0
         self.y = np.concatenate([gb.y.numpy() for gb in host])[self.mask]
@@ -341,11 +379,12 @@ class StackedEval:
     def predict(self, model) -> tuple[np.ndarray, np.ndarray]:
         """(predictions, targets) of the split's valid graphs; bit for bit
         ``predict`` over the same batches collated anew."""
-        outs = (model(gb) for gb in self.batches)
-        if self.dp <= 1:
-            host = torch.cat(list(outs)).cpu().numpy()
-        else:
-            host = np.concatenate(_gathered(outs, self.widths, self.dp, self.device))
+        with span("eval.predict", self.split):
+            outs = (model(gb) for gb in self.batches)
+            if self.dp <= 1:
+                host = torch.cat(list(outs)).cpu().numpy()
+            else:
+                host = np.concatenate(_gathered(outs, self.widths, self.dp, self.device))
         return host[self.mask], self.y
 
 

@@ -94,7 +94,10 @@ def _assert_same(a: GraphBatch, b: GraphBatch) -> None:
 
 
 def _background_threads() -> list[threading.Thread]:
-    return [t for t in threading.enumerate() if t.name == "pamnet-background" and t.is_alive()]
+    """The live threads of ``background`` (the prefetch's and the staging's
+    carry names of their own)."""
+    names = ("pamnet-background", "pamnet-prefetch", "pamnet-stage")
+    return [t for t in threading.enumerate() if t.name in names and t.is_alive()]
 
 
 @pytest.mark.parametrize("shuffle", [False, True], ids=["in_order", "shuffled"])
