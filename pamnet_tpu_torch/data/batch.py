@@ -144,6 +144,10 @@ class PadSizes:
     t1: int
     g: int
 
+    def widened(self, other: "PadSizes") -> "PadSizes":
+        """The element-wise max of the two buckets."""
+        return PadSizes(*map(max, dataclasses.astuple(self), dataclasses.astuple(other)))
+
     @staticmethod
     def round_up(x: int, align: int = 128) -> int:
         return max(align, int(math.ceil(x / align)) * align)

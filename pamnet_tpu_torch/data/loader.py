@@ -164,10 +164,7 @@ class GraphLoader:
         own = PadSizes.for_counts(int(n), max(int(eg), 1), max(int(el), 1),
                                   max(int(t2), 1), max(int(t1), 1), batch_size,
                                   align=align)
-        if pads is not None:
-            own = PadSizes(*(max(getattr(pads, f.name), getattr(own, f.name))
-                             for f in dataclasses.fields(PadSizes)))
-        self.pads = own
+        self.pads = own if pads is None else own.widened(pads)
         self._plan: CollatePlan | None = None
         self._plan_lock = threading.Lock()
 

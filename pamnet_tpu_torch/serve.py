@@ -20,11 +20,17 @@ Spans (``profiling.span``, recorded while a profile runs), on the handler's
 thread, each with the request's id (the server's count of POSTs) as
 ``ref``: ``serve.request``, the whole POST from its body's read to the
 reply's write, and inside it ``serve.parse`` (the body's read and parse),
-``serve.validate``, ``serve.lock_wait`` (from before the service's lock
-until it is held), the loader's ``loader.build`` and ``loader.collate``,
-then per batch ``serve.h2d`` (the copy's issue), ``serve.forward`` (the
+``serve.validate``, the loader's ``loader.build``, then per batch
+``loader.collate``, ``serve.lock_wait`` (from before the service's lock
+until it is held), ``serve.h2d`` (the copy's issue), ``serve.forward`` (the
 forward's issue) and ``serve.d2h`` (the copy back, which waits for the
 forward), and ``serve.reply``.
+
+Concurrency: the handler threads build and collate their requests' graphs
+at once, with no lock held (the native graph builders, numpy's array loops
+of the basis and the collation's concatenations run without the GIL); the
+service's lock covers only a batch's copy to the device, its forward and its
+copy back.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ import numpy as np
 import torch
 
 from pamnet_tpu_torch.config import PAMNetConfig, resolve_device, set_matmul_precision
+from pamnet_tpu_torch.data.batch import PadSizes
 from pamnet_tpu_torch.data.loader import GraphLoader
 from pamnet_tpu_torch.data.pdb import parse_pdb_atoms
 from pamnet_tpu_torch.models.pamnet import PAMNet
@@ -57,9 +64,11 @@ def pdb_text_to_molecule(text: str) -> dict:
 
 
 class RNAScoringService:
-    """Model resident on ``device``; scoring is serialized, and the pads of
-    every request widen a high-water bucket that later requests start from,
-    so batch shapes stay on the geometric ladder."""
+    """Model resident on ``device``.  Each request builds and collates its
+    graphs with no lock held; ``_lock`` serializes only a batch's copy to the
+    device, forward and copy back.  The pads of every request widen a
+    high-water bucket (``_pads``, under ``_pads_lock``) that later requests
+    start from, so batch shapes stay on the geometric ladder."""
 
     def __init__(self, state_dict: dict, cfg: PAMNetConfig, batch_size: int = 16,
                  ladder_pads: bool = True, device: str | torch.device | None = None):
@@ -74,6 +83,7 @@ class RNAScoringService:
         model.load_state_dict(state_dict, strict=True)
         self.model = model.to(self.device).eval()
         self._lock = threading.Lock()
+        self._pads_lock = threading.Lock()
         self._pads = None
 
     def _validate(self, mols: list[dict]) -> list[dict]:
@@ -100,33 +110,39 @@ class RNAScoringService:
         return mols
 
     def score_molecules(self, mols: list[dict]) -> np.ndarray:
-        """(len(mols),) scores."""
+        """(len(mols),) scores.  The graph build starts from the high-water
+        pads as they stand when the request starts."""
         with span("serve.validate"):
             mols = self._validate(mols)
         cfg = self.cfg
-        with span("serve.lock_wait"):
-            self._lock.acquire()
-        try:
-            loader = GraphLoader(
-                mols, cfg.dataset_kind, cfg.cutoff_l, cfg.cutoff_g,
-                batch_size=self.batch_size, pads=self._pads,
-                ladder_pads=self.ladder_pads, num_spherical=cfg.num_spherical,
-                num_radial=cfg.num_radial,
-                envelope_exponent=cfg.envelope_exponent,
-            )
-            self._pads = loader.pads
-            out = []
-            with torch.inference_mode():
-                for gb in loader:
+        loader = GraphLoader(
+            mols, cfg.dataset_kind, cfg.cutoff_l, cfg.cutoff_g,
+            batch_size=self.batch_size, pads=self._pads,
+            ladder_pads=self.ladder_pads, num_spherical=cfg.num_spherical,
+            num_radial=cfg.num_radial,
+            envelope_exponent=cfg.envelope_exponent,
+        )
+        self._widen_pads(loader.pads)
+        out = []
+        with torch.inference_mode():
+            for gb in loader:
+                with span("serve.lock_wait"):
+                    self._lock.acquire()
+                try:
                     with span("serve.h2d"):
                         gb = gb.to(self.device)
                     with span("serve.forward"):
                         res = self.model(gb)
                     with span("serve.d2h"):
                         out.append(res[:gb.num_graphs].cpu().numpy())
-        finally:
-            self._lock.release()
+                finally:
+                    self._lock.release()
         return np.concatenate(out)
+
+    def _widen_pads(self, pads: PadSizes) -> None:
+        """The high-water pads become their element-wise max with ``pads``."""
+        with self._pads_lock:
+            self._pads = pads if self._pads is None else self._pads.widened(pads)
 
 
 def make_server(service: RNAScoringService, host: str, port: int,

@@ -1,13 +1,17 @@
 """The port's parameters and scoring service on the CPU: JAX parameters map
 onto the reference state-dict names, reference ``.pt`` files load, the HTTP
-routes answer as direct scoring does, and nothing runs on the CPU unless it
-was asked for."""
+routes answer as direct scoring does, concurrent requests build their graphs
+at once and score bit for bit as one at a time, the high-water pads lose no
+widening, and nothing runs on the CPU unless it was asked for."""
 
 from torch_threads import limit_intra_op_threads
 
 limit_intra_op_threads()
 
+import dataclasses
 import json
+import os
+import sys
 import threading
 import urllib.error
 import urllib.request
@@ -24,7 +28,10 @@ from pamnet_tpu.models import init_pamnet
 from pamnet_tpu.train.checkpoint import params_to_torch, save_torch_checkpoint
 from pamnet_tpu_torch import serve
 from pamnet_tpu_torch.config import PAMNetConfig, resolve_device
+from pamnet_tpu_torch.data import structcache
+from pamnet_tpu_torch.data.batch import PadSizes
 from pamnet_tpu_torch.data.loader import GraphLoader
+from pamnet_tpu_torch.data.synthetic import rna_like_structure
 from pamnet_tpu_torch.models.pamnet import PAMNet
 from pamnet_tpu_torch.weights import (
     from_jax_params,
@@ -166,6 +173,123 @@ def test_rejects_bad_input(service, mols):
     with pytest.raises(ValueError, match="no C/N/O"):
         serve.pdb_text_to_molecule("HETATM    1 MG   MG A   1       0.000"
                                    "   0.000   0.000  1.00  0.00          MG\n")
+
+
+def _fresh_service() -> serve.RNAScoringService:
+    cfg = PAMNetConfig(**RNA)
+    return serve.RNAScoringService(init_params(cfg, torch.Generator().manual_seed(1)), cfg,
+                                   batch_size=2, device="cpu")
+
+
+def _requests(sizes: list[list[int]], seed: int = 5) -> list[list[dict]]:
+    """One request a list of atom counts: molecules of those sizes."""
+    rng = np.random.default_rng(seed)
+    return [[rna_like_structure(rng, n) for n in req] for req in sizes]
+
+
+def _concurrently(calls, timeout: float = 120.0) -> list:
+    """Each call in a thread of its own, all started together; their
+    results in order (a call's exception is raised here)."""
+    results: list = [None] * len(calls)
+
+    def run(k, fn):
+        try:
+            results[k] = (True, fn())
+        except Exception as e:  # noqa: BLE001 - raised in the test's thread
+            results[k] = (False, e)
+
+    threads = [threading.Thread(target=run, args=(k, fn)) for k, fn in enumerate(calls)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout)
+    assert not any(t.is_alive() for t in threads)
+    for ok, value in results:
+        if not ok:
+            raise value
+    return [value for _, value in results]
+
+
+def test_concurrent_requests_build_their_graphs_at_once(monkeypatch):
+    """Each graph build waits for a second one to start: both requests
+    finish only if neither build runs under the other's lock."""
+    service, (a, b) = _fresh_service(), _requests([[30], [40]])
+    barrier = threading.Barrier(2, timeout=30)
+    build = structcache.build_structures
+
+    def meeting(mols, spec):
+        barrier.wait()
+        return build(mols, spec)
+
+    monkeypatch.setattr(structcache, "build_structures", meeting)
+    got = _concurrently([lambda: service.score_molecules(a),
+                         lambda: service.score_molecules(b)], timeout=60)
+    assert [g.shape for g in got] == [(1,), (1,)]
+    assert all(np.all(np.isfinite(g)) for g in got)
+
+
+def test_concurrent_scores_are_the_serial_scores():
+    """8 requests from 4 threads score bit for bit as the same requests one
+    at a time on a fresh service, once a warm-up has settled the pads."""
+    warmup = _requests([[70, 65, 60]], seed=4)[0]
+    reqs = _requests([[30], [45, 35], [60], [25, 55], [50], [40, 30], [35], [65, 20]])
+    concurrent, serial = _fresh_service(), _fresh_service()
+    for service in (concurrent, serial):
+        service.score_molecules(warmup)
+    settled = concurrent._pads
+
+    def client(w):
+        return [concurrent.score_molecules(r) for r in reqs[w::4]]
+
+    by_client = _concurrently([lambda w=w: client(w) for w in range(4)])
+    got = [by_client[k % 4][k // 4] for k in range(len(reqs))]
+    want = [serial.score_molecules(r) for r in reqs]
+    assert concurrent._pads == serial._pads == settled
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == (len(reqs[k]),) and np.array_equal(g, w), k
+
+
+def test_the_high_water_pads_are_every_requests_max(monkeypatch):
+    """After concurrent requests of different sizes the service's pads are
+    the element-wise max of every request's loader pads."""
+    pads = []
+
+    class Recorded(GraphLoader):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            pads.append(self.pads)
+
+    monkeypatch.setattr(serve, "GraphLoader", Recorded)
+    service = _fresh_service()
+    reqs = _requests([[80], [20, 25], [30, 75], [50], [45, 40], [90]], seed=6)
+    _concurrently([lambda r=r: service.score_molecules(r) for r in reqs])
+    assert len(pads) == len(reqs)
+    fields = [f.name for f in dataclasses.fields(PadSizes)]
+    assert service._pads == PadSizes(*(max(getattr(p, f) for p in pads) for f in fields))
+
+
+def test_pads_widen_without_a_lost_update():
+    """More threads than cores widen the pads at once, the interpreter
+    switching threads every microsecond: no widening is lost."""
+    service = _fresh_service()
+    threads_n, each = 4 * (os.cpu_count() or 1), 200
+    rng = np.random.default_rng(0)
+    offered = [[PadSizes(*(int(v) for v in rng.integers(1, 10 ** 6, 6))) for _ in range(each)]
+               for _ in range(threads_n)]
+
+    def widen(mine):
+        for p in mine:
+            service._widen_pads(p)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        _concurrently([lambda m=m: widen(m) for m in offered], timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    every = [p for mine in offered for p in mine]
+    assert service._pads == PadSizes(*(max(vals) for vals in
+                                       zip(*(dataclasses.astuple(p) for p in every))))
 
 
 def test_no_device_without_cuda_raises(monkeypatch):

@@ -2,7 +2,7 @@
 off outside a profile, on for every thread inside one, the spans of a
 pipelined training epoch and of concurrent scoring requests, their export
 into ``profiling.trace``'s Chrome trace, their self-time segments, and the
-benchmark's nine readers of them over hand-made span lists.  One test,
+benchmark's ten readers of them over hand-made span lists.  One test,
 marked ``gpu``, holds a span against the card's record of the kernel inside
 it (``python -m pytest --noconftest tests/test_torch_tracing.py -m gpu`` on
 the card)."""
@@ -325,7 +325,9 @@ def test_threads_racing_to_record_lose_no_span(monkeypatch):
 
 # The benchmark's readers over hand-made spans, in a 10 s window: two
 # requests of 1 s (0.6 s waiting on the lock in all), two builds of 0.25 s
-# (0.2 s of basis in all), a collation of 0.1 s; 2 s of forwards (0.5 s of
+# and a third on another thread overlapping the first by half (0.3 s of
+# basis in all: 0.75 s of builds over 0.625 s of their union), a collation
+# of 0.1 s; 2 s of forwards (0.5 s of
 # casts inside, 0.25 s more on the autograd thread), 3 s of backwards, 1 s
 # of updates, 4 s of collation and 0.5 s of staging on threads of their own.
 S = 10 ** 9
@@ -340,10 +342,13 @@ HAND = [
     _span("step.backward", 0, 3 * S, 13), _span("step.update", 0, S, 14),
     _span("loader.collate", 0, 4 * S, 15, thread="P"),
     _span("pipeline.stage", 0, S // 2, 16, thread="Q"),
+    _span("loader.build", S // 8, S // 8 + S // 4, 17, thread="R"),
+    _span("build.basis", S // 8, S // 8 + S // 10, 18, 17, thread="R"),
 ]
 READINGS = {
     "lock_wait_share.score": 30.0,
-    "graph_build_share.score": 100.0 * (0.5 + 4.1) / 10,
+    "graph_build_share.score": 100.0 * (0.75 + 4.1) / 10,
+    "build_concurrency.score": 0.75 / 0.625,
     "basis_share.score": 40.0,
     "collate_share.train": 41.0,
     "stage_share.train": 5.0,
@@ -377,6 +382,20 @@ def test_a_reader_reads_nothing_without_spans_or_with_dropped_ones(name, monkeyp
     monkeypatch.setattr(profiling, "_dropped", 0)
     monkeypatch.delattr(profiling, "spans")  # a program without the recorder
     assert reader.read({"window_s": 10.0}) is None
+
+
+@pytest.mark.parametrize("builds,want", [
+    ([(0, 4)], 1.0),
+    ([(0, 4), (4, 8), (10, 12)], 1.0),  # back to back and apart: never two at once
+    ([(0, 4), (0, 4)], 2.0),
+    ([(0, 8), (2, 4), (3, 6), (10, 12)], (8 + 2 + 3 + 2) / 10),
+], ids=["one", "apart", "together", "nested"])
+def test_build_concurrency_is_builds_in_flight_while_any_runs(builds, want, monkeypatch):
+    recs = [_span("loader.build", a * S, b * S, k, thread=f"h{k}")
+            for k, (a, b) in enumerate(builds, 1)]
+    monkeypatch.setattr(profiling, "_records", recs + [_span("loader.collate", 0, 20 * S, 99)])
+    got = bench_run.metric_reader("build_concurrency.score").read({"window_s": 20.0})
+    assert got == pytest.approx(want)
 
 
 @pytest.fixture
