@@ -1,12 +1,14 @@
 // Host graph construction of the port: radius and knn neighbour search and
 // the incoming-edge expansion behind the triplet and pair tables (reference:
 // models.py:110,143 radius/knn; models.py:68-98 the SparseTensor expansion),
-// and the padded concatenations of batch collation (data/batch.py's
-// CollatePlan).
+// the padded concatenations of batch collation (data/batch.py's
+// CollatePlan), and each batch's CSR arrays (csr_offsets over rows sorted by
+// a key; csr_perm, the stable sort of the backward's keyed rows).
 //
 // A copy of the JAX package's csrc/graphbuild.cc (radius_graph, knn_graph,
-// expand_incoming, concat_offset_i32, concat_rows_f32), changed so that
-// each function gives the numpy path's arrays bit for bit
+// expand_incoming, concat_offset_i32, concat_rows_f32; csr_perm and
+// csr_offsets are the port's own), changed so that each function gives the
+// numpy path's arrays bit for bit
 // (pamnet_tpu_torch/data/graphbuild.py, data/batch.py):
 //   * radius_graph emits each query's sources in index order and keeps the
 //     first max_nb of them, and compares the float32 squared distance with
@@ -14,7 +16,9 @@
 //   * knn_graph measures distances in double, as the numpy builder does,
 //     and breaks distance ties by index;
 //   * concat_offset_i32 adds the offsets with int32 wraparound, as numpy
-//     does.
+//     does;
+//   * csr_perm is build_perm_np's stable argsort and bincount, csr_offsets
+//     _offsets' sortedness check and searchsorted.
 // Built with g++ at first use and loaded through ctypes
 // (pamnet_tpu_torch/data/native.py).
 //
@@ -208,6 +212,43 @@ int64_t concat_rows_f32(const uint64_t* srcs, const int64_t* lens,
   }
   std::fill(out + m * row_w, out + out_rows * row_w, 0.0f);
   return m;
+}
+
+// The backward's CSR of rows [0, num_valid) keyed by ids, each in
+// [0, num_groups): a stable counting sort.  perm (total_rows) holds the
+// valid rows by id, ties in row order, then the padded rows
+// num_valid..total_rows in order; poff (num_groups + 1) the first position
+// of each group, poff[num_groups] == num_valid.  Returns 0, or -1 (the
+// outputs undefined) when an id lies out of range.
+int64_t csr_perm(const int32_t* ids, int64_t num_valid, int64_t num_groups,
+                 int64_t total_rows, int32_t* perm, int32_t* poff) {
+  std::fill(poff, poff + num_groups + 1, 0);
+  for (int64_t i = 0; i < num_valid; ++i) {
+    const int32_t g = ids[i];
+    if (g < 0 || g >= num_groups) return -1;
+    ++poff[g + 1];
+  }
+  for (int64_t g = 0; g < num_groups; ++g) poff[g + 1] += poff[g];
+  std::vector<int32_t> cursor(poff, poff + num_groups);
+  for (int64_t i = 0; i < num_valid; ++i) perm[cursor[ids[i]]++] = (int32_t)i;
+  for (int64_t i = num_valid; i < total_rows; ++i) perm[i] = (int32_t)i;
+  return 0;
+}
+
+// CSR offsets of rows [0, num_valid) sorted by ids, in one pass: off[g]
+// (g in [0, num_groups]) the rows with an id below g, ids out of range
+// counted as numpy's searchsorted counts them.  Returns 0, or -1 (off
+// undefined) when the rows are not sorted.
+int64_t csr_offsets(const int32_t* ids, int64_t num_valid, int64_t num_groups,
+                    int32_t* off) {
+  int64_t g = 0;  // the next offset to write
+  for (int64_t i = 0; i < num_valid; ++i) {
+    const int64_t id = ids[i];
+    if (i > 0 && id < ids[i - 1]) return -1;
+    for (; g <= num_groups && g <= id; ++g) off[g] = (int32_t)i;
+  }
+  for (; g <= num_groups; ++g) off[g] = (int32_t)num_valid;
+  return 0;
 }
 
 }  // extern "C"

@@ -20,6 +20,10 @@ port adds the unsorted global endpoint, ``z`` (the embedding's backward;
 none for PDBbind, which embeds no atom type) and
 ``t2_ji_by_kj`` = ``t2_ji[t2_kj_perm]`` / ``t1_ji_by_jj``, the rows the
 triplet sums' backward reads through the permutation.
+
+The CSR offsets and the permutations come from the native library
+(``native.csr_offsets``, ``native.csr_perm``), bit for bit ``_offsets`` and
+``build_perm_np``, the numpy reference they are held to.
 """
 
 from __future__ import annotations
@@ -31,9 +35,10 @@ import time
 import numpy as np
 import torch
 
-from pamnet_tpu_torch.data import graphbuild
+from pamnet_tpu_torch.data import graphbuild, native
 from pamnet_tpu_torch.ops.bessel import bessel_basis_tables, sph_jn
 from pamnet_tpu_torch.ops.triplet import AggregateGrad, Groups
+from pamnet_tpu_torch.profiling import span
 
 # Which padded dimension each grouping key indexes rows of.
 _ROWS_OF = {"z": "n", "eg_src": "eg", "eg_dst": "eg", "el_src": "el",
@@ -338,7 +343,8 @@ def build_perm_np(ids: np.ndarray, num_valid: int, num_groups: int,
     """(perm (total_rows,), poff (num_groups+1,)) int32: ``perm`` stable-sorts
     the first ``num_valid`` rows by ``ids`` and parks the padded rows after
     them; ``poff`` marks each group's range in that order, ``poff[-1] ==
-    num_valid`` (JAX: ``pamnet_tpu/ops/ell.py::build_perm_np``)."""
+    num_valid`` (JAX: ``pamnet_tpu/ops/ell.py::build_perm_np``; the reference
+    of ``native.csr_perm``)."""
     idv = np.asarray(ids[:num_valid], dtype=np.int64)
     if num_valid and (idv.min() < 0 or idv.max() >= num_groups):
         raise ValueError("group id out of range")
@@ -356,7 +362,8 @@ def _longest(off: np.ndarray) -> int:
 
 def _offsets(ids: np.ndarray, num_valid: int, num_groups: int) -> np.ndarray | None:
     """(groups+1,) int32 CSR offsets of rows sorted by ``ids``, or None when
-    the first ``num_valid`` rows are not sorted."""
+    the first ``num_valid`` rows are not sorted (the reference of
+    ``native.csr_offsets``)."""
     ids = ids[:num_valid]
     if num_valid and np.any(np.diff(ids) < 0):
         return None
@@ -416,8 +423,6 @@ class CollatePlan:
     the native library cannot be built."""
 
     def __init__(self, structs: list[dict]):
-        from pamnet_tpu_torch.data import native
-
         native.library()
         self.structs = structs
         self.has_dist = all("dist_g" in s for s in structs)
@@ -454,13 +459,9 @@ class CollatePlan:
                     f"after the plan was built (rebuild the plan or the loader)")
 
     def cat_i32(self, key: str, idxs: np.ndarray, offs: np.ndarray, size: int) -> np.ndarray:
-        from pamnet_tpu_torch.data import native
-
         return native.concat_offset_i32(self.addr[key][idxs], self.len[key][idxs], offs, size)
 
     def cat_f32(self, key: str, idxs: np.ndarray, size: int) -> np.ndarray:
-        from pamnet_tpu_torch.data import native
-
         return native.concat_rows_f32(self.addr[key][idxs], self.len[key][idxs],
                                       self.trailing[key], size)
 
@@ -491,7 +492,8 @@ def collate_structures(structs: list[dict] | None, pads: PadSizes | None = None,
     from the native library in one call, the rest as without a plan.
     ``timings`` accumulates the seconds of each concatenated field (by its
     name), of the CSR offsets and ``longest`` ("offsets"), the backward's
-    arrays ("perms") and the masks and tensors ("tensors")."""
+    arrays ("perms") and the masks and tensors ("tensors"); the offsets and
+    the backward's arrays are the span ``collate.csr``."""
     if wire_geometry not in ("host", "derive"):
         raise ValueError(f"wire_geometry must be 'host'|'derive', got {wire_geometry!r}")
     lap = _lap_clock(timings)
@@ -541,38 +543,40 @@ def collate_structures(structs: list[dict] | None, pads: PadSizes | None = None,
                            pad_of[pdim])
         lap(key)
 
-    # The global layer reads whichever endpoint the edges are sorted by.
-    eg_dst_off = _offsets(f["eg_dst"], n_eg, pads.n)
-    eg_src_off = None if eg_dst_off is not None else _offsets(f["eg_src"], n_eg, pads.n)
-    el_dst_off = _offsets(f["el_dst"], n_el, pads.n)
-    two_hop = variant == "full"
-    if not two_hop and n_t2:
-        raise ValueError("PAMNet_s structures carry no triplets")
-    sorted_off = {"eg_src": eg_src_off, "eg_dst": eg_dst_off, "el_dst": el_dst_off,
-                  "t2_ji": _offsets(f["t2_ji"], n_t2, pads.el) if two_hop else None,
-                  "t1_ji": _offsets(f["t1_ji"], n_t1, pads.el)}
-    longest = {k: _longest(v) for k, v in sorted_off.items() if v is not None}
-    lap("offsets")
-    perms: dict[str, np.ndarray] = {}
-    if build_perms:
-        keyed = [("el_src", n_el, pads.n, pads.el), ("t1_jj", n_t1, pads.el, pads.t1)]
-        if two_hop:
-            keyed.append(("t2_kj", n_t2, pads.el, pads.t2))
-        if num_atom_types is not None:
-            keyed.append(("z", num_nodes, num_atom_types, pads.n))
-        for key, off in (("eg_src", eg_src_off), ("eg_dst", eg_dst_off),
-                         ("el_dst", el_dst_off)):
-            if off is None:
-                rows, n_valid = (pads.eg, n_eg) if key[:2] == "eg" else (pads.el, n_el)
-                keyed.append((key, n_valid, pads.n, rows))
-        for key, n_valid, groups, rows in keyed:
-            perms[key + "_perm"], perms[key + "_poff"] = build_perm_np(
-                f[key], n_valid, groups, rows)
-        if two_hop:
-            perms["t2_ji_by_kj"] = f["t2_ji"][perms["t2_kj_perm"]]
-        perms["t1_ji_by_jj"] = f["t1_ji"][perms["t1_jj_perm"]]
-    longest.update({k[:-5]: _longest(v) for k, v in perms.items() if k.endswith("_poff")})
-    lap("perms")
+    with span("collate.csr"):
+        # The global layer reads whichever endpoint the edges are sorted by.
+        eg_dst_off = native.csr_offsets(f["eg_dst"], n_eg, pads.n)
+        eg_src_off = (None if eg_dst_off is not None
+                      else native.csr_offsets(f["eg_src"], n_eg, pads.n))
+        el_dst_off = native.csr_offsets(f["el_dst"], n_el, pads.n)
+        two_hop = variant == "full"
+        if not two_hop and n_t2:
+            raise ValueError("PAMNet_s structures carry no triplets")
+        sorted_off = {"eg_src": eg_src_off, "eg_dst": eg_dst_off, "el_dst": el_dst_off,
+                      "t2_ji": native.csr_offsets(f["t2_ji"], n_t2, pads.el) if two_hop else None,
+                      "t1_ji": native.csr_offsets(f["t1_ji"], n_t1, pads.el)}
+        longest = {k: _longest(v) for k, v in sorted_off.items() if v is not None}
+        lap("offsets")
+        perms: dict[str, np.ndarray] = {}
+        if build_perms:
+            keyed = [("el_src", n_el, pads.n, pads.el), ("t1_jj", n_t1, pads.el, pads.t1)]
+            if two_hop:
+                keyed.append(("t2_kj", n_t2, pads.el, pads.t2))
+            if num_atom_types is not None:
+                keyed.append(("z", num_nodes, num_atom_types, pads.n))
+            for key, off in (("eg_src", eg_src_off), ("eg_dst", eg_dst_off),
+                             ("el_dst", el_dst_off)):
+                if off is None:
+                    rows, n_valid = (pads.eg, n_eg) if key[:2] == "eg" else (pads.el, n_el)
+                    keyed.append((key, n_valid, pads.n, rows))
+            for key, n_valid, groups, rows in keyed:
+                perms[key + "_perm"], perms[key + "_poff"] = native.csr_perm(
+                    f[key], n_valid, groups, rows)
+            if two_hop:
+                perms["t2_ji_by_kj"] = f["t2_ji"][perms["t2_kj_perm"]]
+            perms["t1_ji_by_jj"] = f["t1_ji"][perms["t1_jj_perm"]]
+        longest.update({k[:-5]: _longest(v) for k, v in perms.items() if k.endswith("_poff")})
+        lap("perms")
     y = plan.y[idxs] if plan is not None else np.array([s["y"] for s in structs], np.float32)
     node_graph = np.repeat(np.arange(nb, dtype=np.int32), n_per)
 

@@ -4,7 +4,8 @@ triplet and pair builders, each bit for bit the numpy builder of
 ``data/graphbuild.py`` on the same input, and of its collation helpers
 (``concat_offset_i32``, ``concat_rows_f32``: a padded concatenation read
 from arrays of source addresses, bit for bit the numpy collation of
-``data/batch.py``).
+``data/batch.py``) and of a batch's CSR arrays (``csr_perm``,
+``csr_offsets``: bit for bit ``batch.build_perm_np`` and ``batch._offsets``).
 
 The library is compiled by ``g++`` at first use into ``build/torch_ext/`` at
 the repository root, named by a hash of the source and the flags, so an
@@ -80,8 +81,11 @@ def library() -> ctypes.CDLL:
             lib.expand_incoming.argtypes = [i32p, i32p, i64, i64, i32p, i64]
             lib.concat_offset_i32.argtypes = [u64p, i64p, i32p, i64, i32p, i64]
             lib.concat_rows_f32.argtypes = [u64p, i64p, i64, i64, f32p, i64]
+            lib.csr_perm.argtypes = [i32p, i64, i64, i64, i32p, i32p]
+            lib.csr_offsets.argtypes = [i32p, i64, i64, i32p]
             for fn in (lib.radius_graph, lib.knn_graph, lib.expand_incoming,
-                       lib.concat_offset_i32, lib.concat_rows_f32):
+                       lib.concat_offset_i32, lib.concat_rows_f32, lib.csr_perm,
+                       lib.csr_offsets):
                 fn.restype = i64
             _lib = lib
     return _lib
@@ -208,3 +212,35 @@ def concat_rows_f32(addrs: np.ndarray, lens: np.ndarray, trailing: tuple,
     if library().concat_rows_f32(addrs, lens, row_w, len(addrs), out, out_rows) < 0:
         raise _overflow(lens, out_rows)
     return out
+
+
+def _ids(ids: np.ndarray, num_valid: int) -> np.ndarray:
+    ids = np.ascontiguousarray(ids, np.int32)
+    if not 0 <= num_valid <= ids.shape[0]:
+        raise ValueError(f"{num_valid} valid rows of {ids.shape[0]}")
+    return ids
+
+
+def csr_perm(ids: np.ndarray, num_valid: int, num_groups: int,
+             total_rows: int) -> tuple[np.ndarray, np.ndarray]:
+    """``batch.build_perm_np`` in C++, a stable counting sort: (perm
+    (total_rows,), poff (num_groups+1,)) int32.  Raises ValueError("group id
+    out of range") as it does."""
+    ids = _ids(ids, num_valid)
+    if total_rows < num_valid:
+        raise ValueError(f"{num_valid} valid rows of {total_rows}")
+    perm, poff = np.empty(total_rows, np.int32), np.empty(num_groups + 1, np.int32)
+    if library().csr_perm(ids, num_valid, num_groups, total_rows, perm, poff) < 0:
+        raise ValueError("group id out of range")
+    return perm, poff
+
+
+def csr_offsets(ids: np.ndarray, num_valid: int, num_groups: int) -> np.ndarray | None:
+    """``batch._offsets`` in C++: the (num_groups+1,) int32 CSR offsets of
+    the first ``num_valid`` rows, sorted by ``ids``, or None where they are
+    not sorted."""
+    ids = _ids(ids, num_valid)
+    off = np.empty(num_groups + 1, np.int32)
+    if library().csr_offsets(ids, num_valid, num_groups, off) < 0:
+        return None
+    return off

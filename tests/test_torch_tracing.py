@@ -2,7 +2,7 @@
 off outside a profile, on for every thread inside one, the spans of a
 pipelined training epoch and of concurrent scoring requests, their export
 into ``profiling.trace``'s Chrome trace, their self-time segments, and the
-benchmark's ten readers of them over hand-made span lists.  One test,
+benchmark's eleven readers of them over hand-made span lists.  One test,
 marked ``gpu``, holds a span against the card's record of the kernel inside
 it (``python -m pytest --noconftest tests/test_torch_tracing.py -m gpu`` on
 the card)."""
@@ -196,12 +196,14 @@ def test_concurrent_requests_record_their_trees(server):
     by_id = {r.id: r for r in recs}
     for req in requests:
         mine = [r for r in recs if r.ref == req.ref and r is not req]
-        assert sorted(r.name for r in mine) == sorted(SERVE + ("build.graph", "build.basis"))
+        assert sorted(r.name for r in mine) == sorted(
+            SERVE + ("build.graph", "build.basis", "collate.csr"))
         for r in mine:
             assert r.thread == req.thread
             parent = by_id[r.parent]
             assert parent.start_ns <= r.start_ns <= r.end_ns <= parent.end_ns
-            want = "loader.build" if r.name.startswith("build.") else "serve.request"
+            want = ("loader.build" if r.name.startswith("build.")
+                    else "loader.collate" if r.name == "collate.csr" else "serve.request")
             assert parent.name == want, r.name
 
 
@@ -327,9 +329,10 @@ def test_threads_racing_to_record_lose_no_span(monkeypatch):
 # requests of 1 s (0.6 s waiting on the lock in all), two builds of 0.25 s
 # and a third on another thread overlapping the first by half (0.3 s of
 # basis in all: 0.75 s of builds over 0.625 s of their union), a collation
-# of 0.1 s; 2 s of forwards (0.5 s of
+# of 0.1 s (0.025 s of its CSR arrays); 2 s of forwards (0.5 s of
 # casts inside, 0.25 s more on the autograd thread), 3 s of backwards, 1 s
-# of updates, 4 s of collation and 0.5 s of staging on threads of their own.
+# of updates, 4 s of collation (1 s of CSR arrays) and 0.5 s of staging on
+# threads of their own.
 S = 10 ** 9
 HAND = [
     _span("serve.request", 0, S, 1), _span("serve.request", S, 2 * S, 2),
@@ -344,6 +347,7 @@ HAND = [
     _span("pipeline.stage", 0, S // 2, 16, thread="Q"),
     _span("loader.build", S // 8, S // 8 + S // 4, 17, thread="R"),
     _span("build.basis", S // 8, S // 8 + S // 10, 18, 17, thread="R"),
+    _span("collate.csr", 0, S // 40, 19, 9), _span("collate.csr", S, 2 * S, 20, 15, thread="P"),
 ]
 READINGS = {
     "lock_wait_share.score": 30.0,
@@ -356,6 +360,7 @@ READINGS = {
     "step_backward_share.train": 30.0,
     "step_update_share.train": 10.0,
     "param_cast_share.train": 7.5,
+    "csr_share.train": 100.0 * 1.025 / 4.1,
 }
 
 
