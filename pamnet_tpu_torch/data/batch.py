@@ -30,7 +30,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import time
 
 import numpy as np
 import torch
@@ -179,23 +178,8 @@ class PadSizes:
                    max(8, g))
 
 
-def _lap_clock(timings: dict | None):
-    """``lap(part)`` adds the seconds since the previous lap to
-    ``timings[part]`` (nothing when ``timings`` is None)."""
-    last = [time.perf_counter()]
-
-    def lap(part: str) -> None:
-        if timings is not None:
-            now = time.perf_counter()
-            timings[part] = timings.get(part, 0.0) + now - last[0]
-            last[0] = now
-
-    return lap
-
-
 def precompute_structure(mol: dict, dataset_kind: str, cutoff_l: float,
-                         cutoff_g: float, variant: str = "full",
-                         timings: dict | None = None) -> dict:
+                         cutoff_g: float, variant: str = "full") -> dict:
     """One structure's graph (reference: models.py:104-162, 263-301), the
     one-hop pairs, and for the full PAMNet the two-hop triplets, on the
     local edges:
@@ -210,9 +194,7 @@ def precompute_structure(mol: dict, dataset_kind: str, cutoff_l: float,
     Global edges are sorted by the endpoint the global layer aggregates at:
     dst-major on QM9 and PDBbind (``source_to_target``), src-major on RNA;
     local edges dst-major.  ``variant="s"`` (PAMNet_s) leaves the triplets
-    empty.  ``timings`` accumulates the seconds of each part
-    ("neighbours", "edge_sort", "triplets", "pairs", "distances")."""
-    lap = _lap_clock(timings)
+    empty."""
     pos = np.asarray(mol["pos"], np.float32)
     n = pos.shape[0]
     if dataset_kind == "qm9":
@@ -231,20 +213,16 @@ def precompute_structure(mol: dict, dataset_kind: str, cutoff_l: float,
         el = eknn[:, dist_knn <= cutoff_l]
     else:
         raise ValueError(f"unknown dataset kind: {dataset_kind}")
-    lap("neighbours")
     if dataset_kind == "rna":
         eg = eg[:, np.lexsort((eg[1], eg[0]))]
     else:
         eg = eg[:, np.lexsort((eg[0], eg[1]))]
     el = el[:, np.lexsort((el[0], el[1]))]
-    lap("edge_sort")
     if variant == "full":
         t2 = graphbuild.triplets(el, n)
     else:
         t2 = {k: np.zeros(0, np.int32) for k in ("idx_i", "idx_j", "idx_k", "idx_kj", "idx_ji")}
-    lap("triplets")
     t1 = graphbuild.pairs(el, n)
-    lap("pairs")
     p64 = pos.astype(np.float64)
     if dataset_kind == "pdbbind":
         feat, z = np.asarray(mol["feat"], np.float32), np.zeros(n, np.int32)
@@ -262,7 +240,6 @@ def precompute_structure(mol: dict, dataset_kind: str, cutoff_l: float,
         "dist_g": np.sqrt(((p64[eg[1]] - p64[eg[0]]) ** 2).sum(-1)).astype(np.float32),
         "dist_l": np.sqrt(((p64[el[1]] - p64[el[0]]) ** 2).sum(-1)).astype(np.float32),
     }
-    lap("distances")
     return out
 
 
@@ -472,8 +449,7 @@ def collate_structures(structs: list[dict] | None, pads: PadSizes | None = None,
                        variant: str = "full",
                        wire_geometry: str = "host",
                        plan: CollatePlan | None = None,
-                       idxs: list[int] | None = None,
-                       timings: dict | None = None) -> GraphBatch:
+                       idxs: list[int] | None = None) -> GraphBatch:
     """Concatenate structures into one padded batch, offsetting node ids by node counts and edge ids by local-edge
     counts; pads default to the geometric bucket of the batch's counts.
     ``build_perms`` adds the backward's CSR arrays (module docstring); the
@@ -489,14 +465,11 @@ def collate_structures(structs: list[dict] | None, pads: PadSizes | None = None,
 
     With ``plan`` (a ``CollatePlan``) and ``idxs``, the batch of the plan's
     structures ``idxs`` (``structs`` unused): each concatenated field comes
-    from the native library in one call, the rest as without a plan.
-    ``timings`` accumulates the seconds of each concatenated field (by its
-    name), of the CSR offsets and ``longest`` ("offsets"), the backward's
-    arrays ("perms") and the masks and tensors ("tensors"); the offsets and
-    the backward's arrays are the span ``collate.csr``."""
+    from the native library in one call, the rest as without a plan.  The
+    CSR offsets, ``longest`` and the backward's arrays are the span
+    ``collate.csr``."""
     if wire_geometry not in ("host", "derive"):
         raise ValueError(f"wire_geometry must be 'host'|'derive', got {wire_geometry!r}")
-    lap = _lap_clock(timings)
     host = wire_geometry == "host"
     if plan is not None:
         idxs = np.asarray(idxs, dtype=np.int64)
@@ -534,14 +507,12 @@ def collate_structures(structs: list[dict] | None, pads: PadSizes | None = None,
             f[key] = _pad1(np.concatenate([_get(s, path).astype(np.int32) + o
                                            for s, o in zip(structs, offs_of[okind])]),
                            pad_of[pdim])
-        lap(key)
     for key, pdim in f32_fields:
         if plan is not None:
             f[key] = plan.cat_f32(key, idxs, pad_of[pdim])
         else:
             f[key] = _pad1(np.concatenate([s[key] for s in structs]).astype(np.float32),
                            pad_of[pdim])
-        lap(key)
 
     with span("collate.csr"):
         # The global layer reads whichever endpoint the edges are sorted by.
@@ -556,7 +527,6 @@ def collate_structures(structs: list[dict] | None, pads: PadSizes | None = None,
                       "t2_ji": native.csr_offsets(f["t2_ji"], n_t2, pads.el) if two_hop else None,
                       "t1_ji": native.csr_offsets(f["t1_ji"], n_t1, pads.el)}
         longest = {k: _longest(v) for k, v in sorted_off.items() if v is not None}
-        lap("offsets")
         perms: dict[str, np.ndarray] = {}
         if build_perms:
             keyed = [("el_src", n_el, pads.n, pads.el), ("t1_jj", n_t1, pads.el, pads.t1)]
@@ -576,13 +546,12 @@ def collate_structures(structs: list[dict] | None, pads: PadSizes | None = None,
                 perms["t2_ji_by_kj"] = f["t2_ji"][perms["t2_kj_perm"]]
             perms["t1_ji_by_jj"] = f["t1_ji"][perms["t1_jj_perm"]]
         longest.update({k[:-5]: _longest(v) for k, v in perms.items() if k.endswith("_poff")})
-        lap("perms")
     y = plan.y[idxs] if plan is not None else np.array([s["y"] for s in structs], np.float32)
     node_graph = np.repeat(np.arange(nb, dtype=np.int32), n_per)
 
     t = torch.from_numpy
     opt = lambda a: None if a is None else t(a)  # noqa: E731
-    batch = GraphBatch(
+    return GraphBatch(
         **{k: t(v) for k, v in f.items()},
         **{k: None for k in GEOMETRY_FIELDS if k not in f},
         node_mask=t(_mask(num_nodes, pads.n)),
@@ -599,5 +568,3 @@ def collate_structures(structs: list[dict] | None, pads: PadSizes | None = None,
         perms={k: t(v) for k, v in perms.items()},
         longest=longest,
     )
-    lap("tensors")
-    return batch

@@ -17,7 +17,8 @@ density, at any size up to that of RNA-Puzzles candidates (about 2,100
 atoms), with a label loosely tied to the composition.
 
 Raw dataset trees, fixtures for runs without the datasets' files (only the
-tests and ``chip_smoke.py`` call them): ``write_raw_pdbbind`` writes
+tests call them, ``tests/test_torch_preprocess.py`` on the CPU and
+``tests/test_torch_card_paths.py`` on the card): ``write_raw_pdbbind`` writes
 PDBbind's layout of ligand and pocket mol2 files and its index of labels,
 ``write_raw_rna_puzzles`` RNA-Puzzles candidate PDB files, each for the
 port's preprocessors to read as they read the real files.

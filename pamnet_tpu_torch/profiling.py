@@ -2,10 +2,11 @@
 event-timed mean of a call, the card's own time of the kernels it launches,
 which records are work on the card, the seconds the card was busy in a
 profiled span, and a profiled run's kernel launches and device time by
-kernel name.  ``chip_smoke.py`` and ``bench.py`` time
-and read their profiles through these.  ``trace`` writes a profiled span
-(``main_qm9 --trace_dir``: epoch 0) as a Chrome trace, with the program's
-spans in it.
+kernel name.  ``bench.py`` and ``chip_smoke.py``'s kernel phases time and
+read their profiles through these; ``device_busy_s`` is the arithmetic that
+the benchmark's busy time copies (``benchmark/trace.py``).  ``trace`` writes
+a profiled span (``main_qm9 --trace_dir``: epoch 0) as a Chrome trace, with
+the program's spans in it.
 
 The span recorder: the program marks the work at each layer boundary with
 ``span(name, ref)`` (the step's phases, the epoch pipeline's threads, the

@@ -13,7 +13,8 @@ import torch
 from pamnet_tpu_torch.config import PAMNetConfig
 from pamnet_tpu_torch.data.batch import build_perm_np
 from pamnet_tpu_torch.data.loader import GraphLoader
-from pamnet_tpu_torch.data.synthetic import synthetic_qm9_dataset, synthetic_rna_dataset
+from pamnet_tpu_torch.data.synthetic import (pdbbind_molecule, synthetic_pdbbind_dataset,
+                                             synthetic_qm9_dataset, synthetic_rna_dataset)
 from pamnet_tpu_torch.models.pamnet import PAMNet
 from pamnet_tpu_torch.ops import gather as gather_ops
 from pamnet_tpu_torch.ops import triplet as triplet_ops
@@ -820,6 +821,9 @@ def _geometry_batches(cuda, kind, n, build_perms=True):
     """(host batch, derive batch) of the same small molecules on the card."""
     if kind == "qm9":
         mols, cl, cg = synthetic_qm9_dataset(n, seed=5), 5.0, 5.0
+    elif kind == "pdbbind":
+        mols = [pdbbind_molecule(g) for g in synthetic_pdbbind_dataset(n, seed=5)]
+        cl, cg = 2.0, 6.0
     else:
         mols, cl, cg = synthetic_rna_dataset(n, seed=5, n_atoms=300), 2.6, 20.0
     return [next(iter(GraphLoader(mols, kind, cl, cg, n, build_perms=build_perms,
@@ -858,7 +862,7 @@ def test_derive_forward_and_gradients_kernels_vs_plain(cuda, kind, dim):
         assert err <= 1e-4 * float(want.abs().max()) + 1e-6, name
 
 
-@pytest.mark.parametrize("kind", ["qm9", "rna"])
+@pytest.mark.parametrize("kind", ["qm9", "rna", "pdbbind"])
 def test_device_graph_on_the_card(cuda, kind):
     """The graph rebuilt on the card equals the host batch field by field
     (CSRs and the backward's permutations included) with one host sync;
@@ -870,9 +874,10 @@ def test_device_graph_on_the_card(cuda, kind):
     from pamnet_tpu_torch.models.device_graph import rebuild_structure
 
     host, derive = _geometry_batches(cuda, kind, 3)
-    kw = (dict(dataset="QM9", dim=32, n_layer=2) if kind == "qm9" else
-          dict(dataset="rna", dim=16, n_layer=1, cutoff_l=2.6, cutoff_g=20.0,
-               flow="target_to_source"))
+    kw = {"qm9": dict(dataset="QM9", dim=32, n_layer=2),
+          "pdbbind": dict(dataset="PDBbind", dim=32, n_layer=2, cutoff_l=2.0, cutoff_g=6.0),
+          "rna": dict(dataset="rna", dim=16, n_layer=1, cutoff_l=2.6, cutoff_g=20.0,
+                      flow="target_to_source")}[kind]
     cfg = PAMNetConfig(**kw, device_graph=True)
     rebuilt = rebuild_structure(derive, cfg)  # loads each kernel's module at its first launch
     assert _count_syncs(lambda: rebuild_structure(derive, cfg)) == 1

@@ -137,77 +137,6 @@ def test_row_gather_plain_radial_table_matches_take(kind, key, valid):
     assert row_gather.launches == launches
 
 
-def test_smoke_compare_reads_the_compared_cases():
-    """The two-checkout comparison keeps the group-sum and row-gather cases of
-    every kernel phase, kernel A's and the edge message's cases by name
-    (the walks on the scoring batch's own CSRs, the summed global message
-    with the rows + sum of the same arrays beside it), the steps' times and
-    the in-step launches of the group sums and of the walk."""
-    import json
-
-    from pamnet_tpu_torch.smoke_compare import summarize
-
-    case = {"case": "sum by z (permuted CSR)", "d": 16, "ms": 0.05, "device_ms": 0.002,
-            "route": "split", "rows": 9}
-    walk = {"case": "eg_src global sum, scoring batch", "d": 16, "device_ms": 0.03,
-            "walk_shape": [4, 8], "rows": 5}
-    summed = {"case": "global message summed, scoring batch", "d": 16, "device_ms": 0.09,
-              "rows_sum_device_ms": 0.15, "bound_ms": 0.07}
-    role = {"case": "d_a by role swap over the t2_kj CSR", "d": 128, "device_ms": 0.003}
-    launches = [{"name": "group_sum_cluster_kernel<true>(", "device_us": 7.7},
-                {"name": "sbf_modulate_kernel<7, 16>(", "device_us": 76.0},
-                {"name": "csr_walk_kernel<SumRow<false, false, false> >(", "device_us": 3.0},
-                {"name": "csr_walk_kernel<MessageRow<true, true> >(", "device_us": 60.0}]
-    lines = [
-        "not json",
-        json.dumps({"phase": "device", "nvidia_smi": "card, 700.00 W"}),
-        json.dumps({"phase": "walk_kernels", "triplet_aggregate": [walk],
-                    "edge_message_sum": [summed]}),
-        json.dumps({"phase": "train_kernels", "triplet_aggregate_grad_a": [role]}),
-        json.dumps({"phase": "rna_train_kernels", "pads": {"n": 1},
-                    "group_sum_split": [case], "sbf_modulate": [{"case": "t2 fused"}]}),
-        json.dumps({"phase": "rna_train", "ms_per_step": 20.0, "device_ms_per_step": 4.6}),
-        json.dumps({"phase": "profile_rna_train", "device_ms_per_step_total": 4.7,
-                    "port_kernel_launches": launches}),
-        json.dumps({"ok": True, "device": {}}),
-    ]
-    got = summarize(lines)
-    assert got["nvidia_smi"] == "card, 700.00 W" and got["ok"] is True
-    assert got["rna_train_kernels"] == [{"case": case["case"], "d": 16, "ms": 0.05,
-                                         "device_ms": 0.002, "route": "split"}]
-    assert got["walk_kernels"] == [
-        {"case": walk["case"], "d": 16, "device_ms": 0.03, "walk_shape": [4, 8]},
-        {"case": summed["case"], "d": 16, "device_ms": 0.09, "bound_ms": 0.07,
-         "rows_sum_device_ms": 0.15}]
-    assert got["train_kernels"] == [{"case": role["case"], "d": 128, "device_ms": 0.003}]
-    assert got["rna_train"]["device_ms_per_step"] == 4.6
-    assert got["profile_rna_train"]["group_sum_launches"] == [launches[0], launches[2]]
-    assert got["profile_rna_train"]["sbf_launches"] == launches[1:]
-
-
-def test_smoke_compare_reads_kernel_a_backward_routes():
-    """The comparison prints the fused role swap beside the role swap alone
-    and the pair it replaces, and the gated backward beside the row gather
-    and multiplies it replaces, with the L2 flushed and warm."""
-    import json
-
-    from pamnet_tpu_torch.smoke_compare import summarize
-
-    fused = {"case": "d_a and d_b by the fused role swap over the t2_kj CSR", "d": 128,
-             "device_ms": 0.0037, "alone_device_ms": 0.003, "pair_device_ms": 0.0048,
-             "rows": 3}
-    gated = {"case": "gated el_dst sum backward", "d": 16, "device_ms": 0.008,
-             "warm_device_ms": 0.005, "rows_mul_device_ms": 0.018,
-             "rows_mul_warm_device_ms": 0.016, "valid": 9}
-    lines = [json.dumps({"phase": "train_kernels", "triplet_aggregate_grad_ab": [fused],
-                         "gather_product": [{"case": "d_b at t2", "d": 128}]}),
-             json.dumps({"phase": "rna_train_kernels", "gated_sum_backward": [gated]})]
-    got = summarize(lines)
-    assert got["train_kernels"] == [{k: v for k, v in fused.items() if k != "rows"},
-                                    {"case": "d_b at t2", "d": 128}]
-    assert got["rna_train_kernels"] == [{k: v for k, v in gated.items() if k != "valid"}]
-
-
 def test_kernel_totals_counts_every_record():
     """The profiles' launch totals count every record of work on the card
     once, by kernel name: two kernels whose names share a long prefix are
@@ -235,9 +164,9 @@ def test_kernel_totals_counts_every_record():
 
 
 def test_time_ms_on_the_host_clock():
-    """The shared timer that ``chip_smoke.py`` and the bench call: ``warmup``
-    calls untimed, then the mean of ``iters`` calls in a row, on the host's
-    clock where it is not timing the card."""
+    """The shared timer that ``chip_smoke.py``'s kernel phases and the bench
+    call: ``warmup`` calls untimed, then the mean of ``iters`` calls in a
+    row, on the host's clock where it is not timing the card."""
     from pamnet_tpu_torch.profiling import time_ms
 
     calls = []
@@ -249,22 +178,3 @@ def test_time_ms_on_the_host_clock():
     ms = time_ms(fn, iters=4, warmup=2, cuda=False)
     assert len(calls) == 6
     assert 2.0 <= ms < 100.0
-
-
-def test_smoke_compare_reads_profile_totals():
-    """The comparison prints a profiled step's and forward's kernel launches
-    in total and by name where the checkout prints them, and the device
-    time alone where it does not (a parent from before the totals)."""
-    import json
-
-    from pamnet_tpu_torch.smoke_compare import summarize
-
-    by_name = {"gated_sum_backward_kernel": [6.0, 0.016], "mul_kernel": [35.0, 0.099]}
-    lines = [json.dumps({"phase": "profile_train", "device_ms_per_step_total": 10.9,
-                         "kernel_launches_per_step": 2391.0, "kernels_by_name": by_name}),
-             json.dumps({"phase": "profile", "device_ms_per_batch_total": 1.93})]
-    got = summarize(lines)
-    assert got["profile_train"]["kernel_launches_per_step"] == 2391.0
-    assert got["profile_train"]["kernels_by_name"] == by_name
-    assert got["profile_train"]["device_ms_per_step_total"] == 10.9
-    assert got["profile"] == {"device_ms_per_batch_total": 1.93, "sbf_launches": []}

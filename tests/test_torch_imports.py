@@ -1,6 +1,6 @@
-"""The port and its GPU smoke script import nothing of JAX or of the JAX
-package.  Read from the source (AST), since a process here may hold jax in
-sys.modules already."""
+"""The port, its kernel checker and its card tests import nothing of JAX or
+of the JAX package.  Read from the source (AST), since a process here may
+hold jax in sys.modules already."""
 
 from torch_threads import limit_intra_op_threads
 
@@ -13,7 +13,10 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "pamnet_tpu"}
-FILES = sorted((ROOT / "pamnet_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# The card's tests run where JAX is not installed: they import none of it either.
+FILES = sorted((ROOT / "pamnet_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py",
+    ROOT / "tests" / "test_torch_card_paths.py"]
 
 
 def _imported_roots(path: Path) -> set[str]:

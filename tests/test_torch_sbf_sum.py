@@ -242,37 +242,6 @@ def test_local_mp_folded_branch_sums_in_kernel_b(monkeypatch):
     assert model.mlp_sbf2[0][0].weight.grad is not None
 
 
-def test_smoke_compare_reads_kernel_b_cases():
-    """The two-checkout comparison keeps kernel B's forward and backward
-    cases, kernel A's sums over the triplets and their launches in a
-    profiled scoring forward, apart from the group sums."""
-    import json
-
-    from pamnet_tpu_torch.smoke_compare import summarize
-
-    fwd = {"case": "t2 fused folded gather, summed, batch", "d": 16, "device_ms": 0.07,
-           "bound_ms": 0.04, "rows": 3}
-    bwd = {"case": "t2 backward summed, d=8", "d": 8, "device_ms": 0.03,
-           "worst_err_over_tolerance": 0.01}
-    a_sum = {"case": "t2 sum (folded path)", "d": 16, "device_ms": 0.027}
-    other = {"case": "sum by z (permuted CSR)", "d": 16, "device_ms": 0.002}
-    launches = [{"name": "sbf_modulate_kernel<7, 16, true>(", "device_us": 70.0},
-                {"name": "group_sum_cluster_kernel<true>(", "device_us": 7.7}]
-    lines = [json.dumps({"phase": "kernels", "triplet_aggregate": [a_sum]}),
-             json.dumps({"phase": "sbf_kernels", "sbf_modulate": [fwd]}),
-             json.dumps({"phase": "rna_train_kernels", "sbf_modulate_backward": [bwd],
-                         "group_sum_split": [other]}),
-             json.dumps({"phase": "profile", "device_ms_per_batch_total": 1.8,
-                         "port_kernel_launches": launches})]
-    got = summarize(lines)
-    assert [c["case"] for c in got["kernels_sbf"]] == ["t2 sum (folded path)"]
-    assert got["sbf_kernels_sbf"] == [{"case": fwd["case"], "d": 16, "device_ms": 0.07,
-                                       "bound_ms": 0.04}]
-    assert [c["case"] for c in got["rna_train_kernels_sbf"]] == [bwd["case"]]
-    assert [c["case"] for c in got["rna_train_kernels"]] == [other["case"]]
-    assert got["profile"] == {"device_ms_per_batch_total": 1.8, "sbf_launches": launches[:1]}
-
-
 def _chip_smoke():
     import importlib.util
     from pathlib import Path
@@ -298,27 +267,3 @@ def test_backward_bound_counts_the_words_the_kernel_reads(value_bytes, per_tripl
     assert two - one == per_triplet
     assert two_gathered - one_gathered == per_triplet + 8 * 16 * value_bytes
     assert one_gathered - one == (100 - 30) * 8 * 16 * value_bytes
-
-
-def test_kernel_b_compare_cases_compute_one_function():
-    """The two-checkout comparison's cases on a small scoring batch: the
-    parent's folded path (rows, then kernel A's sum by center edge) and the
-    summed op give the same sums; a difference past 1e-4 + 1e-4|x| shows."""
-    from pamnet_tpu_torch.kernel_b_compare import cases, export_batch, max_excess
-
-    batch = export_batch(2, 60, 0)
-    sums = {}
-    for kind in ("t2", "t1"):
-        trip = batch[kind]
-        assert int(trip["off"][-1]) == trip["valid"] and trip["valid"] > 0
-        assert float(trip["mask"][trip["valid"]:].abs().sum()) == 0.0
-        fns = cases(batch, kind, torch.Generator().manual_seed(0), "cpu")
-        assert list(fns) == ["rows + sum", "summed"]
-        for name, fn in fns.items():
-            sums[f"{kind} {name}"] = fn()
-        assert sums[f"{kind} summed"].shape == (batch["el"], 16)
-        torch.testing.assert_close(sums[f"{kind} summed"], sums[f"{kind} rows + sum"],
-                                   rtol=1e-5, atol=1e-5)
-    assert max_excess(sums, sums) == 0.0
-    off = {k: v + 2e-4 if k == "t1 summed" else v for k, v in sums.items()}
-    assert max_excess(off, sums) > 1.0
