@@ -2,8 +2,10 @@
 // the incoming-edge expansion behind the triplet and pair tables (reference:
 // models.py:110,143 radius/knn; models.py:68-98 the SparseTensor expansion),
 // the padded concatenations of batch collation (data/batch.py's
-// CollatePlan), and each batch's CSR arrays (csr_offsets over rows sorted by
-// a key; csr_perm, the stable sort of the backward's keyed rows).
+// CollatePlan), each batch's CSR arrays (csr_offsets over rows sorted by
+// a key; csr_perm, the stable sort of the backward's keyed rows), and a
+// structure's host spherical basis (sbf_radial, cbf: data/batch.py's
+// attach_basis_np in one pass over the edges and triplets).
 //
 // A copy of the JAX package's csrc/graphbuild.cc (radius_graph, knn_graph,
 // expand_incoming, concat_offset_i32, concat_rows_f32; csr_perm and
@@ -18,7 +20,18 @@
 //   * concat_offset_i32 adds the offsets with int32 wraparound, as numpy
 //     does;
 //   * csr_perm is build_perm_np's stable argsort and bincount, csr_offsets
-//     _offsets' sortedness check and searchsorted.
+//     _offsets' sortedness check and searchsorted;
+//   * sbf_radial and cbf evaluate attach_basis_np's float64 formulas in its
+//     order of operations (no contraction into fused multiply-adds:
+//     -ffp-contract=off) and round each value to float32 once at the end.
+//     The powers u^k of j_l's closed form are carried in double-double and
+//     rounded once, so each is the correctly rounded power that numpy's
+//     `**` gives; a power built by plain multiplication errs by up to k/2
+//     ulps, which the closed form's cancellation at small arguments (the
+//     1e-12 clamp of two coincident atoms) magnifies into other float32
+//     values.  The closed form's sums run left to right, where numpy's
+//     BLAS gemv adds them in lanes: at small arguments that moves a float32
+//     value by an ulp now and then.
 // Built with g++ at first use and loaded through ctypes
 // (pamnet_tpu_torch/data/native.py).
 //
@@ -27,6 +40,7 @@
 // returned, or -1 when it would pass cap (the caller retries larger).
 
 #include <algorithm>
+#include <cmath>
 #include <cstdint>
 #include <utility>
 #include <vector>
@@ -54,6 +68,29 @@ struct Cell {
 uint64_t key_of(const Cell& c) {
   return ((uint64_t)(uint32_t)c.x << 42) ^ ((uint64_t)(uint32_t)c.y << 21) ^
          (uint64_t)(uint32_t)c.z;
+}
+
+// pw[0..k_max] = u^0..u^k_max, each the double-double product rounded once
+// (the exact power correctly rounded but for ties within 2^-100).
+void powers(double u, int64_t k_max, double* pw) {
+  pw[0] = 1.0;
+  if (k_max < 1) return;
+  pw[1] = u;
+  double hi = u, lo = 0.0;
+  for (int64_t k = 2; k <= k_max; ++k) {
+    const double p = hi * u;
+    const double e = std::fma(hi, u, -p) + lo * u;
+    hi = p + e;
+    lo = e - (hi - p);
+    pw[k] = hi;
+  }
+}
+
+// Whether every index of idx[0..m) lies in [0, n).
+bool in_range(const int32_t* idx, int64_t m, int64_t n) {
+  for (int64_t i = 0; i < m; ++i)
+    if (idx[i] < 0 || idx[i] >= n) return false;
+  return true;
 }
 
 }  // namespace
@@ -248,6 +285,95 @@ int64_t csr_offsets(const int32_t* ids, int64_t num_valid, int64_t num_groups,
     for (; g <= num_groups && g <= id; ++g) off[g] = (int32_t)i;
   }
   for (; g <= num_groups; ++g) off[g] = (int32_t)num_valid;
+  return 0;
+}
+
+// The radial part of the spherical basis of one structure's local edges
+// (src[e] -> dst[e], positions pos (n, 3) in double): for each edge the
+// distance d, x = d / cutoff, the polynomial envelope of exponent p
+// (1/max(x, 1e-12) + a x^p + b x^(p+1) + c x^(p+2) for x < 1, else 0), and
+// out[e, l*nr + n] = (norm[l,n] * j_l(max(zeros[l,n] * x, 1e-12))) * env,
+// j_l(t) = sin(t) (sum_k u^k S[l,k]) + cos(t) (sum_k u^k C[l,k]), u = 1/t,
+// S and C (ns, ns + 1), p >= 0.  Returns 0, or -1 (out undefined) when an
+// index lies outside [0, n).
+int64_t sbf_radial(const double* pos, int64_t n, const int32_t* src,
+                   const int32_t* dst, int64_t e, double cutoff, int64_t p,
+                   int64_t ns, int64_t nr, const double* zeros,
+                   const double* norm, const double* S, const double* C,
+                   float* out) {
+  if (!in_range(src, e, n) || !in_range(dst, e, n)) return -1;
+  const int64_t P = ns + 1;
+  const double a = (double)(-(p + 1) * (p + 2)) / 2.0;
+  const double b = (double)(p * (p + 2));
+  const double c = (double)(-p * (p + 1)) / 2.0;
+  std::vector<double> pw(std::max(ns + 1, p + 3));
+  for (int64_t i = 0; i < e; ++i) {
+    const double* ps = pos + 3 * (int64_t)src[i];
+    const double* pd = pos + 3 * (int64_t)dst[i];
+    const double dx = pd[0] - ps[0], dy = pd[1] - ps[1], dz = pd[2] - ps[2];
+    const double xx = dx * dx, yy = dy * dy, zz = dz * dz;
+    const double x = std::sqrt((xx + yy) + zz) / cutoff;
+    double env = 0.0;
+    if (x < 1.0) {
+      powers(x, p + 2, pw.data());
+      env = ((1.0 / std::max(x, 1e-12) + a * pw[p]) + b * pw[p + 1]) +
+            c * pw[p + 2];
+    }
+    float* o = out + i * ns * nr;
+    for (int64_t l = 0; l < ns; ++l) {
+      const double* sl = S + l * P;
+      const double* cl = C + l * P;
+      for (int64_t r = 0; r < nr; ++r) {
+        const double t = std::max(zeros[l * nr + r] * x, 1e-12);
+        powers(1.0 / t, l + 1, pw.data());
+        double ss = 0.0, sc = 0.0;
+        for (int64_t k = 0; k <= l + 1; ++k) {
+          ss = ss + pw[k] * sl[k];
+          sc = sc + pw[k] * cl[k];
+        }
+        const double j = std::sin(t) * ss + std::cos(t) * sc;
+        o[l * nr + r] = (float)((norm[l * nr + r] * j) * env);
+      }
+    }
+  }
+  return 0;
+}
+
+// The angular part of the basis over triplets or pairs (ia, ib, ic): v1 =
+// pos[ib] - pos[ia], v2 = pos[ic] - pos[ib], the angle atan2(|v1 x v2|,
+// v1 . v2), and out[t, l] = P_l(cos angle) * pref[l] by the Legendre
+// recurrence.  Returns 0, or -1 (out undefined) when an index lies outside
+// [0, n).
+int64_t cbf(const double* pos, int64_t n, const int32_t* ia, const int32_t* ib,
+            const int32_t* ic, int64_t m, int64_t ns, const double* pref,
+            float* out) {
+  if (!in_range(ia, m, n) || !in_range(ib, m, n) || !in_range(ic, m, n))
+    return -1;
+  std::vector<double> pl(std::max<int64_t>(ns, 2));
+  for (int64_t t = 0; t < m; ++t) {
+    const double* pa = pos + 3 * (int64_t)ia[t];
+    const double* pb = pos + 3 * (int64_t)ib[t];
+    const double* pc = pos + 3 * (int64_t)ic[t];
+    double v1[3], v2[3];
+    for (int d = 0; d < 3; ++d) {
+      v1[d] = pb[d] - pa[d];
+      v2[d] = pc[d] - pb[d];
+    }
+    const double d0 = v1[0] * v2[0], d1 = v1[1] * v2[1], d2 = v1[2] * v2[2];
+    const double dot = (d0 + d1) + d2;
+    const double c0 = v1[1] * v2[2] - v1[2] * v2[1];
+    const double c1 = v1[2] * v2[0] - v1[0] * v2[2];
+    const double c2 = v1[0] * v2[1] - v1[1] * v2[0];
+    const double q0 = c0 * c0, q1 = c1 * c1, q2 = c2 * c2;
+    const double cth = std::cos(std::atan2(std::sqrt((q0 + q1) + q2), dot));
+    pl[0] = 1.0;
+    pl[1] = cth;
+    for (int64_t l = 2; l < ns; ++l)
+      pl[l] = (((double)(2 * l - 1) * cth) * pl[l - 1] -
+               (double)(l - 1) * pl[l - 2]) /
+              (double)l;
+    for (int64_t l = 0; l < ns; ++l) out[t * ns + l] = (float)(pl[l] * pref[l]);
+  }
   return 0;
 }
 

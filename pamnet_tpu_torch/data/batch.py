@@ -247,7 +247,24 @@ def attach_basis(s: dict, cutoff_l: float, num_spherical: int = 7,
                  num_radial: int = 6, envelope_exponent: int = 5) -> dict:
     """Host float64 spherical basis of one structure: ``sbf_radial``
     (el, ns*nr), ``cbf2`` (t2, ns), ``cbf1`` (t1, ns) (reference math:
-    layers/basic.py:79-116).  Geometry only, no trainable parameter."""
+    layers/basic.py:79-116), computed by the native library
+    (``native.sbf_radial``, ``native.cbf``), which releases the GIL: bit for
+    bit ``attach_basis_np``, the numpy reference it is held to, but for a
+    rare float32 ulp of ``sbf_radial`` where numpy's BLAS adds j_l's closed
+    form in another order.  Geometry only, no trainable parameter."""
+    t = bessel_basis_tables(num_spherical, num_radial)
+    pos = np.ascontiguousarray(s["pos"], np.float64)
+    t2, t1 = s["t2"], s["t1"]
+    s["sbf_radial"] = native.sbf_radial(pos, s["el"], cutoff_l, envelope_exponent, t)
+    s["cbf2"] = native.cbf(pos, t2["idx_i"], t2["idx_j"], t2["idx_k"], t["sph_pref"])
+    s["cbf1"] = native.cbf(pos, t1["idx_i"], t1["idx_j1"], t1["idx_j2"], t["sph_pref"])
+    return s
+
+
+def attach_basis_np(s: dict, cutoff_l: float, num_spherical: int = 7,
+                    num_radial: int = 6, envelope_exponent: int = 5) -> dict:
+    """``attach_basis`` in numpy: the reference the native basis is held
+    to."""
     t = bessel_basis_tables(num_spherical, num_radial)
     pos = s["pos"].astype(np.float64)
     src, dst = s["el"]

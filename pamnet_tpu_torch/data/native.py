@@ -4,8 +4,16 @@ triplet and pair builders, each bit for bit the numpy builder of
 ``data/graphbuild.py`` on the same input, and of its collation helpers
 (``concat_offset_i32``, ``concat_rows_f32``: a padded concatenation read
 from arrays of source addresses, bit for bit the numpy collation of
-``data/batch.py``) and of a batch's CSR arrays (``csr_perm``,
-``csr_offsets``: bit for bit ``batch.build_perm_np`` and ``batch._offsets``).
+``data/batch.py``), of a batch's CSR arrays (``csr_perm``,
+``csr_offsets``: bit for bit ``batch.build_perm_np`` and ``batch._offsets``)
+and of a structure's host spherical basis (``sbf_radial``, ``cbf``: bit for
+bit ``batch.attach_basis_np``, but for a rare float32 ulp of the radial
+table where numpy's BLAS adds j_l's closed form in another order:
+``tests/test_torch_native_basis.py``).
+
+``ctypes.CDLL`` releases the GIL for the length of each call, so threads
+that build structures at once (the scoring service's handlers) run these
+routines in parallel.
 
 The library is compiled by ``g++`` at first use into ``build/torch_ext/`` at
 the repository root, named by a hash of the source and the flags, so an
@@ -75,7 +83,8 @@ def library() -> ctypes.CDLL:
             i64p = np.ctypeslib.ndpointer(dtype=np.int64, flags="C_CONTIGUOUS")
             f32p = np.ctypeslib.ndpointer(dtype=np.float32, flags="C_CONTIGUOUS")
             u64p = np.ctypeslib.ndpointer(dtype=np.uint64, flags="C_CONTIGUOUS")
-            i64, f32 = ctypes.c_int64, ctypes.c_float
+            f64p = np.ctypeslib.ndpointer(dtype=np.float64, flags="C_CONTIGUOUS")
+            i64, f32, f64 = ctypes.c_int64, ctypes.c_float, ctypes.c_double
             lib.radius_graph.argtypes = [f32p, i64p, i64, f32, f32, i64, i32p, i64]
             lib.knn_graph.argtypes = [f32p, i64p, i64, i64, i32p, i64]
             lib.expand_incoming.argtypes = [i32p, i32p, i64, i64, i32p, i64]
@@ -83,9 +92,12 @@ def library() -> ctypes.CDLL:
             lib.concat_rows_f32.argtypes = [u64p, i64p, i64, i64, f32p, i64]
             lib.csr_perm.argtypes = [i32p, i64, i64, i64, i32p, i32p]
             lib.csr_offsets.argtypes = [i32p, i64, i64, i32p]
+            lib.sbf_radial.argtypes = [f64p, i64, i32p, i32p, i64, f64, i64, i64, i64,
+                                       f64p, f64p, f64p, f64p, f32p]
+            lib.cbf.argtypes = [f64p, i64, i32p, i32p, i32p, i64, i64, f64p, f32p]
             for fn in (lib.radius_graph, lib.knn_graph, lib.expand_incoming,
                        lib.concat_offset_i32, lib.concat_rows_f32, lib.csr_perm,
-                       lib.csr_offsets):
+                       lib.csr_offsets, lib.sbf_radial, lib.cbf):
                 fn.restype = i64
             _lib = lib
     return _lib
@@ -244,3 +256,51 @@ def csr_offsets(ids: np.ndarray, num_valid: int, num_groups: int) -> np.ndarray 
     if library().csr_offsets(ids, num_valid, num_groups, off) < 0:
         return None
     return off
+
+
+def _positions(pos: np.ndarray) -> np.ndarray:
+    pos = np.ascontiguousarray(pos, np.float64)
+    if pos.ndim != 2 or pos.shape[1] != 3:
+        raise ValueError(f"positions of shape {pos.shape}, want (n, 3)")
+    return pos
+
+
+def sbf_radial(pos: np.ndarray, edge_index: np.ndarray, cutoff_l: float,
+               envelope_exponent: int, tables: dict) -> np.ndarray:
+    """(E, ns*nr) float32: the radial part of the spherical basis of the
+    local edges ``edge_index`` (2, E) over the float64 positions ``pos``,
+    with the constants ``tables`` of ``ops.bessel.bessel_basis_tables(ns,
+    nr)``; ``batch.attach_basis_np``'s ``sbf_radial``.  Raises IndexError on
+    an index outside the positions."""
+    if envelope_exponent < 0:
+        raise ValueError(f"envelope exponent {envelope_exponent} < 0")
+    pos = _positions(pos)
+    zeros, norm = (np.ascontiguousarray(tables[k], np.float64) for k in ("zeros", "norm"))
+    S, C = (np.ascontiguousarray(tables[k], np.float64) for k in ("S", "C"))
+    ns, nr = zeros.shape
+    if norm.shape != (ns, nr) or S.shape != (ns, ns + 1) or C.shape != S.shape:
+        raise ValueError("basis tables of mismatched shapes")
+    src, dst = (np.ascontiguousarray(r, np.int32) for r in edge_index)
+    out = np.empty((src.shape[0], ns * nr), np.float32)
+    if library().sbf_radial(pos, pos.shape[0], src, dst, src.shape[0], float(cutoff_l),
+                            int(envelope_exponent), ns, nr, zeros, norm, S, C, out) < 0:
+        raise IndexError("edge index out of range")
+    return out
+
+
+def cbf(pos: np.ndarray, ia: np.ndarray, ib: np.ndarray, ic: np.ndarray,
+        sph_pref: np.ndarray) -> np.ndarray:
+    """(T, ns) float32: the angular part of the spherical basis of the
+    triplets or pairs (ia, ib, ic) over the float64 positions ``pos``, the
+    angle between pos[ib] - pos[ia] and pos[ic] - pos[ib]; ``ns =
+    len(sph_pref)``; ``batch.attach_basis_np``'s ``cbf2`` / ``cbf1``.
+    Raises IndexError on an index outside the positions."""
+    pos = _positions(pos)
+    pref = np.ascontiguousarray(sph_pref, np.float64)
+    ia, ib, ic = (np.ascontiguousarray(a, np.int32) for a in (ia, ib, ic))
+    if not ia.ndim == 1 or not ia.shape == ib.shape == ic.shape:
+        raise ValueError("index arrays of mismatched shapes")
+    out = np.empty((ia.shape[0], pref.shape[0]), np.float32)
+    if library().cbf(pos, pos.shape[0], ia, ib, ic, ia.shape[0], pref.shape[0], pref, out) < 0:
+        raise IndexError("triplet index out of range")
+    return out

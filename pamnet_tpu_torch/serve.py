@@ -27,8 +27,8 @@ forward's issue) and ``serve.d2h`` (the copy back, which waits for the
 forward), and ``serve.reply``.
 
 Concurrency: the handler threads build and collate their requests' graphs
-at once, with no lock held (the native graph builders, numpy's array loops
-of the basis and the collation's concatenations run without the GIL); the
+at once, with no lock held (the native library's graph builders, spherical
+basis and collation concatenations release the GIL while they run); the
 service's lock covers only a batch's copy to the device, its forward and its
 copy back.
 """
